@@ -1,0 +1,58 @@
+"""Single entry point dispatching on graph layout.
+
+The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  Only the
+:class:`DenseBatch` layout is ported; ``method`` names the same
+implementations as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.ops import dense_block as _dense
+from dfgnn_tpu_torch.ops import flash_mask
+
+
+def graph_attention(
+    g,
+    q: Optional[torch.Tensor],
+    k: Optional[torch.Tensor],
+    v: torch.Tensor,
+    *,
+    score: str = "dot",
+    e_row: Optional[torch.Tensor] = None,
+    e_col: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.2,
+    dropout_rate: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
+    return_weights: bool = False,
+    method: str = "auto",
+):
+    """Fused (or oracle) SDDMM -> edge-softmax -> SpMM attention convolution.
+
+    On a :class:`DenseBatch`, ``auto`` and ``flash`` run the flash kernel and
+    ``dense`` and ``reference`` the dense formulation; ``return_weights=True``
+    always takes the dense formulation, the one that materialises weights.
+    The ``DFGNN_TPU_FORCE_METHOD`` environment variable overrides
+    ``method="auto"``.
+    """
+    if method == "auto":
+        method = os.environ.get("DFGNN_TPU_FORCE_METHOD", "auto")
+    if not isinstance(g, DenseBatch):
+        raise NotImplementedError(
+            f"graph layout {type(g).__name__} is not ported yet: only DenseBatch "
+            "is. The edge-list Graph comes with ROADMAP.md queue 1 item 4, the "
+            "bucketed full graph with item 7, SampledBlock with item 8 and the "
+            "edge-partitioned graph with item 10.")
+    kw = dict(score=score, e_row=e_row, e_col=e_col, negative_slope=negative_slope,
+              dropout_rate=dropout_rate, dropout_generator=dropout_generator)
+    if method in ("auto", "flash") and not return_weights:
+        return flash_mask.flash_graph_attention(g, q, k, v, **kw)
+    if method in ("auto", "dense", "flash", "reference"):
+        return _dense.dense_graph_attention(g, q, k, v, **kw,
+                                            return_weights=return_weights)
+    raise ValueError(f"method {method!r} invalid for DenseBatch")
