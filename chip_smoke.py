@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``dfgnn_tpu_torch/csrc/``, holds it
-against its plain PyTorch version on the card, then serves three bs=1024
-requests of the 8-layer, hidden-128 GTModel (PATTERN, random weights from a
-seed) through ``method="auto"`` and checks that every layer went through the
-kernel and that the logits agree with ``method="dense"``.  Prints progress,
-then a ``{"kernels": [...]}`` JSON line, and last a ``{"ok": true, ...}`` line.
-Exits non-zero, with no result line, when there is no CUDA device or any
-check fails.  Imports no JAX.
+Builds the port's CUDA kernels from ``dfgnn_tpu_torch/csrc/`` and holds the
+flash-attention forward (kernel #1) and backward (kernel #3) against their
+plain PyTorch versions on the card, with times beside their bounds and
+beside PyTorch's ``scaled_dot_product_attention``.  Then it drives two paths
+of the 8-layer, hidden-128, 1-head GTModel with random weights from a seed:
+serving (three bs=1024 PATTERN-like requests through ``method="auto"``,
+logits held against ``method="dense"``) and training (the trainer twin
+``dfgnn_tpu_torch.scripts.train_gtconv`` on ogbg-molhiv, bs=1024, two epochs
+of 8 steps, 8 forward and 8 backward kernel launches a step; 3 Adam steps
+held against ``method="dense"``; ``--checkgrad``; a train step's time and
+peak memory).  Prints progress, then a ``{"kernels": [...]}`` JSON line, and
+last a ``{"ok": true, ...}`` line.  Exits non-zero, with no result line, when
+there is no CUDA device or any check fails.  Imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -27,14 +33,32 @@ FP32_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX package's flash-vs-dense bar
 # bf16 outputs are O(1) values with 8 significant bits (a step of 2**-8 near
 # 1); ordering and ex rounding differences stay well inside 3e-2
 BF16_TOL = dict(rtol=0.0, atol=3e-2)
+# The backward in fp32: the kernel and cuBLAS sum dp over f and the products
+# over P in other orders; each sum of O(10) terms differs by a few fp32 ulps,
+# and atol 1e-4 leaves a tenfold margin over that.
+BWD_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+# The backward in bf16: ds and p are rounded to bf16 before the products and
+# the sums are cast to bf16, so the bar is a bf16 step of the largest
+# gradient, 2**-6 of it (set per tensor in bwd_bf16_tol).
+BF16_BWD_SCALE = 2.0 ** -6
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
+TRAJECTORY_RTOL = 1e-3  # auto against dense losses over 3 Adam steps
 KERNEL_SHAPES = [  # (B, h, P, f, with_val, dtype)
-    (1024, 1, 128, 128, False, torch.float32),  # the serving path's shape
+    (1024, 1, 128, 128, False, torch.float32),  # the serving and training paths' shape
     (3, 2, 64, 16, True, torch.float32),
     (2, 4, 512, 32, False, torch.float32),
     (1024, 1, 128, 128, False, torch.bfloat16),
 ]
+BWD_SHAPES = KERNEL_SHAPES + [
+    (2, 2, 100, 64, True, torch.float32),  # P not a multiple of the tiles
+]
+MAIN_SHAPE = (1024, 1, 128, 128)
 N_REQUESTS, BATCH, NP_PAD, HIDDEN, LAYERS = 3, 1024, 128, 128, 8
+TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", str(LAYERS),
+              "--heads", "1", "--batch-size", str(BATCH)]
+EPOCHS, STEPS_PER_EPOCH, TRAJECTORY_STEPS = 2, 8, 3
+# H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
+FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 def max_err(got, want, tol):
@@ -47,13 +71,42 @@ def max_err(got, want, tol):
     return float(err.max())
 
 
-def in_turns(bench, plain_fn, kernel_fn):
+def bwd_bf16_tol(want):
+    return dict(rtol=0.0, atol=BF16_BWD_SCALE * float(want.float().abs().max()))
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the work over the fp32 peak and
+    the bytes over the memory rate."""
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bytes(B, h, P, f, itemsize):
+    """Bytes the forward and the backward must move: each input read once
+    (q, k, v, adj; the backward also dO, lse, delta), each output written
+    once (out, lse; dq, dk, dv)."""
+    feat = B * P * h * f * itemsize
+    rows = h * B * P * 4
+    return 4 * feat + B * P * P + rows, 7 * feat + B * P * P + 2 * rows
+
+
+def attention_bounds(B, h, P, f, itemsize):
+    """Bounds of the forward and the backward over a dense [P, P] block per
+    (graph, head): 2 and 5 products of 2*B*h*P*P*f operations."""
+    fwd_bytes, bwd_bytes = attention_bytes(B, h, P, f, itemsize)
+    return (bound(2 * 2 * B * h * P * P * f, fwd_bytes),
+            bound(5 * 2 * B * h * P * P * f, bwd_bytes))
+
+
+def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
     """Times plain, kernel, kernel, plain; returns the two means (ms)."""
     p1 = bench(plain_fn)[1]
     k1 = bench(kernel_fn)[1]
     k2 = bench(kernel_fn)[1]
     p2 = bench(plain_fn)[1]
-    print(f"  times in turns (ms): plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f}")
+    a, b = names
+    print(f"  times in turns (ms): {a} {p1:.4f}, {b} {k1:.4f}, {b} {k2:.4f}, {a} {p2:.4f}")
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -62,17 +115,24 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
               file=sys.stderr)
         return 1
+    import torch.nn.functional as F
+
     from dfgnn_tpu_torch import DenseBatch, GTModel
+    from dfgnn_tpu_torch.data.collate import batch_iterator
+    from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import flash_mask
+    from dfgnn_tpu_torch.scripts import train_gtconv
+    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
-    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"nvidia-smi name, power.limit: {smi}")
+    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"nvidia-smi name, power.limit on the next line")
+    print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN: the fp32 reference runs its products in full fp32")
@@ -81,50 +141,120 @@ def main() -> int:
     t0 = time.perf_counter()
     lib, log = flash_mask.build()
     print(f"built {lib.name} with nvcc in {time.perf_counter() - t0:.2f} s")
-    for line in sorted({l.strip() for l in log.splitlines() if "registers" in l or "spill" in l}):
-        print(f"  ptxas, per instantiation: {line}")
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
-    # 3. kernel against its plain version
-    record = {"name": "flash_mask_fwd", "route": "cuda",
-              "source": "dfgnn_tpu_torch/csrc/flash_mask_fwd.cu",
-              "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:160"}
-    for i, (B, h, P, f, with_val, dtype) in enumerate(KERNEL_SHAPES):
+    def inputs(seed, B, h, P, f, with_val, dtype):
         q, k, v, adj, val = (torch.from_numpy(a).cuda() for a in
-                             attention_inputs(np.random.default_rng(i), B, h, P, f))
-        q, k, v, val = q.to(dtype), k.to(dtype), v.to(dtype), val if with_val else None
+                             attention_inputs(np.random.default_rng(seed), B, h, P, f))
+        return q.to(dtype), k.to(dtype), v.to(dtype), adj, val if with_val else None
+
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = attention_bounds(*MAIN_SHAPE, 4)
+    fwd_rec = {"name": "flash_mask_fwd", "route": "cuda",
+               "source": "dfgnn_tpu_torch/csrc/flash_mask_fwd.cu",
+               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:160",
+               "bound_ms": fwd_bound, "bound_by": fwd_by}
+    bwd_rec = {"name": "flash_mask_bwd", "route": "cuda",
+               "source": "dfgnn_tpu_torch/csrc/flash_mask_bwd.cu",
+               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:256",
+               "bound_ms": bwd_bound, "bound_by": bwd_by}
+    print(f"bounds at B, h, P, f = {MAIN_SHAPE}, fp32, over dense [P, P] blocks "
+          f"({FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): forward {fwd_bound:.4f} ms "
+          f"({fwd_by}), backward {bwd_bound:.4f} ms ({bwd_by})")
+
+    # 3. kernel #1 against its plain version
+    for i, (B, h, P, f, with_val, dtype) in enumerate(KERNEL_SHAPES):
+        q, k, v, adj, val = inputs(i, B, h, P, f, with_val, dtype)
         out, lse = flash_mask.flash_mask_fwd(q, k, v, adj, val, want_lse=True)
         torch.cuda.synchronize()
         want_out, want_lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, val)
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
         e_out = max_err(out, want_out, tol)
         e_lse = max_err(lse, want_lse, FP32_TOL)
-        print(f"kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype}: "
+        print(f"fwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype}: "
               f"max abs err out {e_out:.3e} (tol {tol}), lse {e_lse:.3e} (tol {FP32_TOL})")
-        if (B, h, P, f) == (1024, 1, 128, 128):
+        if (B, h, P, f) == MAIN_SHAPE and dtype == torch.float32:
+            nnz = int(adj.sum())
+            ops = [n * 2 * nnz * h * f / FP32_FLOPS * 1e3 for n in (2, 5)]
+            mem = [n / HBM_BYTES_PER_S * 1e3 for n in attention_bytes(*MAIN_SHAPE, 4)]
+            print(f"  these inputs hold {nnz} edges of {B * P * P} block entries "
+                  f"({nnz / (B * P * P):.3f}); over the edges alone the products take "
+                  f"{ops[0]:.4f} ms (forward) and {ops[1]:.4f} ms (backward) against "
+                  f"{mem[0]:.4f} and {mem[1]:.4f} ms for the bytes")
+        if (B, h, P, f) == MAIN_SHAPE:
             ms, plain_ms = in_turns(
                 benchmark,
                 lambda: flash_mask.flash_mask_fwd_plain(q, k, v, adj),
                 lambda: flash_mask.flash_mask_fwd(q, k, v, adj))
-            print(f"  {dtype} at the serving shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            print(f"  {dtype} at the main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                   f"({smi})")
             if dtype == torch.float32:
-                record.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms)
+                mask = adj[:, None].bool()
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = benchmark(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=1.0))[1]
+                print(f"  library: scaled_dot_product_attention forward, boolean mask, "
+                      f"{lib_ms:.4f} ms; bound {fwd_bound:.4f} ms")
+                fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
-    # 4. the slice: GTModel serving bs=1024 requests
+    # 4. kernel #3 against its plain version
+    for i, (B, h, P, f, with_val, dtype) in enumerate(BWD_SHAPES):
+        q, k, v, adj, val = inputs(10 + i, B, h, P, f, with_val, dtype)
+        out, lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, val)
+        do = torch.from_numpy(np.random.default_rng(100 + i).standard_normal(q.shape)
+                              .astype(np.float32)).cuda().to(dtype)
+        got = flash_mask.flash_mask_bwd(q, k, v, adj, val, out, lse, do)
+        torch.cuda.synchronize()
+        want = flash_mask.flash_mask_bwd_plain(q, k, v, adj, val, lse, do,
+                                               flash_mask.bwd_delta(do, out))
+        tols = [BWD_FP32_TOL if dtype == torch.float32 else bwd_bf16_tol(w) for w in want]
+        errs = [max_err(g, w, t) for g, w, t in zip(got, want, tols)]
+        if (lse == flash_mask.NEG_BIG).sum() == 0:
+            raise AssertionError("the inputs have no empty rows")
+        print(f"bwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype}: max abs err "
+              + ", ".join(f"{n} {e:.3e} (max |{n}| {float(w.float().abs().max()):.3g}, atol "
+                          f"{t['atol']:.3g})" for n, e, w, t in zip(("dq", "dk", "dv"), errs,
+                                                                     want, tols)))
+        if (B, h, P, f) == MAIN_SHAPE:
+            ms, plain_ms = in_turns(
+                benchmark,
+                lambda: flash_mask.flash_mask_bwd_plain(q, k, v, adj, val, lse, do,
+                                                        flash_mask.bwd_delta(do, out)),
+                lambda: flash_mask.flash_mask_bwd(q, k, v, adj, val, out, lse, do))
+            print(f"  {dtype} at the main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"({smi}); both include delta = rowsum(dO * out)")
+            if dtype == torch.float32:
+                mask = adj[:, None].bool()
+                qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+                do_h = do.transpose(1, 2)
+                sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                              scale=1.0)
+                lib_fwd = benchmark(sdpa)[1]
+                lib_both = benchmark(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do_h))[1]
+                lib_ms = lib_both - lib_fwd
+                print(f"  library: scaled_dot_product_attention backward, boolean mask, timed "
+                      f"as (fwd+bwd) - fwd = {lib_both:.4f} - {lib_fwd:.4f} = {lib_ms:.4f} ms; "
+                      f"bound {bwd_bound:.4f} ms")
+                bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+
+    # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
     model = GTModel("PATTERN", out_size=2, hidden_size=HIDDEN, num_layers=LAYERS, num_heads=1,
                     generator=torch.Generator().manual_seed(0), device="cuda").eval()
     requests = []
     for i in range(N_REQUESTS):
         rng = np.random.default_rng(i)
         graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)]
-        batch = DenseBatch.from_graph_list(graphs, np_pad=NP_PAD).to("cuda")
+        batch = DenseBatch.from_graph_list(graphs, np_pad=NP_PAD)
         x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).to("cuda")
         requests.append((batch, x))
     print(f"made {N_REQUESTS} requests of {BATCH} PATTERN-like graphs, "
           f"{[b.n_edges for b, _ in requests]} edges")
 
     logits = []
-    flash_mask.LAUNCHES = 0
+    flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
     with torch.inference_mode():
         for batch, x in requests:
             before = flash_mask.LAUNCHES
@@ -133,9 +263,11 @@ def main() -> int:
             if flash_mask.LAUNCHES - before != LAYERS:
                 raise AssertionError(f"{flash_mask.LAUNCHES - before} kernel launches in a "
                                      f"request, expected {LAYERS}")
-    record["launches"] = flash_mask.LAUNCHES
+    serve_fwd, serve_bwd = flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES
+    if serve_bwd != 0:
+        raise AssertionError(f"serving launched the backward kernel {serve_bwd} times")
     print(f"served {N_REQUESTS} requests through method='auto': "
-          f"{record['launches']} kernel launches ({LAYERS} per request)")
+          f"{serve_fwd} forward kernel launches ({LAYERS} per request), 0 backward")
 
     with torch.inference_mode():
         for i, ((batch, x), got) in enumerate(zip(requests, logits)):
@@ -147,10 +279,11 @@ def main() -> int:
         # a small input against the CPU model (the plain path) with the same weights
         rng = np.random.default_rng(100)
         small = DenseBatch.from_graph_list(
-            [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 4)], np_pad=NP_PAD)
+            [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 4)], np_pad=NP_PAD,
+            device="cpu")
         xs = torch.from_numpy(rng.integers(0, 3, size=(4 * NP_PAD,)))
         cpu_model = GTModel("PATTERN", out_size=2, hidden_size=HIDDEN, num_layers=LAYERS,
-                            generator=torch.Generator().manual_seed(1))
+                            generator=torch.Generator().manual_seed(1), device="cpu")
         cpu_model.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
         e = max_err(model(small.to("cuda"), xs.to("cuda")).cpu(), cpu_model(small, xs), MODEL_TOL)
         print(f"small batch on the card vs the CPU model: max abs err {e:.3e} (tol {MODEL_TOL})")
@@ -159,14 +292,93 @@ def main() -> int:
         auto_ms, dense_ms = in_turns(
             benchmark,
             lambda: model(batch, x, impl="dense"),
-            lambda: model(batch, x))
+            lambda: model(batch, x), names=("dense", "auto"))
     edges = batch.n_edges * LAYERS
     print(f"GTModel forward per bs={BATCH} request ({smi}): "
           f"auto {auto_ms:.4f} ms ({edges / auto_ms * 1e3:.4e} edges/s), "
           f"dense {dense_ms:.4f} ms ({edges / dense_ms * 1e3:.4e} edges/s); "
           f"edges/s = edges x layers / forward time")
+    del model, requests, logits
 
-    print(json.dumps({"kernels": [record]}))
+    # 6. training: the trainer twin, ogbg-molhiv, bs=1024, 8 steps an epoch
+    flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    history = train_gtconv.main(TRAIN_ARGS + ["--epochs", str(EPOCHS)])
+    torch.cuda.synchronize()
+    train_fwd, train_bwd = flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES
+    steps = history["steps"]
+    if len(steps) != EPOCHS * STEPS_PER_EPOCH:
+        raise AssertionError(f"{len(steps)} train steps, expected {EPOCHS * STEPS_PER_EPOCH}")
+    for n, st in enumerate(steps):
+        if (st["fwd_launches"], st["bwd_launches"]) != (LAYERS, LAYERS):
+            raise AssertionError(f"step {n}: {st['fwd_launches']} forward and "
+                                 f"{st['bwd_launches']} backward launches, expected {LAYERS} each")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"step {n}: loss {st['loss']}")
+    print(f"trained {len(steps)} steps in {time.perf_counter() - t0:.2f} s (host clock, data "
+          f"set-up included): {LAYERS} forward + {LAYERS} backward kernel launches every step; "
+          f"{train_fwd} forward (training and {EPOCHS} evaluation passes) and {train_bwd} "
+          f"backward launches in the run; losses {[round(st['loss'], 5) for st in steps]}")
+    fwd_rec["launches"], bwd_rec["launches"] = train_fwd, train_bwd
+
+    # 7. trajectory: 3 Adam steps through the kernels (8 + 8 launches a step) and
+    #    through the dense path (none)
+    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
+    batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
+    models = {"auto": GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
+                              generator=torch.Generator().manual_seed(2))}
+    models["dense"] = GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
+                              method="dense", generator=torch.Generator().manual_seed(3))
+    models["dense"].load_state_dict(models["auto"].state_dict())
+    losses = {}
+    for name, m in models.items():
+        state = TrainState.create(m, lr=1e-3, step_lr_every=20)
+        loss_fn = make_loss_fn(m, ds.task, ds.num_classes)
+        flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
+        losses[name] = [float(train_step(state, loss_fn, *b)[1]) for b in batches]
+        want = TRAJECTORY_STEPS * LAYERS if name == "auto" else 0
+        if (flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES) != (want, want):
+            raise AssertionError(f"{name}: {flash_mask.LAUNCHES} forward and "
+                                 f"{flash_mask.BWD_LAUNCHES} backward launches, expected {want}")
+    for i, (a, d) in enumerate(zip(losses["auto"], losses["dense"])):
+        if not abs(a - d) <= TRAJECTORY_RTOL * abs(d):
+            raise AssertionError(f"Adam step {i}: loss auto {a} vs dense {d}")
+        print(f"Adam step {i}: loss auto {a:.7f}, dense {d:.7f}, rel diff {abs(a - d) / abs(d):.2e} "
+              f"(rtol {TRAJECTORY_RTOL})")
+    del models
+
+    # 8. --checkgrad at full width (exits 1 on a mismatch)
+    train_gtconv.main(TRAIN_ARGS + ["--checkgrad"])
+
+    # 9. a train step's time and peak memory: forward, backward, Adam update
+    batch, x, y, m = batches[0]
+    model = GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
+                    generator=torch.Generator().manual_seed(4))
+    state = TrainState.create(model, lr=1e-3, step_lr_every=20)
+    loss_fn = make_loss_fn(model, ds.task, ds.num_classes)
+    steps = {"auto": lambda: train_step(state, loss_fn, batch, x, y, m),
+             "dense": lambda: train_step(state, lambda *a: loss_fn(*a, impl="dense"),
+                                         batch, x, y, m)}
+    step_auto, step_dense = in_turns(benchmark, steps["dense"], steps["auto"],
+                                     names=("dense", "auto"))
+    peaks = {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"train step (forward + backward + Adam) per bs={BATCH} ogbg-molhiv batch ({smi}): "
+          f"auto {step_auto:.4f} ms, dense {step_dense:.4f} ms; peak device memory allocated "
+          f"in one step: auto {peaks['auto']:.1f} MiB, dense {peaks['dense']:.1f} MiB")
+
+    records = [fwd_rec, bwd_rec]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for rec in records:
+        if set(rec) != set(keys):
+            raise AssertionError(f"kernel record {rec['name']} lacks {set(keys) - set(rec)}")
+    print(json.dumps({"kernels": [{key: rec[key] for key in keys} for rec in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -24,9 +24,7 @@
 // [kCols, f] shared-memory tile.  Softmax rows are independent, so splitting
 // a graph's rows across blocks needs no communication between blocks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -34,34 +32,11 @@ constexpr int kRows = 16;      // query rows of one (graph, head) per block
 constexpr int kCols = 64;      // key / value rows per shared-memory tile
 constexpr int kThreads = 256;
 constexpr int kMaxP = 2048;    // the [kRows, P] score rows must fit shared memory
-constexpr float kNegBig = -1e30f;
 constexpr float kDead = -0.5e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int F>
 size_t smem_bytes(int P) {
   return sizeof(float) * (size_t(kRows) * F + size_t(kCols) * (F + 1) + size_t(kRows) * P + kRows);
-}
-
-// Copies node rows [c0, c0 + kCols) of one (graph, head) into a [kCols, F + 1]
-// tile (the +1 keeps column reads of neighbouring rows in different banks);
-// rows past P read as 0.
-template <typename T, int F>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, long base, long row_stride,
-                                          int c0, int P, float* tile) {
-  for (int i = threadIdx.x; i < kCols * F; i += kThreads) {
-    const int c = i / F, d = i - c * F;
-    const int node = c0 + c;
-    tile[c * (F + 1) + d] = node < P ? to_f32(src[base + node * row_stride + d]) : 0.f;
-  }
 }
 
 template <typename T, int F>
@@ -99,7 +74,7 @@ flash_mask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int rg1 = tid / kCols;
   for (int c0 = 0; c0 < P; c0 += kCols) {
     __syncthreads();  // q is loaded and the previous tile is consumed
-    load_tile<T, F>(k, base, row_stride, c0, P, tile);
+    load_tile<T, F, kCols, kThreads>(k, base, row_stride, c0, P, tile);
     __syncthreads();
     float acc[kRpt1];
 #pragma unroll
@@ -141,7 +116,7 @@ flash_mask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int c = lane; c < P; c += 32) {
       const float e = expf(srow[c] - m);
       l += e;
-      srow[c] = to_f32(from_f32<T>(e));  // the product takes ex in v's dtype, as the Pallas kernel does
+      srow[c] = round_to<T>(e);  // the product takes ex in v's dtype, as the Pallas kernel does
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
@@ -163,7 +138,7 @@ flash_mask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int i = 0; i < kRpt3; ++i) o[i] = 0.f;
   for (int c0 = 0; c0 < P; c0 += kCols) {
     __syncthreads();  // ex and inv are written and the previous tile is consumed
-    load_tile<T, F>(v, base, row_stride, c0, P, tile);
+    load_tile<T, F, kCols, kThreads>(v, base, row_stride, c0, P, tile);
     __syncthreads();
     const int nc = min(kCols, P - c0);
     for (int c = 0; c < nc; ++c) {

@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dfgnn_tpu_torch.device import resolve_device
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -37,8 +39,11 @@ class DenseBatch:
     n_nodes: int = 0  # real nodes
 
     @staticmethod
-    def from_graph_list(graphs, np_pad: Optional[int] = None) -> "DenseBatch":
-        """Collate a list of (rows, cols, n_nodes) tuples on the host."""
+    def from_graph_list(graphs, np_pad: Optional[int] = None, *,
+                        device="cuda") -> "DenseBatch":
+        """Collate a list of (rows, cols, n_nodes) tuples in numpy on the
+        host, then move the batch to ``device`` in one copy per tensor."""
+        dev = resolve_device(device)
         max_n = max(g[2] for g in graphs)
         if np_pad is None:
             np_pad = max(_round_up(max_n, 128), 128)
@@ -55,8 +60,8 @@ class DenseBatch:
         cols = np.concatenate([np.asarray(c, dtype=np.int64) for _, c, _ in graphs])
         adj[gid, rows, cols] = 1
         return DenseBatch(
-            adj=torch.from_numpy(adj),
-            node_mask=torch.from_numpy(mask),
+            adj=torch.from_numpy(adj).to(dev),
+            node_mask=torch.from_numpy(mask).to(dev),
             n_graphs=B,
             np_pad=int(np_pad),
             n_edges=int(np.count_nonzero(adj)),

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dfgnn_tpu_torch.device import resolve_device
 from dfgnn_tpu_torch.graph import DenseBatch
 from dfgnn_tpu_torch.ops import graph_attention
 
@@ -29,11 +30,11 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-def linear(din: int, dout: int, generator: torch.Generator, device=None) -> nn.Linear:
+def linear(din: int, dout: int, generator: torch.Generator, device="cuda") -> nn.Linear:
     """``nn.Linear`` initialised as flax's ``nn.Dense``: lecun-normal
     weight, zero bias.  Drawn on the CPU from ``generator``, then moved."""
     w = lecun_normal_(torch.empty(dout, din), generator)
-    lin = nn.Linear(din, dout, device="meta").to_empty(device=device or "cpu")
+    lin = nn.Linear(din, dout, device="meta").to_empty(device=resolve_device(device))
     with torch.no_grad():
         lin.weight.copy_(w)
         lin.bias.zero_()
@@ -63,7 +64,7 @@ class GTConv(nn.Module):
     """
 
     def __init__(self, in_size: int, out_size: int, num_heads: int = 1,
-                 method: str = "auto", *, generator: torch.Generator, device=None):
+                 method: str = "auto", *, generator: torch.Generator, device="cuda"):
         super().__init__()
         self.out_size = out_size
         self.num_heads = num_heads

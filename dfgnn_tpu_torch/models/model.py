@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dfgnn_tpu_torch.device import resolve_device
 from dfgnn_tpu_torch.graph import DenseBatch
 from dfgnn_tpu_torch.models.conv import GTConv, linear
 
@@ -21,11 +22,11 @@ _EMBED_VOCAB = {"PATTERN": 3, "CLUSTER": 7}
 _DENSE_DATASETS = ("MNIST", "CIFAR10", "PascalVOC-SP", "COCO-SP", "digits", "digits-func")
 
 
-def embedding(vocab: int, dim: int, generator: torch.Generator, device=None) -> nn.Embedding:
+def embedding(vocab: int, dim: int, generator: torch.Generator, device="cuda") -> nn.Embedding:
     """``nn.Embedding`` initialised as flax's ``nn.Embed``: a normal with
     variance 1 / dim.  Drawn on the CPU from ``generator``, then moved."""
     w = torch.empty(vocab, dim).normal_(std=dim ** -0.5, generator=generator)
-    emb = nn.Embedding(vocab, dim, device="meta").to_empty(device=device or "cpu")
+    emb = nn.Embedding(vocab, dim, device="meta").to_empty(device=resolve_device(device))
     with torch.no_grad():
         emb.weight.copy_(w)
     return emb
@@ -34,7 +35,7 @@ def embedding(vocab: int, dim: int, generator: torch.Generator, device=None) -> 
 class AtomEncoder(nn.Module):
     """Sum of per-feature embeddings over the ogb atom-feature columns."""
 
-    def __init__(self, hidden_size: int, *, generator: torch.Generator, device=None):
+    def __init__(self, hidden_size: int, *, generator: torch.Generator, device="cuda"):
         super().__init__()
         for i, vocab in enumerate(_ATOM_FEATURE_DIMS):
             setattr(self, f"atom_{i}", embedding(vocab, hidden_size, generator, device))
@@ -48,7 +49,7 @@ class AtomEncoder(nn.Module):
 
 
 def choose_inproj(dataset_name: str, hidden_size: int, *, in_size: Optional[int] = None,
-                  generator: torch.Generator, device=None) -> nn.Module:
+                  generator: torch.Generator, device="cuda") -> nn.Module:
     """Dataset-specific input projection.  The Dense datasets need
     ``in_size``, the width of their node features."""
     if dataset_name in _ATOM_DATASETS:
@@ -89,7 +90,8 @@ class GTModel(nn.Module):
 
     def __init__(self, dataset_name: str, out_size: int, hidden_size: int = 64,
                  num_layers: int = 8, num_heads: int = 1, method: str = "auto", *,
-                 in_size: Optional[int] = None, generator: torch.Generator, device=None):
+                 in_size: Optional[int] = None, generator: torch.Generator,
+                 device="cuda"):
         super().__init__()
         self.inproj = choose_inproj(dataset_name, hidden_size, in_size=in_size,
                                     generator=generator, device=device)

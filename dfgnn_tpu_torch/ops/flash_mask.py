@@ -1,13 +1,16 @@
-"""Masked dense flash attention over a :class:`DenseBatch`, forward kernel.
+"""Masked dense flash attention over a :class:`DenseBatch`, forward and backward.
 
 The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask` for the dot
-score.  The Pallas kernel ``_fwd_kernel_dot`` becomes the hand-written CUDA
-kernel in ``csrc/flash_mask_fwd.cu``, built with ``nvcc`` for ``sm_90a`` at
-first use and bound with ``ctypes``.
+score.  The Pallas kernels ``_fwd_kernel_dot`` and ``_bwd_kernel_dot``
+become the hand-written CUDA kernels in ``csrc/flash_mask_fwd.cu`` and
+``csrc/flash_mask_bwd.cu``, built with ``nvcc`` for ``sm_90a`` into one
+library at first use and bound with ``ctypes``.
 
-:func:`flash_mask_fwd` is the kernel's wrapper.  For tensors on the CPU it
-runs :func:`flash_mask_fwd_plain`, the same function in plain PyTorch; for
-CUDA tensors it launches the kernel or raises.  It never falls back.
+:func:`flash_mask_fwd` and :func:`flash_mask_bwd` are the kernels' wrappers.
+For tensors on the CPU they run :func:`flash_mask_fwd_plain` and
+:func:`flash_mask_bwd_plain`, the same functions in plain PyTorch; for CUDA
+tensors they launch the kernels or raise.  They never fall back.
+:class:`_FlashDot` ties the two into autograd on every device.
 """
 
 from __future__ import annotations
@@ -28,10 +31,10 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_mask_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # What the kernel takes (see csrc/flash_mask_fwd.cu): head dims it is
 # instantiated for, and the most nodes whose score rows fit shared memory.
@@ -39,7 +42,8 @@ KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 KERNEL_MAX_P = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = 0  # kernel launches by flash_mask_fwd; callers may reset it to 0
+LAUNCHES = 0  # forward kernel launches by flash_mask_fwd; callers may reset it to 0
+BWD_LAUNCHES = 0  # backward launches by flash_mask_bwd (one per call); resettable
 
 
 def _nvcc() -> str:
@@ -50,26 +54,42 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel into ``_build/`` unless this source is built.
+    """Compile every ``csrc/*.cu`` into one library in ``_build/``, unless built.
 
-    The library's name carries a hash of the source and flags, so a stale
-    build is never loaded; it is written under a temporary name and renamed,
+    The library's name carries a hash of all sources, headers and flags, so
+    a stale build is never loaded.  The sources compile in parallel, one
+    ``nvcc`` each; the library is linked under a temporary name and renamed,
     so a concurrent process never loads a half-written file.  Returns the
     library's path and the compiler's messages ('' when already built).
     """
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_mask_fwd-{key}.so"
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    lib = BUILD_DIR / f"libdfgnn_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+    tag = f"{lib.stem}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.so"
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return lib, "".join(logs)
 
 
 @functools.cache
@@ -78,6 +98,8 @@ def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dfgnn_flash_mask_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.dfgnn_flash_mask_fwd.restype = i
+    lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, vp]
+    lib.dfgnn_flash_mask_bwd.restype = i
     lib.dfgnn_cuda_error_string.argtypes = [i]
     lib.dfgnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -104,6 +126,38 @@ def flash_mask_fwd_plain(q, k, v, adj, val=None):
     out = (out * inv.transpose(1, 2)).to(v.dtype)
     lse = torch.where(has, m + torch.log(torch.where(has, l, 1.0)), NEG_BIG)
     return out, lse[..., 0].permute(1, 0, 2)
+
+
+def bwd_delta(do, out):
+    """``delta = rowsum(dO * out)`` ``[h, B, P]`` fp32: the backward's input
+    that stays outside its kernel, as in the JAX package's ``_bwd``."""
+    return torch.einsum("bphf,bphf->hbp", do.float(), out.float()).contiguous()
+
+
+def flash_mask_bwd_plain(q, k, v, adj, val, lse, do, delta):
+    """The backward kernel's function in plain PyTorch, on any device.
+
+    ``q, k, v, do``: ``[B, P, h, f]``; ``adj``, ``val``: as the forward's;
+    ``lse``, ``delta``: ``[h, B, P]`` fp32.  Returns ``(dq, dk, dv)`` in the
+    dtypes of q, k and v.  Scores, ``p`` and ``ds`` are fp32; ``ds`` and
+    ``p`` are rounded to the input dtype before the products, as in the
+    Pallas kernel.  Empty rows (lse = -1e30, no edges) give p = 0.
+    """
+    s = torch.einsum("brhf,bchf->bhrc", q.float(), k.float())
+    if val is not None:
+        s = s * val[:, None].float()
+    edge = adj[:, None].bool()
+    lse_b = lse.permute(1, 0, 2)[..., None]      # [B, h, P, 1]
+    delta_b = delta.permute(1, 0, 2)[..., None]
+    p = torch.where(edge, torch.exp(torch.where(edge, s - lse_b, 0.0)), 0.0)
+    dp = torch.einsum("brhf,bchf->bhrc", do.float(), v.float())
+    ds = p * (dp - delta_b)
+    if val is not None:
+        ds = ds * val[:, None].float()
+    dq = torch.einsum("bhrc,bchf->brhf", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhrc,brhf->bchf", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhrc,brhf->bchf", p.to(do.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_args(q, k, v, adj, val):
@@ -162,19 +216,72 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
     return out, lse
 
 
+def flash_mask_bwd(q, k, v, adj, val, out, lse, do):
+    """Masked attention backward: ``(dq, dk, dv)`` ``[B, P, h, f]``.
+
+    ``out`` and ``lse`` are the forward's; ``do`` is the output's gradient.
+    Computes ``delta`` (:func:`bwd_delta`), then on CPU tensors runs
+    :func:`flash_mask_bwd_plain` and on CUDA tensors launches the kernel
+    (two passes, one C call) on the current stream.  The kernel takes what
+    the forward kernel takes, with ``out`` and ``do`` of q's dtype and shape,
+    ``do`` contiguous, and ``lse`` fp32 ``[h, B, P]``; anything else raises.
+    """
+    if q.device.type == "cpu":
+        return flash_mask_bwd_plain(q, k, v, adj, val, lse, do, bwd_delta(do, out))
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_mask_bwd kernel for device {q.device}")
+    _check_kernel_args(q, k, v, adj, val)
+    for name, t in (("out", out), ("do", do)):
+        if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must match q in dtype, shape and device")
+    if not do.is_contiguous():  # out is read only by bwd_delta, through its strides
+        raise ValueError("do must be contiguous")
+    B, P, h, f = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (h, B, P) or lse.device != q.device:
+        raise ValueError("lse must be fp32 [h, B, P] on q's device")
+    lse = lse.contiguous()  # a row per (head, graph, node): a cheap copy when strided
+    delta = bwd_delta(do, out)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.dfgnn_flash_mask_bwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            adj.data_ptr(), None if val is None else val.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, P, h, f, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_mask_bwd kernel launch failed: "
+                           + lib.dfgnn_cuda_error_string(err).decode())
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
 class _FlashDot(torch.autograd.Function):
-    """Kernel forward; the backward kernel is not ported yet."""
+    """The flash kernels in autograd, on every device.
+
+    The forward saves q, k, v, out and lse; the backward runs
+    :func:`flash_mask_bwd` (the plain versions on CPU tensors, the kernels
+    on CUDA tensors).  ``adj`` and ``val`` get no gradient: edge values are
+    constants on this path, as in the JAX package's ``_flash_dot_bwd``.
+    """
 
     @staticmethod
     def forward(ctx, q, k, v, adj, val):
-        return flash_mask_fwd(q, k, v, adj, val)[0]
+        need = any(ctx.needs_input_grad)
+        out, lse = flash_mask_fwd(q, k, v, adj, val, want_lse=need)
+        if need:
+            ctx.save_for_backward(q, k, v, adj, val, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the flash attention backward (_bwd_kernel_dot) has no CUDA kernel "
-            "yet; it is ROADMAP.md queue 2, kernel #3. Train with method='dense' "
-            "until then.")
+        q, k, v, adj, val, out, lse = ctx.saved_tensors
+        # grad_out may come expanded or strided (e.g. from .sum()); the kernel
+        # reads [B, P, h, f] contiguous
+        dq, dk, dv = flash_mask_bwd(q, k, v, adj, val, out, lse, grad_out.contiguous())
+        return dq, dk, dv, None, None
 
 
 def flash_graph_attention(
@@ -193,9 +300,9 @@ def flash_graph_attention(
     """Fused masked attention over a :class:`DenseBatch`, ``[B, P, h, f]``.
 
     Numerics match :func:`dfgnn_tpu_torch.ops.dense_block.dense_graph_attention`.
-    Edge values (``batch.val``) scale the raw scores.  On CPU tensors the
-    plain version runs and autograd differentiates it; on CUDA tensors the
-    kernel runs and has no backward yet.
+    Edge values (``batch.val``) scale the raw scores and get no gradient.
+    Differentiable through :class:`_FlashDot`: the kernels on CUDA tensors,
+    their plain versions on CPU tensors.
     """
     del e_row, e_col, negative_slope, dropout_generator  # add score / dropout: not ported
     if score == "add":
@@ -209,6 +316,4 @@ def flash_graph_attention(
             "in-kernel attention dropout (the edge hash) is not ported yet: "
             "ROADMAP.md queue 1 item 4. method='dense' takes dropout")
     val = None if batch.val is None else batch.val.float()
-    if q.device.type == "cpu":
-        return flash_mask_fwd_plain(q, k, v, batch.adj, val)[0]
     return _FlashDot.apply(q, k, v, batch.adj, val)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Needs a CUDA device and skips without one.  Imports torch and numpy only, so
 it also runs where JAX is missing:
@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from dfgnn_tpu_torch import DenseBatch, GTModel
+from dfgnn_tpu_torch.data.collate import collate_dense
+from dfgnn_tpu_torch.data.datasets import load_batched
 from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
-from dfgnn_tpu_torch.ops import flash_mask
+from dfgnn_tpu_torch.ops import dense_block, flash_mask
+from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -82,26 +85,115 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_mask.flash_mask_fwd(q48, q48, q48, adj)
 
 
-def test_flash_backward_raises(cuda):
-    q, k, v, adj, _ = _inputs(4, 2, 1, 64, 32)
-    q.requires_grad_(True)
-    batch = DenseBatch(adj=adj, node_mask=torch.ones(2, 64, dtype=torch.bool, device=cuda),
-                       n_graphs=2, np_pad=64)
-    out = flash_mask.flash_graph_attention(batch, q, k, v)
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.sum().backward()
+# (B, h, P, f, with_val): the training path's shape, chip_smoke.py's shapes,
+# ragged P, the smallest f and the largest shape the kernel takes
+BWD_SHAPES = [
+    (1024, 1, 128, 128, False),
+    (3, 2, 64, 16, True),
+    (2, 4, 512, 32, False),
+    (2, 2, 100, 64, True),
+    (3, 2, 40, 8, False),
+    (1, 1, 2048, 256, False),
+]
+# fp32: the kernel and cuBLAS sum dp over f and the products over P in other
+# orders; each sum of O(10) terms differs by a few fp32 ulps, 1e-4 absolute
+# leaves a tenfold margin over the expected difference
+BWD_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _bwd_inputs(seed, B, h, P, f, *, with_val=False, dtype=torch.float32):
+    q, k, v, adj, val = _inputs(seed, B, h, P, f, with_val=with_val, dtype=dtype)
+    out, lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, val)
+    do = torch.from_numpy(np.random.default_rng(seed + 1000).standard_normal(q.shape)
+                          .astype(np.float32)).cuda().to(dtype)
+    return q, k, v, adj, val, out, lse, do
+
+
+def _bwd_plain(q, k, v, adj, val, out, lse, do):
+    return flash_mask.flash_mask_bwd_plain(q, k, v, adj, val, lse, do,
+                                           flash_mask.bwd_delta(do, out))
+
+
+@pytest.mark.parametrize("B,h,P,f,with_val", BWD_SHAPES)
+def test_bwd_kernel_matches_plain_fp32(cuda, B, h, P, f, with_val):
+    args = _bwd_inputs(10, B, h, P, f, with_val=with_val)
+    got = flash_mask.flash_mask_bwd(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, _bwd_plain(*args)):
+        err = float((g - w).abs().max())
+        print(f"{name} B={B} h={h} P={P} f={f} val={with_val}: max abs err {err:.3e}, "
+              f"max |grad| {float(w.abs().max()):.3e}")
+        torch.testing.assert_close(g, w, **BWD_FP32_TOL)
+
+
+def test_bwd_kernel_matches_plain_bf16(cuda):
+    args = _bwd_inputs(11, 64, 2, 128, 64, dtype=torch.bfloat16)
+    got = flash_mask.flash_mask_bwd(*args)
+    for g, w in zip(got, _bwd_plain(*args)):
+        assert g.dtype == torch.bfloat16
+        # ds and p are rounded to bf16 (8 significant bits) before the
+        # products and the sums are cast to bf16: a bf16 step of the largest
+        # gradient, 2**-6 of it, bounds the difference
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+def test_bwd_launch_counter_counts_kernel_calls_only(cuda):
+    args = _bwd_inputs(12, 2, 1, 64, 32)
+    flash_mask.BWD_LAUNCHES = 0
+    flash_mask.flash_mask_bwd(*args)
+    flash_mask.flash_mask_bwd(*(None if t is None else t.cpu() for t in args))
+    _bwd_plain(*args)
+    assert flash_mask.BWD_LAUNCHES == 1
+
+
+def test_flash_autograd_on_card_matches_dense(cuda):
+    """Autograd through _FlashDot (both kernels) against autograd through
+    the dense oracle; ``.sum()`` hands the backward an expanded gradient."""
+    q, k, v, adj, val = _inputs(13, 4, 2, 128, 32, with_val=True)
+    batch = DenseBatch(adj=adj, node_mask=torch.ones(4, 128, dtype=torch.bool, device=cuda),
+                       val=val, n_graphs=4, np_pad=128)
+    grads = []
+    for fn in (flash_mask.flash_graph_attention, dense_block.dense_graph_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(batch, *leaves).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
 def test_gtmodel_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(5)
     graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 4)]
-    batch = DenseBatch.from_graph_list(graphs, np_pad=128)
+    batch = DenseBatch.from_graph_list(graphs, np_pad=128, device="cpu")
     x = torch.from_numpy(rng.integers(0, 3, size=(batch.n_graphs * batch.np_pad,)))
     model = GTModel("PATTERN", out_size=2, hidden_size=128, num_layers=8,
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
     with torch.inference_mode():
         want = model(batch, x)
         flash_mask.LAUNCHES = 0
         got = model.to(cuda)(batch.to(cuda), x.to(cuda))
     assert flash_mask.LAUNCHES == 8
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Adam step of a small GTModel on the card (both kernels) against
+    the same step on the CPU (their plain versions): the loss and every
+    parameter's gradient."""
+    ds = load_batched("ogbg-molhiv", n_graphs=16, quiet=True)
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        model = GTModel("ogbg-molhiv", out_size=1, hidden_size=32, num_layers=2,
+                        generator=torch.Generator().manual_seed(0), device=dev)
+        state = TrainState.create(model, lr=1e-3, step_lr_every=20, device=dev)
+        batch = collate_dense(ds, np.arange(16), np_pad=128, device=dev)
+        flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
+        _, loss = train_step(state, make_loss_fn(model, ds.task, ds.num_classes), *batch)
+        seen[dev] = (float(loss), (flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (cpu_loss, cpu_launches, cpu_grads), (loss, launches, grads) = seen["cpu"], seen["cuda"]
+    assert cpu_launches == (0, 0) and launches == (2, 2)
+    assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    for name, g in grads.items():
+        torch.testing.assert_close(g, cpu_grads[name], rtol=1e-3, atol=1e-5)

@@ -15,7 +15,7 @@ from dfgnn_tpu_torch.utils.benchmark import benchmark
 def _small(seed=0, B=2, P=16, h=1, f=8):
     rng = np.random.default_rng(seed)
     graphs = [(rng.integers(0, 10, 30), rng.integers(0, 10, 30), 10) for _ in range(B)]
-    batch = DenseBatch.from_graph_list(graphs, np_pad=P)
+    batch = DenseBatch.from_graph_list(graphs, np_pad=P, device="cpu")
     q, k, v = (torch.from_numpy(rng.standard_normal((B, P, h, f)).astype(np.float32))
                for _ in range(3))
     return batch, q, k, v
@@ -84,7 +84,7 @@ def test_flash_refuses_what_is_not_ported():
 
 def test_gtconv_flash_fused_raises(monkeypatch):
     batch, *_ = _small()
-    conv = GTConv(8, 8, generator=torch.Generator().manual_seed(0))
+    conv = GTConv(8, 8, generator=torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros(2 * 16, 8)
     with pytest.raises(NotImplementedError, match="_layer_kernel_dot"):
         conv(batch, x, impl="flash_fused")
@@ -118,7 +118,11 @@ def test_benchmark_needs_a_cuda_device(monkeypatch):
 
 def test_package_imports_no_jax():
     code = ("import sys, dfgnn_tpu_torch, dfgnn_tpu_torch.weights, "
-            "dfgnn_tpu_torch.utils.benchmark, dfgnn_tpu_torch.data.synthetic\n"
+            "dfgnn_tpu_torch.utils.benchmark, dfgnn_tpu_torch.data.synthetic, "
+            "dfgnn_tpu_torch.data.datasets, dfgnn_tpu_torch.data.collate, "
+            "dfgnn_tpu_torch.train, dfgnn_tpu_torch.utils.config, "
+            "dfgnn_tpu_torch.scripts.train_gtconv, dfgnn_tpu_torch.scripts.profile_train_step\n"
+            "assert 'yaml' not in sys.modules and 'sklearn' not in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dfgnn_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

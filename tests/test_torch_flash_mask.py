@@ -28,7 +28,7 @@ def _batches(rng, B, P, with_val=False):
         r, c, _ = random_graph_coo(rng, nb, 8, zero_deg_frac=0.15)
         graphs.append((r, c, nb))
     jb = JaxDenseBatch.from_graph_list(graphs, np_pad=P)
-    tb = DenseBatch.from_graph_list(graphs, np_pad=P)
+    tb = DenseBatch.from_graph_list(graphs, np_pad=P, device="cpu")
     if with_val:
         adj = np.asarray(jb.adj)
         val = np.where(adj, rng.standard_normal(adj.shape), 0.0).astype(np.float32)

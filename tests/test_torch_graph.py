@@ -43,7 +43,7 @@ def test_generators_match_jax_package(name, args):
 def test_dense_batch_matches_jax_package(gen, np_pad):
     graphs = [(r, c, n) for r, c, n, _ in
               getattr(synthetic, gen)(np.random.default_rng(3), 5)]
-    got = DenseBatch.from_graph_list(graphs, np_pad=np_pad)
+    got = DenseBatch.from_graph_list(graphs, np_pad=np_pad, device="cpu")
     want = JaxDenseBatch.from_graph_list(graphs, np_pad=np_pad)
     assert got.adj.dtype == torch.uint8 and got.node_mask.dtype == torch.bool
     np.testing.assert_array_equal(got.adj.numpy().astype(bool), np.asarray(want.adj))
@@ -55,11 +55,11 @@ def test_dense_batch_matches_jax_package(gen, np_pad):
 
 def test_dense_batch_to_and_replace():
     graphs = [(np.array([0, 1]), np.array([1, 0]), 2), (np.array([2]), np.array([0]), 3)]
-    batch = DenseBatch.from_graph_list(graphs, np_pad=8)
+    batch = DenseBatch.from_graph_list(graphs, np_pad=8, device="cpu")
     val = torch.ones(2, 8, 8)
     moved = batch.replace(val=val).to("cpu")
     assert moved.adj.dtype == torch.uint8
     assert moved.val is not None and moved.n_edges == 3 and moved.n_nodes == 5
     assert batch.val is None  # replace returns a new batch
     with pytest.raises(ValueError, match="np_pad"):
-        DenseBatch.from_graph_list(graphs, np_pad=2)
+        DenseBatch.from_graph_list(graphs, np_pad=2, device="cpu")

@@ -32,7 +32,7 @@ def _batches(rng, B, P):
         r, c, _ = random_graph_coo(rng, nb, 6, zero_deg_frac=0.1)
         graphs.append((r, c, nb))
     return (JaxDenseBatch.from_graph_list(graphs, np_pad=P),
-            DenseBatch.from_graph_list(graphs, np_pad=P))
+            DenseBatch.from_graph_list(graphs, np_pad=P, device="cpu"))
 
 
 def _node_features(rng, dataset, n):
@@ -50,7 +50,7 @@ def _jax_and_torch_model(jb, x, dataset, hidden, layers, heads=1, method="auto")
     params = jm.init(jax.random.key(0), jb, jnp.asarray(x))
     tm = GTModel(dataset, out_size=3, hidden_size=hidden, num_layers=layers,
                  num_heads=heads, in_size=x.shape[-1] if x.ndim == 2 else None,
-                 generator=_gen())
+                 generator=_gen(), device="cpu")
     tm.load_state_dict(gtmodel_params_from_flax(params))
     return jm, params, tm
 
@@ -100,7 +100,7 @@ def test_gtconv_matches_jax(rng):
     x = rng.standard_normal((3 * 64, 24)).astype(np.float32)
     layer = make_conv("gt", out_size=32, num_heads=2)
     params = layer.init(jax.random.key(1), jb, jnp.asarray(x))["params"]
-    conv = GTConv(24, 32, num_heads=2, generator=_gen())
+    conv = GTConv(24, 32, num_heads=2, generator=_gen(), device="cpu")
     with torch.no_grad():
         for name in ("q_proj", "k_proj", "v_proj"):
             getattr(conv, name).weight.copy_(torch.from_numpy(np.array(params[name]["kernel"]).T))
@@ -130,7 +130,7 @@ def test_gtmodel_full_width_matches_jax_dense():
     rng = np.random.default_rng(0)
     graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 2)]
     jb = JaxDenseBatch.from_graph_list(graphs, np_pad=128)
-    tb = DenseBatch.from_graph_list(graphs, np_pad=128)
+    tb = DenseBatch.from_graph_list(graphs, np_pad=128, device="cpu")
     x = rng.integers(0, 3, size=(2 * 128,))
     jm, params, tm = _jax_and_torch_model(jb, x, "PATTERN", hidden=128, layers=8,
                                           method="dense")
@@ -142,8 +142,10 @@ def test_gtmodel_full_width_matches_jax_dense():
 
 
 def test_init_is_seeded_and_lecun_scaled():
-    a = GTModel("PATTERN", out_size=2, hidden_size=64, num_layers=2, generator=_gen(3))
-    b = GTModel("PATTERN", out_size=2, hidden_size=64, num_layers=2, generator=_gen(3))
+    a = GTModel("PATTERN", out_size=2, hidden_size=64, num_layers=2, generator=_gen(3),
+                device="cpu")
+    b = GTModel("PATTERN", out_size=2, hidden_size=64, num_layers=2, generator=_gen(3),
+                device="cpu")
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         torch.testing.assert_close(pa, pb, rtol=0, atol=0)
     w = a.layers[0].q_proj.weight.detach()
