@@ -83,20 +83,25 @@ def bound(flops, nbytes):
 
 
 def attention_bytes(B, h, P, f, itemsize):
-    """Bytes the forward and the backward must move: each input read once
-    (q, k, v, adj; the backward also dO, lse, delta), each output written
-    once (out, lse; dq, dk, dv)."""
+    """Bytes the forward and the backward must move, each input read once
+    and each output written once: the forward reads q, k, v, adj and writes
+    out, lse; the backward reads q, k, v, out (for delta), dO, adj, lse and
+    writes dq, dk, dv."""
     feat = B * P * h * f * itemsize
     rows = h * B * P * 4
-    return 4 * feat + B * P * P + rows, 7 * feat + B * P * P + 2 * rows
+    return 4 * feat + B * P * P + rows, 8 * feat + B * P * P + rows
 
 
-def attention_bounds(B, h, P, f, itemsize):
-    """Bounds of the forward and the backward over a dense [P, P] block per
-    (graph, head): 2 and 5 products of 2*B*h*P*P*f operations."""
-    fwd_bytes, bwd_bytes = attention_bytes(B, h, P, f, itemsize)
-    return (bound(2 * 2 * B * h * P * P * f, fwd_bytes),
-            bound(5 * 2 * B * h * P * P * f, bwd_bytes))
+def attention_bound(n_products, adj, h, f, itemsize):
+    """(bound_ms, bound_by, dense_ms) of the forward (2 products: q.k^T and
+    p.v) or the backward (5: s, dp, dq, dk, dv) on these inputs.  The
+    function needs each product only on the edges, 2*f operations per edge
+    and head, so the bound counts adj's edges; dense_ms counts every entry
+    of the [P, P] blocks instead, as the kernels compute them."""
+    B, P, _ = adj.shape
+    nbytes = attention_bytes(B, h, P, f, itemsize)[0 if n_products == 2 else 1]
+    bound_ms, bound_by = bound(n_products * 2 * int(adj.sum()) * h * f, nbytes)
+    return bound_ms, bound_by, bound(n_products * 2 * B * P * P * h * f, nbytes)[0]
 
 
 def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
@@ -152,18 +157,19 @@ def main() -> int:
                              attention_inputs(np.random.default_rng(seed), B, h, P, f))
         return q.to(dtype), k.to(dtype), v.to(dtype), adj, val if with_val else None
 
-    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = attention_bounds(*MAIN_SHAPE, 4)
     fwd_rec = {"name": "flash_mask_fwd", "route": "cuda",
                "source": "dfgnn_tpu_torch/csrc/flash_mask_fwd.cu",
-               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:160",
-               "bound_ms": fwd_bound, "bound_by": fwd_by}
+               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:160"}
     bwd_rec = {"name": "flash_mask_bwd", "route": "cuda",
                "source": "dfgnn_tpu_torch/csrc/flash_mask_bwd.cu",
-               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:256",
-               "bound_ms": bwd_bound, "bound_by": bwd_by}
-    print(f"bounds at B, h, P, f = {MAIN_SHAPE}, fp32, over dense [P, P] blocks "
-          f"({FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): forward {fwd_bound:.4f} ms "
-          f"({fwd_by}), backward {bwd_bound:.4f} ms ({bwd_by})")
+               "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:256"}
+
+    def set_bound(rec, n_products, adj, h, f):
+        bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, 4)
+        rec.update(bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  bound on these inputs ({int(adj.sum())} edges of {adj.numel()} block "
+              f"entries; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): {bound_ms:.4f} ms "
+              f"({bound_by}); over every entry of the dense [P, P] blocks {dense_ms:.4f} ms")
 
     # 3. kernel #1 against its plain version
     for i, (B, h, P, f, with_val, dtype) in enumerate(KERNEL_SHAPES):
@@ -176,14 +182,6 @@ def main() -> int:
         e_lse = max_err(lse, want_lse, FP32_TOL)
         print(f"fwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype}: "
               f"max abs err out {e_out:.3e} (tol {tol}), lse {e_lse:.3e} (tol {FP32_TOL})")
-        if (B, h, P, f) == MAIN_SHAPE and dtype == torch.float32:
-            nnz = int(adj.sum())
-            ops = [n * 2 * nnz * h * f / FP32_FLOPS * 1e3 for n in (2, 5)]
-            mem = [n / HBM_BYTES_PER_S * 1e3 for n in attention_bytes(*MAIN_SHAPE, 4)]
-            print(f"  these inputs hold {nnz} edges of {B * P * P} block entries "
-                  f"({nnz / (B * P * P):.3f}); over the edges alone the products take "
-                  f"{ops[0]:.4f} ms (forward) and {ops[1]:.4f} ms (backward) against "
-                  f"{mem[0]:.4f} and {mem[1]:.4f} ms for the bytes")
         if (B, h, P, f) == MAIN_SHAPE:
             ms, plain_ms = in_turns(
                 benchmark,
@@ -197,7 +195,8 @@ def main() -> int:
                 lib_ms = benchmark(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, scale=1.0))[1]
                 print(f"  library: scaled_dot_product_attention forward, boolean mask, "
-                      f"{lib_ms:.4f} ms; bound {fwd_bound:.4f} ms")
+                      f"{lib_ms:.4f} ms")
+                set_bound(fwd_rec, 2, adj, h, f)
                 fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     # 4. kernel #3 against its plain version
@@ -236,8 +235,8 @@ def main() -> int:
                 lib_both = benchmark(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do_h))[1]
                 lib_ms = lib_both - lib_fwd
                 print(f"  library: scaled_dot_product_attention backward, boolean mask, timed "
-                      f"as (fwd+bwd) - fwd = {lib_both:.4f} - {lib_fwd:.4f} = {lib_ms:.4f} ms; "
-                      f"bound {bwd_bound:.4f} ms")
+                      f"as (fwd+bwd) - fwd = {lib_both:.4f} - {lib_fwd:.4f} = {lib_ms:.4f} ms")
+                set_bound(bwd_rec, 5, adj, h, f)
                 bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
@@ -365,12 +364,15 @@ def main() -> int:
     for name, fn in steps.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
         fn()
         torch.cuda.synchronize()
-        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+        peaks[name] = (torch.cuda.max_memory_allocated() - start) / 2 ** 20
     print(f"train step (forward + backward + Adam) per bs={BATCH} ogbg-molhiv batch ({smi}): "
           f"auto {step_auto:.4f} ms, dense {step_dense:.4f} ms; peak device memory allocated "
-          f"in one step: auto {peaks['auto']:.1f} MiB, dense {peaks['dense']:.1f} MiB")
+          f"during one step above what was allocated at its start (the model, Adam's moments, "
+          f"the batches and this script's other tensors; {start / 2 ** 20:.1f} MiB at the "
+          f"last step's start): auto {peaks['auto']:.1f} MiB, dense {peaks['dense']:.1f} MiB")
 
     records = [fwd_rec, bwd_rec]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -15,12 +15,15 @@
 // bf16 inputs and outputs, layout [B, P, h, f] read through strides; fp32
 // arithmetic.
 //
-// What bounds it on an H100 SXM (data-sheet peaks at its 700 W limit): at
-// the training shape (B=1024, h=1, P=128, f=128, fp32) the function needs 5
-// products of 2*B*P*P*f = 4.3 GFLOP each, 21.5 GFLOP, which at 67 TFLOP/s of
-// fp32 on the CUDA cores is 0.32 ms; its bytes (q, k, v, dO read, dq, dk, dv
-// written, adj, lse, delta) are about 0.49 GB, 0.15 ms at 3.35 TB/s.  So the
-// work bounds it.  fp32 parity
+// What bounds it on an H100 SXM (data-sheet peaks): the function needs its 5
+// products only on the edges, 10*f operations per edge and head.  At the
+// main shape (B=1024, h=1, P=128, f=128, fp32) with a fifth of the block
+// entries edges, as chip_smoke.py's inputs have, that is 4.5 GFLOP, 0.07 ms at
+// 67 TFLOP/s of fp32 on the CUDA cores, against 554 MB of q, k, v, out (for
+// delta), dO, adj, lse read and dq, dk, dv written, 0.165 ms at 3.35 TB/s:
+// device memory bounds the function.  This kernel computes every entry of
+// the dense [P, P] blocks, 5 products of 4.3 GFLOP (0.32 ms), so the work
+// sets its pace.  fp32 parity
 // (rtol 1e-4 against the plain version) rules out TF32 tensor cores, so the
 // products are fp32 FMAs fed from shared memory, as in flash_mask_fwd.cu.
 //

@@ -12,12 +12,17 @@
 // Inputs and the output keep the JAX layout [B, P, h, f] (node-major), so the
 // wrapper makes no head-major copy.  fp32 or bf16 inputs; fp32 arithmetic.
 //
-// What bounds it on the card: at the serving shape (P=128, f=128, fp32) a
-// (graph, head) pair costs 4*P*P*f = 8.4 MFLOP against ~200 KB of q/k/v/adj,
-// so the work, not device memory, sets the pace.  fp32 parity (rtol 1e-4
-// against the plain version) rules out TF32 tensor cores, so the products run
-// as fp32 FMAs on the CUDA cores, fed from shared memory; shared-memory
-// bandwidth is the limit of this first design.  The Pallas kernel packs G
+// What bounds it on an H100 SXM (data-sheet peaks): the function needs its
+// two products only on the edges, 4*f operations per edge and head.  At the
+// main shape (B=1024, h=1, P=128, f=128, fp32) with a fifth of the block
+// entries edges, as chip_smoke.py's inputs have, that is 1.8 GFLOP, 0.03 ms at
+// 67 TFLOP/s, against 286 MB of q, k, v, adj read and out, lse written,
+// 0.085 ms at 3.35 TB/s: device memory bounds the function.  This kernel
+// computes every entry of the dense [P, P] blocks (8.6 GFLOP, 0.128 ms), so
+// the work sets its pace.  fp32 parity (rtol 1e-4 against the plain version)
+// rules out TF32 tensor cores, so the products run as fp32 FMAs on the CUDA
+// cores, fed from shared memory; shared-memory bandwidth is the limit of
+// this first design.  The Pallas kernel packs G
 // graphs per grid step to fill 16 MB of VMEM; a Hopper block has 227 KB.  So
 // each block takes kRows query rows of one (graph, head), keeps its [kRows, P]
 // score rows in shared memory, and streams K and then V through one

@@ -1,22 +1,19 @@
 """Where a GTModel train step's device time goes, on the card.
 
-    python -m dfgnn_tpu_torch.scripts.profile_train_step [--impl auto|dense] \\
-        [--dataset ogbg-molhiv] [--dim 128] [--n-layers 8] [--batch-size 1024] \\
-        [--trace PATH.json]
+    python -m dfgnn_tpu_torch.scripts.profile_train_step [--impl auto|dense]
 
-Builds the GTModel with random weights from a seed, collates one batch, and
-reports for one train step (forward, backward, Adam update):
+Builds the main path's GTModel (ogbg-molhiv, hidden 128, 8 layers, 1 head)
+with random weights from a seed, collates one bs=1024 batch, and reports
+for a train step (forward, backward, Adam update):
 - phase times from CUDA events (3 warmups, mean of 10 runs): the forward
-  with its loss, the backward (forward + backward less the forward), the
-  optimizer's step alone, and the whole step;
+  with its loss, the backward (forward + backward less the forward) and the
+  optimizer's step alone;
 - device time by kernel group over 5 profiled steps (``torch.profiler``;
   its annotations on the device timeline are not kernels and are left out),
-  and the device's idle share, two ways: 1 - (union of kernel intervals) /
-  (first kernel start to last kernel end) under the profiler, whose own
-  host overhead can starve the card, and 1 - (kernel time per step) /
-  (the step's CUDA-event time) without it;
-- the peak device memory allocated during one step.
-Prints the numbers and a JSON line.  Needs a CUDA card.
+  and the device's idle share under the profiler: 1 - (union of kernel
+  intervals) / (first kernel start to last kernel end).
+The whole step's time and its peak memory are ``chip_smoke.py``'s.  Prints
+the numbers and a JSON line.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +31,7 @@ from dfgnn_tpu_torch.models import GTModel
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 from dfgnn_tpu_torch.utils.benchmark import benchmark
 
+DATASET, DIM, LAYERS, BATCH, PROFILED_STEPS = "ogbg-molhiv", 128, 8, 1024, 5
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("attention forward kernel #1", ("flash_mask_fwd_kernel",)),
     ("attention backward kernel #3", ("flash_mask_bwd_rows", "flash_mask_bwd_cols")),
@@ -66,12 +64,6 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--impl", default="auto", choices=["auto", "dense"])
-    p.add_argument("--dataset", default="ogbg-molhiv")
-    p.add_argument("--dim", type=int, default=128)
-    p.add_argument("--n-layers", type=int, default=8)
-    p.add_argument("--batch-size", type=int, default=1024)
-    p.add_argument("--steps", type=int, default=5, help="profiled steps")
-    p.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("this script profiles a CUDA card, and none is available")
@@ -80,10 +72,10 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
 
-    ds = load_batched(args.dataset, n_graphs=args.batch_size, quiet=True)
-    batch, x, y, m = collate_dense(ds, np.arange(args.batch_size), np_pad=128)
-    model = GTModel(args.dataset, out_size=ds.num_classes, hidden_size=args.dim,
-                    num_layers=args.n_layers, in_size=ds.in_dim,
+    ds = load_batched(DATASET, n_graphs=BATCH, quiet=True)
+    batch, x, y, m = collate_dense(ds, np.arange(BATCH), np_pad=128)
+    model = GTModel(DATASET, out_size=ds.num_classes, hidden_size=DIM, num_layers=LAYERS,
+                    in_size=ds.in_dim,
                     generator=torch.Generator().manual_seed(0))
     state = TrainState.create(model, lr=1e-3, step_lr_every=20)
     base = make_loss_fn(model, ds.task, ds.num_classes)
@@ -96,21 +88,12 @@ def main(argv=None):
     fwd_ms = benchmark(lambda: loss_fn(batch, x, y, m))[1]
     fb_ms = benchmark(fwd_bwd)[1]
     opt_ms = benchmark(state.opt.step)[1]  # the gradients of the last fwd_bwd
-    step_ms = benchmark(lambda: train_step(state, loss_fn, batch, x, y, m))[1]
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    train_step(state, loss_fn, batch, x, y, m)
-    torch.cuda.synchronize()
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.steps):
+        for _ in range(PROFILED_STEPS):
             train_step(state, loss_fn, batch, x, y, m)
         torch.cuda.synchronize()
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0
                and not getattr(e, "is_user_annotation", False)]
@@ -125,26 +108,22 @@ def main(argv=None):
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
 
-    n = args.steps
-    print(f"train step, {args.dataset} bs={args.batch_size}, dim {args.dim}, {args.n_layers} "
-          f"layers, impl={args.impl}, fp32 ({smi})")
+    n = PROFILED_STEPS
+    print(f"train step, {DATASET} bs={BATCH}, dim {DIM}, {LAYERS} layers, impl={args.impl}, "
+          f"fp32 ({smi})")
     print(f"  CUDA events: forward + loss {fwd_ms:.4f} ms, backward {fb_ms - fwd_ms:.4f} ms, "
-          f"Adam step {opt_ms:.4f} ms, whole step {step_ms:.4f} ms")
+          f"Adam step {opt_ms:.4f} ms")
     print(f"  profiler over {n} steps, per step: device busy {busy / n / 1e3:.4f} ms of "
-          f"{span / n / 1e3:.4f} ms, idle share {1 - busy / span:.4f} under the profiler, "
-          f"{1 - busy / n / 1e3 / step_ms:.4f} against the CUDA-event step")
+          f"{span / n / 1e3:.4f} ms, idle share {1 - busy / span:.4f}")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"    {group}: {us / n / 1e3:.4f} ms ({us / busy:.1%} of busy)")
     print("  top kernels, per step:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / n / 1e3:.4f} ms  {name[:110]}")
-    print(f"  peak device memory allocated in one step: {peak_mib:.1f} MiB")
     result = {"impl": args.impl, "device": smi, "forward_ms": fwd_ms,
-              "backward_ms": fb_ms - fwd_ms, "optimizer_ms": opt_ms, "step_ms": step_ms,
+              "backward_ms": fb_ms - fwd_ms, "optimizer_ms": opt_ms,
               "idle_share_profiled": 1 - busy / span,
-              "idle_share_vs_step": 1 - busy / n / 1e3 / step_ms,
-              "groups_ms": {g: us / n / 1e3 for g, us in by_group.items()},
-              "peak_mib": peak_mib}
+              "groups_ms": {g: us / n / 1e3 for g, us in by_group.items()}}
     print(json.dumps(result))
     return result
 

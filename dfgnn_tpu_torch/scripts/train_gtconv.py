@@ -34,6 +34,7 @@ from dfgnn_tpu_torch.models import GTModel
 from dfgnn_tpu_torch.ops import flash_mask
 from dfgnn_tpu_torch.train import (
     TrainState,
+    evaluate_accuracy,
     evaluate_mean_ap,
     evaluate_rocauc,
     make_loss_fn,
@@ -67,7 +68,7 @@ def main(argv=None):
     state = TrainState.create(model, lr=args.lr, step_lr_every=20, device=device)
 
     if args.checkgrad:
-        _checkgrad(model, *batches[0])
+        _checkgrad(model, loss_fn, *batches[0])
         return {"checkgrad": "OK"}
 
     history = {"steps": [], "epochs": []}
@@ -96,8 +97,7 @@ def main(argv=None):
         elif ds.task == "graph_classification_multilabel":
             metric = evaluate_mean_ap(yy, sc, mask=mm)
         else:
-            metric = float((sc.argmax(-1)[mm.astype(bool)]
-                            == yy[mm.astype(bool)]).mean())
+            metric = evaluate_accuracy(yy, sc.argmax(-1), mask=mm)
         seconds = time.time() - t0
         print(f"epoch {epoch}: loss={np.mean(losses):.4f} metric={metric:.4f} "
               f"time={seconds:.2f}s")
@@ -106,32 +106,12 @@ def main(argv=None):
     return history
 
 
-def _checkgrad_loss(logits, y, m):
-    """The JAX script's own checkgrad loss: BCE for one output, masked
-    multilabel BCE for 2-d targets, else cross-entropy."""
-    import torch.nn.functional as F
-
-    if logits.shape[-1] == 1:
-        l = F.binary_cross_entropy_with_logits(logits.squeeze(-1), y.float(),
-                                               reduction="none")
-    elif y.dim() == 2:
-        # multilabel: [G, C] float targets, NaN = missing label
-        y = y.float()
-        labeled = ~torch.isnan(y) & m[:, None].bool()
-        l = F.binary_cross_entropy_with_logits(logits, torch.where(labeled, y, 0.0),
-                                               reduction="none")
-        l = torch.where(labeled, l, 0.0)
-        return torch.sum(l) / torch.clamp_min(torch.sum(labeled), 1)
-    else:
-        l = F.cross_entropy(logits, torch.clamp_min(y, 0), reduction="none")
-    return torch.sum(l * m) / torch.clamp_min(torch.sum(m), 1)
-
-
-def _checkgrad(model, batch, x, y, m):
-    """Flash-vs-dense gradient comparison on one batch."""
+def _checkgrad(model, loss_fn, batch, x, y, m):
+    """Flash-vs-dense gradient comparison on one batch, through the task's
+    training loss."""
     def grads(impl):
         model.zero_grad(set_to_none=True)
-        _checkgrad_loss(model(batch, x, impl=impl), y, m).backward()
+        loss_fn(batch, x, y, m, impl=impl).backward()
         return {name: p.grad.detach().cpu().numpy() for name, p in model.named_parameters()}
 
     g_fused = grads("flash")
