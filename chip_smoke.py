@@ -3,19 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``dfgnn_tpu_torch/csrc/`` and holds the
-flash-attention forward (kernel #1) and backward (kernel #3) against their
-plain PyTorch versions on the card, with times beside their bounds and
-beside PyTorch's ``scaled_dot_product_attention``.  Then it drives two paths
-of the 8-layer, hidden-128, 1-head GTModel with random weights from a seed:
-serving (three bs=1024 PATTERN-like requests through ``method="auto"``,
-logits held against ``method="dense"``) and training (the trainer twin
-``dfgnn_tpu_torch.scripts.train_gtconv`` on ogbg-molhiv, bs=1024, two epochs
-of 8 steps, 8 forward and 8 backward kernel launches a step; 3 Adam steps
-held against ``method="dense"``; ``--checkgrad``; a train step's time and
-peak memory).  Prints progress, then a ``{"kernels": [...]}`` JSON line, and
-last a ``{"ok": true, ...}`` line.  Exits non-zero, with no result line, when
-there is no CUDA device or any check fails.  Imports no JAX.
+Builds the port's CUDA kernels from ``dfgnn_tpu_torch/csrc/`` and holds each
+against its plain PyTorch version on the card: the flash-attention forward
+(kernel #1) and backward (#3) of the dot score, and the forward (#2) and
+backward (#4) of the additive (GAT) score, with and without dropout; each is
+timed beside its bound and beside one PyTorch call
+(``scaled_dot_product_attention``).  Then it drives the slice's paths with
+random weights from a seed, each with the launch counts set to 0 just before
+it and read just after:
+- GTModel serving: the 8-layer, hidden-128, 1-head model over three bs=1024
+  PATTERN-like requests through ``method="auto"``, logits held against
+  ``method="dense"``;
+- GTModel training: the twin ``dfgnn_tpu_torch.scripts.train_gtconv`` on
+  ogbg-molhiv, bs=1024, two epochs of 8 steps, 8 forward and 8 backward
+  launches a step; 3 Adam steps held against ``method="dense"``;
+  ``--checkgrad`` against the segment-op oracle; a train step's time and
+  peak memory;
+- GAT serving: the twin ``dfgnn_tpu_torch.scripts.test_batch_graph`` at the
+  reference's setting (PATTERN, bs=1024, dim 128, 1 head, every format
+  checked against the oracle), one kernel #2 launch per flash forward;
+- GAT training: the twin ``dfgnn_tpu_torch.scripts.train_parity --conv gat``
+  (FullGraphNet, hidden 64, 2 layers, 200 Adam steps against the oracle),
+  2 + 2 add-kernel launches a step; then a timed Adam step of that model on
+  a bs=1024 PATTERN-like batch, with its peak memory.
+Prints progress, then a ``{"kernels": [...]}`` JSON line, and last a
+``{"ok": true, ...}`` line.  Exits non-zero, with no result line, when there
+is no CUDA device or any check fails.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +66,19 @@ BWD_SHAPES = KERNEL_SHAPES + [
     (2, 2, 100, 64, True, torch.float32),  # P not a multiple of the tiles
 ]
 MAIN_SHAPE = (1024, 1, 128, 128)
+ADD_SHAPES = [  # (B, h, P, f, with_val, dtype): kernels #2 and #4
+    (1024, 1, 128, 128, False, torch.float32),  # the GAT serving path's shape
+    (1024, 1, 128, 64, False, torch.float32),   # the GAT training step's shape
+    (3, 2, 64, 16, True, torch.float32),
+    (2, 4, 512, 32, False, torch.float32),
+    (1024, 1, 128, 128, False, torch.bfloat16),
+]
+ADD_BWD_SHAPES = ADD_SHAPES + [(2, 2, 100, 64, True, torch.float32)]
+DROP_RATES, DROP_SEED = (0.0, 0.4), 0x5EED
+GAT_SERVE_ARGS = ["--dataset", "PATTERN", "--conv", "gat", "--dim", "128", "--heads", "1",
+                  "--batch-size", "1024", "--format", "all"]
+PARITY_STEPS, PARITY_GAP_BAR = 200, 0.02
+GAT_HIDDEN, GAT_LAYERS = 64, 2
 N_REQUESTS, BATCH, NP_PAD, HIDDEN, LAYERS = 3, 1024, 128, 128, 8
 TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", str(LAYERS),
               "--heads", "1", "--batch-size", str(BATCH)]
@@ -83,25 +109,46 @@ def bound(flops, nbytes):
 
 
 def attention_bytes(B, h, P, f, itemsize):
-    """Bytes the forward and the backward must move, each input read once
-    and each output written once: the forward reads q, k, v, adj and writes
-    out, lse; the backward reads q, k, v, out (for delta), dO, adj, lse and
-    writes dq, dk, dv."""
+    """Bytes the dot-score forward and backward must move, each input read
+    once and each output written once: the forward reads q, k, v, adj and
+    writes out, lse; the backward reads q, k, v, out (for delta), dO, adj,
+    lse and writes dq, dk, dv."""
     feat = B * P * h * f * itemsize
     rows = h * B * P * 4
     return 4 * feat + B * P * P + rows, 8 * feat + B * P * P + rows
 
 
-def attention_bound(n_products, adj, h, f, itemsize):
-    """(bound_ms, bound_by, dense_ms) of the forward (2 products: q.k^T and
-    p.v) or the backward (5: s, dp, dq, dk, dv) on these inputs.  The
-    function needs each product only on the edges, 2*f operations per edge
-    and head, so the bound counts adj's edges; dense_ms counts every entry
-    of the [P, P] blocks instead, as the kernels compute them."""
+def add_bytes(B, h, P, f, itemsize):
+    """The same for the additive score: the forward reads e_row, e_col, v,
+    adj and writes out, lse; the backward reads e_row, e_col, v, out (for
+    delta), dO, adj, lse and writes d e_row, d e_col, dv."""
+    feat = B * P * h * f * itemsize
+    scal = B * P * h * itemsize
+    rows = h * B * P * 4
+    return 2 * scal + 2 * feat + B * P * P + rows, 4 * scal + 4 * feat + B * P * P + rows
+
+
+def attention_bound(n_products, adj, h, f, nbytes):
+    """(bound_ms, bound_by, dense_ms) of a kernel doing ``n_products``
+    products of 2*f operations per edge and head (#1: q.k^T and p.v; #3: s,
+    dp, dq, dk, dv; #2: ex.v; #4: dp and dv) and moving ``nbytes``.  The
+    function needs each product only on the edges, so the bound counts adj's
+    edges; dense_ms counts every entry of the [P, P] blocks instead, as the
+    kernels compute them."""
     B, P, _ = adj.shape
-    nbytes = attention_bytes(B, h, P, f, itemsize)[0 if n_products == 2 else 1]
     bound_ms, bound_by = bound(n_products * 2 * int(adj.sum()) * h * f, nbytes)
     return bound_ms, bound_by, bound(n_products * 2 * B * P * P * h * f, nbytes)[0]
+
+
+def step_peak_mib(fn):
+    """(peak device memory allocated during one call of ``fn`` above what was
+    allocated at its start, what was allocated at its start), in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - start) / 2 ** 20, start / 2 ** 20
 
 
 def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
@@ -123,12 +170,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dfgnn_tpu_torch import DenseBatch, GTModel
+    from dfgnn_tpu_torch.models import FullGraphNet
     from dfgnn_tpu_torch.data.collate import batch_iterator
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import flash_mask
-    from dfgnn_tpu_torch.scripts import train_gtconv
+    from dfgnn_tpu_torch.scripts import test_batch_graph, train_gtconv, train_parity
     from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+    from dfgnn_tpu_torch.train.parity import _noisy_onehot
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
     # 1. device
@@ -164,8 +213,8 @@ def main() -> int:
                "source": "dfgnn_tpu_torch/csrc/flash_mask_bwd.cu",
                "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:256"}
 
-    def set_bound(rec, n_products, adj, h, f):
-        bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, 4)
+    def set_bound(rec, n_products, adj, h, f, nbytes):
+        bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, nbytes)
         rec.update(bound_ms=bound_ms, bound_by=bound_by)
         print(f"  bound on these inputs ({int(adj.sum())} edges of {adj.numel()} block "
               f"entries; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): {bound_ms:.4f} ms "
@@ -196,7 +245,7 @@ def main() -> int:
                     qh, kh, vh, attn_mask=mask, scale=1.0))[1]
                 print(f"  library: scaled_dot_product_attention forward, boolean mask, "
                       f"{lib_ms:.4f} ms")
-                set_bound(fwd_rec, 2, adj, h, f)
+                set_bound(fwd_rec, 2, adj, h, f, attention_bytes(B, h, P, f, 4)[0])
                 fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     # 4. kernel #3 against its plain version
@@ -236,7 +285,7 @@ def main() -> int:
                 lib_ms = lib_both - lib_fwd
                 print(f"  library: scaled_dot_product_attention backward, boolean mask, timed "
                       f"as (fwd+bwd) - fwd = {lib_both:.4f} - {lib_fwd:.4f} = {lib_ms:.4f} ms")
-                set_bound(bwd_rec, 5, adj, h, f)
+                set_bound(bwd_rec, 5, adj, h, f, attention_bytes(B, h, P, f, 4)[1])
                 bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
@@ -360,21 +409,225 @@ def main() -> int:
                                          batch, x, y, m)}
     step_auto, step_dense = in_turns(benchmark, steps["dense"], steps["auto"],
                                      names=("dense", "auto"))
-    peaks = {}
-    for name, fn in steps.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.memory_allocated()
-        fn()
-        torch.cuda.synchronize()
-        peaks[name] = (torch.cuda.max_memory_allocated() - start) / 2 ** 20
+    peaks = {name: step_peak_mib(fn) for name, fn in steps.items()}
     print(f"train step (forward + backward + Adam) per bs={BATCH} ogbg-molhiv batch ({smi}): "
           f"auto {step_auto:.4f} ms, dense {step_dense:.4f} ms; peak device memory allocated "
           f"during one step above what was allocated at its start (the model, Adam's moments, "
-          f"the batches and this script's other tensors; {start / 2 ** 20:.1f} MiB at the "
-          f"last step's start): auto {peaks['auto']:.1f} MiB, dense {peaks['dense']:.1f} MiB")
+          f"the batches and this script's other tensors; {peaks['dense'][1]:.1f} MiB at the "
+          f"last step's start): auto {peaks['auto'][0]:.1f} MiB, dense {peaks['dense'][0]:.1f} MiB")
+    del model, state, steps, batches
 
-    records = [fwd_rec, bwd_rec]
+    # 10. kernels #2 and #4 (the additive score) against their plain versions,
+    #     without and with dropout: the kernel and the plain version draw the
+    #     same hash mask, so the fp32 bars hold with dropout too
+    add_fwd_rec = {"name": "flash_add_fwd", "route": "cuda",
+                   "source": "dfgnn_tpu_torch/csrc/flash_add_fwd.cu",
+                   "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:173"}
+    add_bwd_rec = {"name": "flash_add_bwd", "route": "cuda",
+                   "source": "dfgnn_tpu_torch/csrc/flash_add_bwd.cu",
+                   "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:286"}
+
+    def add_inputs(seed, B, h, P, f, with_val, dtype):
+        _, _, v, adj, val = inputs(seed, B, h, P, f, with_val, dtype)
+        rng = np.random.default_rng(seed + 500)
+        e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32))
+                        .cuda().to(dtype) for _ in range(2))
+        return e_row, e_col, v, adj, val
+
+    def kept(adj, h, rate):
+        if rate == 0.0:
+            return ""
+        B, P, _ = adj.shape
+        keep = flash_mask.dropout_factor(DROP_SEED, rate, B, h, P, adj.device) != 0
+        frac = float(keep[adj[:, None].bool().expand_as(keep)].float().mean())
+        return f"; kept {frac:.4f} of the edges (rate {rate})"
+
+    def masked_leaky(e_row, e_col, adj):
+        """The float attn_mask handed to SDPA, built outside the timed call:
+        leaky_relu(e_row + e_col) on the edges, -1e30 elsewhere, [B, h, P, P]."""
+        pre = e_row.permute(0, 2, 1)[..., None] + e_col.permute(0, 2, 1)[..., None, :]
+        return torch.where(adj[:, None].bool(), F.leaky_relu(pre, 0.2), flash_mask.NEG_BIG)
+
+    sdpa_note = ("q = k = 0 of width 8 and the masked leaky scores as a float attn_mask, built "
+                 "outside the timed call; rows without edges average v where the kernel gives 0")
+    for i, (B, h, P, f, with_val, dtype) in enumerate(ADD_SHAPES):
+        e_row, e_col, v, adj, val = add_inputs(20 + i, B, h, P, f, with_val, dtype)
+        for rate in DROP_RATES:
+            kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+            out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+            torch.cuda.synchronize()
+            want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            e_out = max_err(out, want_out, tol)
+            e_lse = max_err(lse, want_lse, FP32_TOL)
+            print(f"add fwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype} "
+                  f"rate={rate}: max abs err out {e_out:.3e} (tol {tol}), lse {e_lse:.3e}"
+                  + kept(adj, h, rate))
+            if (B, h, P, f) != MAIN_SHAPE:
+                continue
+            if rate > 0.0:
+                drop_ms = benchmark(lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj, **kw))[1]
+                print(f"  {dtype} with dropout rate {rate}: kernel {drop_ms:.4f} ms")
+                continue
+            ms, plain_ms = in_turns(
+                benchmark,
+                lambda: flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj),
+                lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj))
+            print(f"  {dtype} at the main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"({smi})")
+            if dtype == torch.float32:
+                mask_f = masked_leaky(e_row, e_col, adj)
+                zq = torch.zeros(B, h, P, 8, device="cuda")
+                vh = v.transpose(1, 2)
+                lib_ms = benchmark(lambda: F.scaled_dot_product_attention(
+                    zq, zq, vh, attn_mask=mask_f))[1]
+                print(f"  library: scaled_dot_product_attention forward, {sdpa_note}: "
+                      f"{lib_ms:.4f} ms")
+                set_bound(add_fwd_rec, 1, adj, h, f, add_bytes(B, h, P, f, 4)[0])
+                add_fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms)
+
+    for i, (B, h, P, f, with_val, dtype) in enumerate(ADD_BWD_SHAPES):
+        e_row, e_col, v, adj, val = add_inputs(40 + i, B, h, P, f, with_val, dtype)
+        do = torch.from_numpy(np.random.default_rng(140 + i).standard_normal(v.shape)
+                              .astype(np.float32)).cuda().to(dtype)
+        for rate in DROP_RATES:
+            kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+            out, lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+            got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do,
+                                                  flash_mask.bwd_delta(do, out), **kw)
+            tols = [BWD_FP32_TOL if dtype == torch.float32 else bwd_bf16_tol(w) for w in want]
+            errs = [max_err(g, w, t) for g, w, t in zip(got, want, tols)]
+            if (lse == flash_mask.NEG_BIG).sum() == 0:
+                raise AssertionError("the inputs have no empty rows")
+            print(f"add bwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype} "
+                  f"rate={rate}: max abs err "
+                  + ", ".join(f"{n} {e:.3e} (max |{n}| {float(w.float().abs().max()):.3g}, "
+                              f"atol {t['atol']:.3g})" for n, e, w, t in
+                              zip(("d e_row", "d e_col", "dv"), errs, want, tols))
+                  + kept(adj, h, rate))
+            if (B, h, P, f) != MAIN_SHAPE:
+                continue
+            if rate > 0.0:
+                drop_ms = benchmark(lambda: flash_mask.flash_add_bwd(
+                    e_row, e_col, v, adj, val, out, lse, do, **kw))[1]
+                print(f"  {dtype} with dropout rate {rate}: kernel {drop_ms:.4f} ms")
+                continue
+            ms, plain_ms = in_turns(
+                benchmark,
+                lambda: flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do,
+                                                       flash_mask.bwd_delta(do, out)),
+                lambda: flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do))
+            print(f"  {dtype} at the main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"({smi}); both include delta = rowsum(dO * out)")
+            if dtype == torch.float32:
+                mask_g = masked_leaky(e_row, e_col, adj).requires_grad_(True)
+                zq = torch.zeros(B, h, P, 8, device="cuda")
+                vg = v.transpose(1, 2).detach().requires_grad_(True)
+                do_h = do.transpose(1, 2)
+                sdpa = lambda: F.scaled_dot_product_attention(zq, zq, vg, attn_mask=mask_g)
+                lib_fwd = benchmark(sdpa)[1]
+                lib_both = benchmark(lambda: torch.autograd.grad(sdpa(), (mask_g, vg), do_h))[1]
+                lib_ms = lib_both - lib_fwd
+                print(f"  library: scaled_dot_product_attention backward to the float mask and "
+                      f"v ({sdpa_note}; the sums of the mask's gradient into d e_row, d e_col "
+                      f"are not included), timed as (fwd+bwd) - fwd = {lib_both:.4f} - "
+                      f"{lib_fwd:.4f} = {lib_ms:.4f} ms")
+                set_bound(add_bwd_rec, 2, adj, h, f, add_bytes(B, h, P, f, 4)[1])
+                add_bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms)
+
+    # 11. GAT serving: the test_batch_graph twin at the reference's fig-1 setting
+    flash_mask.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve = test_batch_graph.main(GAT_SERVE_ARGS)
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    for fmt in ("dense", "flash"):
+        if serve[fmt]["ok"] is not True:
+            raise AssertionError(f"GAT serving: format {fmt} does not match the oracle")
+    if serve["flash"]["launches"] != [0, 0, 1, 0]:
+        raise AssertionError(f"GAT serving: launches of #1, #3, #2, #4 in one flash forward "
+                             f"{serve['flash']['launches']}, expected [0, 0, 1, 0]")
+    if seen[0] or seen[1] or seen[3]:
+        raise AssertionError(f"GAT serving launched #1, #3 or #4: {seen}")
+    print(f"GAT serving twin ({' '.join(GAT_SERVE_ARGS)}) in {time.perf_counter() - t0:.2f} s "
+          f"(host clock): every format matches the oracle; 1 kernel #2 launch per flash "
+          f"forward, {seen[2]} in the run, 0 of #1, #3, #4; Model forward per bs=1024 batch "
+          f"({smi}): " + ", ".join(f"{fmt} {r['ms']:.4f} ms ({r['edges_per_s']:.4e} edges/s)"
+                                   for fmt, r in serve.items()))
+
+    # 12. GAT training: the train_parity twin, FullGraphNet(gat), hidden 64, 2 layers
+    flash_mask.reset_launch_counts()
+    t0 = time.perf_counter()
+    parity = train_parity.main(["--conv", "gat", "--steps", str(PARITY_STEPS)])
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    steps = parity["fused_steps"]
+    if len(steps) != PARITY_STEPS:
+        raise AssertionError(f"{len(steps)} parity steps, expected {PARITY_STEPS}")
+    for n, st in enumerate(steps):
+        if (st["fwd_launches"], st["bwd_launches"]) != (GAT_LAYERS, GAT_LAYERS):
+            raise AssertionError(f"parity step {n}: {st['fwd_launches']} forward and "
+                                 f"{st['bwd_launches']} backward launches, expected "
+                                 f"{GAT_LAYERS} each")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"parity step {n}: loss {st['loss']}")
+    want = (0, 0, PARITY_STEPS * GAT_LAYERS + GAT_LAYERS, PARITY_STEPS * GAT_LAYERS)
+    if seen != want:
+        raise AssertionError(f"parity run launched #1, #3, #2, #4 {seen} times, expected {want}")
+    base = parity["majority_baseline"]
+    for side in ("acc_fused", "acc_unfused"):
+        if not parity[side] > base + 0.1:
+            raise AssertionError(f"parity {side} {parity[side]} not above the majority "
+                                 f"baseline {base} + 0.1")
+    if not parity["gap"] <= PARITY_GAP_BAR:
+        raise AssertionError(f"parity gap {parity['gap']} above {PARITY_GAP_BAR}")
+    print(f"GAT training twin (train_parity --conv gat, {PARITY_STEPS} Adam steps each side) in "
+          f"{time.perf_counter() - t0:.2f} s (host clock): {GAT_LAYERS} + {GAT_LAYERS} add-kernel "
+          f"launches every fused step, {seen[2]} forward (training and the accuracy pass) and "
+          f"{seen[3]} backward in the run; accuracy fused {parity['acc_fused']:.4f}, oracle "
+          f"{parity['acc_unfused']:.4f}, gap {parity['gap']:.4f} (bar {PARITY_GAP_BAR}), "
+          f"majority baseline {base:.4f}")
+    add_fwd_rec["launches"], add_bwd_rec["launches"] = seen[2], seen[3]
+
+    # 13. a GAT Adam step's time and peak memory: FullGraphNet(gat) on a bs=1024
+    #     PATTERN-like batch with noisy one-hot features
+    rng = np.random.default_rng(7)
+    graphs = pattern_like_batch(rng, BATCH)
+    gbatch = DenseBatch.from_graph_list([(r, c, n) for r, c, n, _ in graphs], np_pad=NP_PAD)
+    xg = np.zeros((BATCH * NP_PAD, 2), dtype=np.float32)
+    yg = np.zeros(BATCH * NP_PAD, dtype=np.int64)
+    for b, (_, _, n, block) in enumerate(graphs):
+        xg[b * NP_PAD: b * NP_PAD + n] = _noisy_onehot(rng, block, 2)
+        yg[b * NP_PAD: b * NP_PAD + n] = block
+    xg, yg = torch.from_numpy(xg).cuda(), torch.from_numpy(yg).cuda()
+    mg = gbatch.node_mask.reshape(-1).float()
+    gat = FullGraphNet("gat", num_classes=2, hidden_size=GAT_HIDDEN, num_layers=GAT_LAYERS,
+                       in_size=2, generator=torch.Generator().manual_seed(5))
+    gstate = TrainState.create(gat, lr=1e-2)
+    gloss = make_loss_fn(gat, "node_classification", 2)
+    gsteps = {"auto": lambda: train_step(gstate, gloss, gbatch, xg, yg, mg),
+              "dense": lambda: train_step(gstate, lambda *a: gloss(*a, impl="dense"),
+                                          gbatch, xg, yg, mg)}
+    flash_mask.reset_launch_counts()
+    gsteps["auto"]()
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    if seen != (0, 0, GAT_LAYERS, GAT_LAYERS):
+        raise AssertionError(f"GAT auto step launched #1, #3, #2, #4 {seen}")
+    gat_auto, gat_dense = in_turns(benchmark, gsteps["dense"], gsteps["auto"],
+                                   names=("dense", "auto"))
+    gpeaks = {name: step_peak_mib(fn) for name, fn in gsteps.items()}
+    print(f"GAT train step (FullGraphNet gat, hidden {GAT_HIDDEN}, {GAT_LAYERS} layers, forward + "
+          f"backward + Adam) per bs={BATCH} PATTERN-like batch, {gbatch.n_edges} edges ({smi}): "
+          f"auto {gat_auto:.4f} ms, dense {gat_dense:.4f} ms; peak device memory allocated "
+          f"during one step above its start ({gpeaks['dense'][1]:.1f} MiB at the last step's "
+          f"start): auto {gpeaks['auto'][0]:.1f} MiB, dense {gpeaks['dense'][0]:.1f} MiB")
+
+    records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rec in records:

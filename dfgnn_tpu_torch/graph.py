@@ -1,8 +1,16 @@
 """Graph containers of the PyTorch port.
 
+:class:`Graph` is the counterpart of :class:`dfgnn_tpu.graph.Graph`: an
+edge list in padded CSR+COO form, the layout of the unfused oracle.  An edge
+``e`` connects ``rows[e] -> cols[e]``; edge-softmax normalises over the
+edges sharing a row, and aggregation writes to the row node.  Edges are
+sorted by row; padded edges carry the sentinel ``rows == cols == n_nodes``.
+
 :class:`DenseBatch` is the counterpart of :class:`dfgnn_tpu.graph.DenseBatch`:
 a batch of small graphs, each padded to ``np_pad`` nodes, with a dense
-adjacency mask per graph.  Graph b's node i is flat node ``b * np_pad + i``.
+adjacency mask per graph.  Graph b's node i is flat node ``b * np_pad + i``,
+so a flat feature tensor lines up with :meth:`DenseBatch.to_graph`'s
+block-diagonal :class:`Graph`.
 """
 
 from __future__ import annotations
@@ -19,6 +27,86 @@ from dfgnn_tpu_torch.device import resolve_device
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class Graph:
+    """A (possibly block-diagonal-batched) graph in padded CSR+COO form.
+
+    Built on the host in numpy by :meth:`from_coo`, then moved to a device
+    once by :meth:`to`.  ``n_nodes``, ``n_edges`` and ``n_graphs`` are ints.
+    """
+
+    indptr: torch.Tensor     # [n_nodes + 1] int64 CSR row pointer (real edges)
+    rows: torch.Tensor       # [e_pad] int64, sorted ascending, pad = n_nodes
+    cols: torch.Tensor       # [e_pad] int64, pad = n_nodes
+    val: Optional[torch.Tensor] = None        # [e_pad] fp32 edge values
+    node_mask: Optional[torch.Tensor] = None  # [n_nodes] bool, None = all real
+    graph_id: Optional[torch.Tensor] = None   # [n_nodes] int64 batch membership
+    n_nodes: int = 0
+    n_edges: int = 0  # real edges
+    n_graphs: int = 1
+
+    @property
+    def e_pad(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def edge_mask(self) -> torch.Tensor:
+        """[e_pad] bool: True for real edges."""
+        return self.rows < self.n_nodes
+
+    @property
+    def degrees(self) -> torch.Tensor:
+        return self.indptr[1:] - self.indptr[:-1]
+
+    @staticmethod
+    def from_coo(rows, cols, n_nodes: int, val=None, *, edge_pad_multiple: int = 128,
+                 n_graphs: int = 1, graph_id=None, node_mask=None, sort: bool = True,
+                 device="cuda") -> "Graph":
+        """Build a padded Graph from COO edge lists in numpy, then move it to
+        ``device``.  With ``sort`` the edges take a stable sort by row, the
+        JAX package's edge order; the edge count is padded up to a multiple
+        of ``edge_pad_multiple``."""
+        dev = resolve_device(device)
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        if rows.shape != cols.shape or rows.ndim != 1:
+            raise ValueError("rows and cols must be 1-D of one length")
+        n_edges = int(rows.shape[0])
+        if val is not None:
+            val = np.asarray(val, dtype=np.float32)
+        indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+        np.add.at(indptr, rows + 1, 1)
+        indptr = np.cumsum(indptr)
+        if sort and n_edges > 0:
+            order = np.argsort(rows, kind="stable")
+            rows, cols = rows[order], cols[order]
+            if val is not None:
+                val = val[order]
+        e_pad = max(_round_up(max(n_edges, 1), edge_pad_multiple), edge_pad_multiple)
+        rows_p = np.full(e_pad, n_nodes, dtype=np.int64)
+        cols_p = np.full(e_pad, n_nodes, dtype=np.int64)
+        rows_p[:n_edges] = rows
+        cols_p[:n_edges] = cols
+        val_p = None
+        if val is not None:
+            val_p = np.zeros(e_pad, dtype=np.float32)
+            val_p[:n_edges] = val
+        put = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+        return Graph(
+            indptr=put(indptr), rows=put(rows_p), cols=put(cols_p), val=put(val_p),
+            node_mask=put(None if node_mask is None else np.asarray(node_mask, dtype=bool)),
+            graph_id=put(None if graph_id is None else np.asarray(graph_id, dtype=np.int64)),
+            n_nodes=int(n_nodes), n_edges=n_edges, n_graphs=int(n_graphs),
+        )
+
+    def to(self, device) -> "Graph":
+        """The same graph with its tensors on ``device``."""
+        move = lambda t: None if t is None else t.to(device)
+        return dataclasses.replace(
+            self, indptr=move(self.indptr), rows=move(self.rows), cols=move(self.cols),
+            val=move(self.val), node_mask=move(self.node_mask), graph_id=move(self.graph_id))
 
 
 @dataclass(frozen=True)
@@ -79,3 +167,18 @@ class DenseBatch:
 
     def replace(self, **changes) -> "DenseBatch":
         return dataclasses.replace(self, **changes)
+
+    def to_graph(self) -> Graph:
+        """The equivalent flattened block-diagonal :class:`Graph`, on this
+        batch's device: graph b's edge r -> c becomes b*P + r -> b*P + c.
+        Built in numpy on the host, as the JAX package builds it; edge
+        values are not carried, as there."""
+        adj = self.adj.cpu().numpy()
+        B, P, _ = adj.shape
+        b, r, c = np.nonzero(adj)
+        return Graph.from_coo(
+            b * P + r, b * P + c, n_nodes=B * P, n_graphs=B,
+            graph_id=np.repeat(np.arange(B), P),
+            node_mask=self.node_mask.cpu().numpy().reshape(-1),
+            device=self.adj.device,
+        )

@@ -13,8 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from dfgnn_tpu_torch.graph import DenseBatch
-
-NEG_BIG = -1e30
+from dfgnn_tpu_torch.ops.reference import NEG_BIG, attn_dropout
 
 
 def dense_scores(
@@ -58,10 +57,9 @@ def dense_graph_attention(
     """Masked attention.  ``q, k, v``: ``[B, P, h, f]`` -> ``[B, P, h, f]``;
     rows with no edges produce zeros.
 
-    ``dropout_rate > 0`` drops normalised attention weights with a draw
-    from ``dropout_generator`` (a generator on the tensors' device).  The
-    draw cannot reproduce JAX's ``jax.random.bernoulli``, so this path
-    matches the JAX package in distribution only.
+    ``dropout_rate > 0`` drops normalised attention weights with
+    :func:`dfgnn_tpu_torch.ops.reference.attn_dropout`, a draw from
+    ``dropout_generator`` that matches the JAX package in distribution only.
 
     ``return_weights=True`` also returns the normalised pre-dropout
     attention weights ``[B, h, P, P]``."""
@@ -76,11 +74,7 @@ def dense_graph_attention(
     w = torch.where(den > 0, ex / torch.where(den > 0, den, 1.0), 0.0)
     w_clean = w
     if dropout_rate > 0.0:
-        if dropout_generator is None:
-            raise ValueError("dropout_rate > 0 requires dropout_generator")
-        keep = torch.rand(w.shape, generator=dropout_generator,
-                          device=w.device) < 1.0 - dropout_rate
-        w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
+        w = attn_dropout(w, dropout_rate, dropout_generator)
     out = torch.einsum("bhrc,bchf->brhf", w, v)
     if return_weights:
         return out, w_clean

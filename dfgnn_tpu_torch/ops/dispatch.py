@@ -1,7 +1,7 @@
 """Single entry point dispatching on graph layout.
 
-The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  Only the
-:class:`DenseBatch` layout is ported; ``method`` names the same
+The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  The :class:`DenseBatch`
+and :class:`Graph` layouts are ported; ``method`` names the same
 implementations as in the JAX package.
 """
 
@@ -12,9 +12,10 @@ from typing import Optional
 
 import torch
 
-from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.graph import DenseBatch, Graph
 from dfgnn_tpu_torch.ops import dense_block as _dense
 from dfgnn_tpu_torch.ops import flash_mask
+from dfgnn_tpu_torch.ops import reference as _ref
 
 
 def graph_attention(
@@ -34,22 +35,28 @@ def graph_attention(
 ):
     """Fused (or oracle) SDDMM -> edge-softmax -> SpMM attention convolution.
 
-    On a :class:`DenseBatch`, ``auto`` and ``flash`` run the flash kernel and
+    On a :class:`DenseBatch`, ``auto`` and ``flash`` run the flash kernels and
     ``dense`` and ``reference`` the dense formulation; ``return_weights=True``
     always takes the dense formulation, the one that materialises weights.
+    On a :class:`Graph`, ``auto`` and ``reference`` run the unfused
+    segment-op oracle.
     The ``DFGNN_TPU_FORCE_METHOD`` environment variable overrides
     ``method="auto"``.
     """
     if method == "auto":
         method = os.environ.get("DFGNN_TPU_FORCE_METHOD", "auto")
-    if not isinstance(g, DenseBatch):
-        raise NotImplementedError(
-            f"graph layout {type(g).__name__} is not ported yet: only DenseBatch "
-            "is. The edge-list Graph comes with ROADMAP.md queue 1 item 4, the "
-            "bucketed full graph with item 7, SampledBlock with item 8 and the "
-            "edge-partitioned graph with item 10.")
     kw = dict(score=score, e_row=e_row, e_col=e_col, negative_slope=negative_slope,
               dropout_rate=dropout_rate, dropout_generator=dropout_generator)
+    if isinstance(g, Graph):
+        if method in ("auto", "reference"):
+            return _ref.graph_attention_reference(g, q, k, v, **kw,
+                                                  return_weights=return_weights)
+        raise ValueError(f"method {method!r} invalid for Graph")
+    if not isinstance(g, DenseBatch):
+        raise NotImplementedError(
+            f"graph layout {type(g).__name__} is not ported yet: DenseBatch and Graph "
+            "are. The bucketed full graph comes with ROADMAP.md queue 1 item 7, "
+            "SampledBlock with item 8 and the edge-partitioned graph with item 10.")
     if method in ("auto", "flash") and not return_weights:
         return flash_mask.flash_graph_attention(g, q, k, v, **kw)
     if method in ("auto", "dense", "flash", "reference"):

@@ -1,16 +1,20 @@
 """Masked dense flash attention over a :class:`DenseBatch`, forward and backward.
 
-The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask` for the dot
-score.  The Pallas kernels ``_fwd_kernel_dot`` and ``_bwd_kernel_dot``
-become the hand-written CUDA kernels in ``csrc/flash_mask_fwd.cu`` and
-``csrc/flash_mask_bwd.cu``, built with ``nvcc`` for ``sm_90a`` into one
-library at first use and bound with ``ctypes``.
+The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask`.  Its four Pallas
+kernels become hand-written CUDA kernels, built with ``nvcc`` for ``sm_90a``
+into one library at first use and bound with ``ctypes``:
 
-:func:`flash_mask_fwd` and :func:`flash_mask_bwd` are the kernels' wrappers.
-For tensors on the CPU they run :func:`flash_mask_fwd_plain` and
-:func:`flash_mask_bwd_plain`, the same functions in plain PyTorch; for CUDA
-tensors they launch the kernels or raise.  They never fall back.
-:class:`_FlashDot` ties the two into autograd on every device.
+    _fwd_kernel_dot  (#1)  csrc/flash_mask_fwd.cu   flash_mask_fwd
+    _bwd_kernel_dot  (#3)  csrc/flash_mask_bwd.cu   flash_mask_bwd
+    _fwd_kernel_add  (#2)  csrc/flash_add_fwd.cu    flash_add_fwd
+    _bwd_kernel_add  (#4)  csrc/flash_add_bwd.cu    flash_add_bwd
+
+For tensors on the CPU each wrapper runs its ``*_plain`` twin, the same
+function in plain PyTorch; for CUDA tensors it launches its kernel or
+raises.  It never falls back.  :class:`_FlashDot` and :class:`_FlashAdd` tie
+each pair into autograd on every device.  The additive (GAT) kernels take
+the per-edge dropout of :mod:`dfgnn_tpu_torch.ops.edge_dropout`; the dot
+kernels do not yet.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Optional
 import torch
 
 from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.ops import edge_dropout
 from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
@@ -42,8 +47,22 @@ KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 KERNEL_MAX_P = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = 0  # forward kernel launches by flash_mask_fwd; callers may reset it to 0
-BWD_LAUNCHES = 0  # backward launches by flash_mask_bwd (one per call); resettable
+# Launches per wrapper call, one each (a backward call runs two passes);
+# callers may reset them to 0.
+LAUNCHES = 0  # kernel #1, by flash_mask_fwd
+BWD_LAUNCHES = 0  # kernel #3, by flash_mask_bwd
+ADD_LAUNCHES = 0  # kernel #2, by flash_add_fwd
+ADD_BWD_LAUNCHES = 0  # kernel #4, by flash_add_bwd
+
+
+def launch_counts() -> tuple[int, int, int, int]:
+    """Launches of kernels #1, #3, #2 and #4 since their counts were last reset."""
+    return LAUNCHES, BWD_LAUNCHES, ADD_LAUNCHES, ADD_BWD_LAUNCHES
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, BWD_LAUNCHES, ADD_LAUNCHES, ADD_BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = ADD_LAUNCHES = ADD_BWD_LAUNCHES = 0
 
 
 def _nvcc() -> str:
@@ -100,20 +119,25 @@ def _library() -> ctypes.CDLL:
     lib.dfgnn_flash_mask_fwd.restype = i
     lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, vp]
     lib.dfgnn_flash_mask_bwd.restype = i
+    f, u = ctypes.c_float, ctypes.c_uint32
+    drop = [f, i, u, u, f]  # slope, drop, seed, threshold, scale
+    lib.dfgnn_flash_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *drop, vp]
+    lib.dfgnn_flash_add_fwd.restype = i
+    lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *drop, vp]
+    lib.dfgnn_flash_add_bwd.restype = i
     lib.dfgnn_cuda_error_string.argtypes = [i]
     lib.dfgnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_mask_fwd_plain(q, k, v, adj, val=None):
-    """The kernel's function in plain PyTorch, on any device.
+def _softmax_matmul_plain(s, adj, v, val, drop):
+    """``_softmax_matmul`` of the Pallas kernels on fp32 scores ``[B, h, P, P]``.
 
-    ``q, k, v``: ``[B, P, h, f]`` (q pre-scaled); ``adj``: ``[B, P, P]``;
-    ``val``: ``[B, P, P]`` or None.  Returns ``out`` ``[B, P, h, f]`` in v's
-    dtype and ``lse`` ``[h, B, P]`` fp32.  Scores and sums are fp32; ``ex``
-    is rounded to v's dtype before the product, as in the Pallas kernel.
+    Scales ``s`` by ``val``, masks it with ``adj``, and returns ``out``
+    ``[B, P, h, f]`` in v's dtype and ``lse`` ``[h, B, P]`` fp32.  ``drop``
+    (a ``[B, h, P, P]`` factor or None) multiplies the undropped ``ex`` after
+    its row sum; ``ex`` is rounded to v's dtype before the product.
     """
-    s = torch.einsum("brhf,bchf->bhrc", q.float(), k.float())
     if val is not None:
         s = s * val[:, None].float()
     s = torch.where(adj[:, None].bool(), s, NEG_BIG)
@@ -122,10 +146,59 @@ def flash_mask_fwd_plain(q, k, v, adj, val=None):
     l = ex.sum(dim=-1, keepdim=True)
     has = l > 0
     inv = torch.where(has, 1.0 / torch.where(has, l, 1.0), 0.0)
+    if drop is not None:
+        ex = ex * drop
     out = torch.einsum("bhrc,bchf->brhf", ex.to(v.dtype).float(), v.float())
     out = (out * inv.transpose(1, 2)).to(v.dtype)
     lse = torch.where(has, m + torch.log(torch.where(has, l, 1.0)), NEG_BIG)
     return out, lse[..., 0].permute(1, 0, 2)
+
+
+def flash_mask_fwd_plain(q, k, v, adj, val=None):
+    """Kernel #1's function in plain PyTorch, on any device.
+
+    ``q, k, v``: ``[B, P, h, f]`` (q pre-scaled); ``adj``: ``[B, P, P]``;
+    ``val``: ``[B, P, P]`` or None.  Returns ``out`` ``[B, P, h, f]`` in v's
+    dtype and ``lse`` ``[h, B, P]`` fp32.  Scores and sums are fp32; ``ex``
+    is rounded to v's dtype before the product, as in the Pallas kernel.
+    """
+    s = torch.einsum("brhf,bchf->bhrc", q.float(), k.float())
+    return _softmax_matmul_plain(s, adj, v, val, None)
+
+
+def dropout_factor(seed: int, rate: float, B: int, h: int, P: int, device) -> torch.Tensor:
+    """The kernels' dropout factor ``keep / (1 - rate)`` ``[B, h, P, P]`` fp32,
+    keyed as the Pallas kernels' ``_drop_scale``: dst = g*P + r,
+    src = g*P + c, head = h."""
+    g = torch.arange(B, device=device).view(B, 1, 1, 1) * P
+    r = torch.arange(P, device=device).view(1, 1, P, 1)
+    c = torch.arange(P, device=device).view(1, 1, 1, P)
+    hh = torch.arange(h, device=device).view(1, h, 1, 1)
+    return edge_dropout.keep_scale(seed, g + r, g + c, hh, rate)
+
+
+def _add_scores(e_row, e_col, slope):
+    """``pre = e_row[r] + e_col[c]`` and ``leaky_relu(pre)``, ``[B, h, P, P]``
+    fp32, from node-major ``[B, P, h]`` scalars."""
+    pre = (e_row.float().permute(0, 2, 1)[..., :, None]
+           + e_col.float().permute(0, 2, 1)[..., None, :])
+    return pre, torch.where(pre >= 0, pre, pre * slope)
+
+
+def flash_add_fwd_plain(e_row, e_col, v, adj, val=None, *, slope: float = 0.2,
+                        seed: int = 0, rate: float = 0.0):
+    """Kernel #2's function in plain PyTorch, on any device.
+
+    ``e_row, e_col``: ``[B, P, h]``; ``v``: ``[B, P, h, f]``; ``adj``,
+    ``val``: as :func:`flash_mask_fwd_plain`'s.  Scores are
+    ``leaky_relu(e_row[r] + e_col[c])`` in fp32; ``rate > 0`` drops the
+    numerator weights with the edge hash of ``seed``.  Returns ``(out, lse)``
+    as :func:`flash_mask_fwd_plain` does; ``lse`` does not see dropout.
+    """
+    _, s = _add_scores(e_row, e_col, slope)
+    B, P, h, _ = v.shape
+    drop = dropout_factor(seed, rate, B, h, P, v.device) if rate > 0.0 else None
+    return _softmax_matmul_plain(s, adj, v, val, drop)
 
 
 def bwd_delta(do, out):
@@ -160,28 +233,92 @@ def flash_mask_bwd_plain(q, k, v, adj, val, lse, do, delta):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_args(q, k, v, adj, val):
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the kernel takes fp32 or bf16, not {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
-            raise ValueError(f"{name} must match q in dtype, shape and device")
-    if q.dim() != 4:
-        raise ValueError(f"q, k, v must be [B, P, h, f], got {tuple(q.shape)}")
-    B, P, h, f = q.shape
+def flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do, delta, *, slope: float = 0.2,
+                        seed: int = 0, rate: float = 0.0):
+    """Kernel #4's function in plain PyTorch, on any device.
+
+    Inputs as :func:`flash_add_fwd_plain`'s, with the forward's ``lse`` and
+    ``delta`` = rowsum(dO * out) ``[h, B, P]`` fp32.  Returns
+    ``(d e_row, d e_col, dv)`` in the dtypes of e_row, e_col and v.  ``dp``
+    and ``p`` take the same dropout factor; leaky' tests the pre-val sum;
+    ``p * keep`` is rounded to dO's dtype before its product.
+    """
+    pre, s = _add_scores(e_row, e_col, slope)
+    if val is not None:
+        s = s * val[:, None].float()
+    edge = adj[:, None].bool()
+    lse_b = lse.permute(1, 0, 2)[..., None]      # [B, h, P, 1]
+    delta_b = delta.permute(1, 0, 2)[..., None]
+    p = torch.where(edge, torch.exp(torch.where(edge, s - lse_b, 0.0)), 0.0)
+    dp = torch.einsum("brhf,bchf->bhrc", do.float(), v.float())
+    pn = p
+    if rate > 0.0:
+        B, P, h, _ = v.shape
+        keep = dropout_factor(seed, rate, B, h, P, v.device)
+        dp, pn = dp * keep, p * keep
+    ds = p * (dp - delta_b)
+    if val is not None:
+        ds = ds * val[:, None].float()
+    dpre = torch.where(pre >= 0, ds, ds * slope)
+    der = dpre.sum(dim=-1).permute(0, 2, 1).contiguous()  # [B, P, h]
+    dec = dpre.sum(dim=-2).permute(0, 2, 1).contiguous()
+    dv = torch.einsum("bhrc,brhf->bchf", pn.to(do.dtype).float(), do.float())
+    return der.to(e_row.dtype), dec.to(e_col.dtype), dv.to(v.dtype)
+
+
+def _check_block_args(v, adj, val, **named):
+    """What every kernel takes: fp32 or bf16 ``v`` ``[B, P, h, f]`` with f in
+    KERNEL_HEAD_DIMS and P <= KERNEL_MAX_P, uint8 ``adj`` and fp32 ``val``
+    ``[B, P, P]``, all on v's device; ``v``, ``adj``, ``val`` and the
+    ``named`` tensors contiguous."""
+    if v.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes fp32 or bf16, not {v.dtype}")
+    if v.dim() != 4:
+        raise ValueError(f"v must be [B, P, h, f], got {tuple(v.shape)}")
+    B, P, h, f = v.shape
     if f not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, not {f}")
     if not 1 <= P <= KERNEL_MAX_P or B < 1 or h < 1:
         raise ValueError(f"the kernel takes 1 <= P <= {KERNEL_MAX_P} and B, h >= 1, "
                          f"got B={B} P={P} h={h}")
-    if adj.dtype != torch.uint8 or adj.shape != (B, P, P) or adj.device != q.device:
-        raise ValueError("adj must be uint8 [B, P, P] on q's device")
+    if adj.dtype != torch.uint8 or adj.shape != (B, P, P) or adj.device != v.device:
+        raise ValueError("adj must be uint8 [B, P, P] on v's device")
     if val is not None and (val.dtype != torch.float32 or val.shape != (B, P, P)
-                            or val.device != q.device):
-        raise ValueError("val must be fp32 [B, P, P] on q's device")
-    for name, t in (("q", q), ("k", k), ("v", v), ("adj", adj), ("val", val)):
+                            or val.device != v.device):
+        raise ValueError("val must be fp32 [B, P, P] on v's device")
+    for name, t in (("v", v), ("adj", adj), ("val", val), *named.items()):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_args(q, k, v, adj, val):
+    for name, t in (("q", q), ("k", k)):
+        if t.dtype != v.dtype or t.shape != v.shape or t.device != v.device:
+            raise ValueError(f"{name} must match v in dtype, shape and device")
+    _check_block_args(v, adj, val, q=q, k=k)
+
+
+def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
+    if v.dim() == 4:
+        for name, t in (("e_row", e_row), ("e_col", e_col)):
+            if t.dtype != v.dtype or t.shape != v.shape[:3] or t.device != v.device:
+                raise ValueError(f"{name} must be [B, P, h] of v's dtype on v's device")
+    _check_block_args(v, adj, val, e_row=e_row, e_col=e_col)
+    if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
+        raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
+
+
+def _dropout_args(seed: int, rate: float) -> list:
+    """The kernels' dropout arguments: on, seed, threshold, fp32 scale."""
+    if rate <= 0.0:
+        return [0, 0, 0, 1.0]
+    return [1, seed, edge_dropout.keep_threshold(rate), edge_dropout.drop_scale(rate)]
+
+
+def _raise_on(err: int, what: str, lib) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.dfgnn_cuda_error_string(err).decode())
 
 
 def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
@@ -208,9 +345,7 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
             adj.data_ptr(), None if val is None else val.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             B, P, h, f, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_mask_fwd kernel launch failed: "
-                           + lib.dfgnn_cuda_error_string(err).decode())
+    _raise_on(err, "flash_mask_fwd", lib)
     global LAUNCHES
     LAUNCHES += 1
     return out, lse
@@ -250,12 +385,87 @@ def flash_mask_bwd(q, k, v, adj, val, out, lse, do):
             lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, P, h, f, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_mask_bwd kernel launch failed: "
-                           + lib.dfgnn_cuda_error_string(err).decode())
+    _raise_on(err, "flash_mask_bwd", lib)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: int = 0,
+                  rate: float = 0.0, want_lse: bool = False):
+    """Additive-score attention forward: ``(out [B, P, h, f], lse [h, B, P] | None)``.
+
+    CPU tensors run :func:`flash_add_fwd_plain`.  CUDA tensors launch kernel
+    #2 on the current stream: ``e_row, e_col`` ``[B, P, h]`` and ``v`` of one
+    dtype (fp32 or bf16), contiguous; ``adj``, ``val`` as
+    :func:`flash_mask_fwd` takes them; ``0 <= rate < 1`` and a uint32
+    ``seed``.  Anything else raises.
+    """
+    if v.device.type == "cpu":
+        out, lse = flash_add_fwd_plain(e_row, e_col, v, adj, val, slope=slope, seed=seed,
+                                       rate=rate)
+        return out, (lse if want_lse else None)
+    if v.device.type != "cuda":
+        raise ValueError(f"no flash_add_fwd kernel for device {v.device}")
+    _check_add_args(e_row, e_col, v, adj, val, seed, rate)
+    B, P, h, f = v.shape
+    out = torch.empty_like(v)
+    lse = (torch.empty((h, B, P), dtype=torch.float32, device=v.device)
+           if want_lse else None)
+    lib = _library()
+    with torch.cuda.device(v.device):
+        err = lib.dfgnn_flash_add_fwd(
+            _DTYPE_CODES[v.dtype], e_row.data_ptr(), e_col.data_ptr(), v.data_ptr(),
+            adj.data_ptr(), None if val is None else val.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, P, h, f, slope,
+            *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "flash_add_fwd", lib)
+    global ADD_LAUNCHES
+    ADD_LAUNCHES += 1
+    return out, lse
+
+
+def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2,
+                  seed: int = 0, rate: float = 0.0):
+    """Additive-score attention backward: ``(d e_row, d e_col, dv)``.
+
+    ``out`` and ``lse`` are the forward's (``out`` with dropout applied, for
+    ``delta``); ``do`` is the output's gradient.  Computes ``delta``
+    (:func:`bwd_delta`), then on CPU tensors runs :func:`flash_add_bwd_plain`
+    and on CUDA tensors launches kernel #4 (two passes, one C call) with the
+    forward's seed and rate.  The kernel takes what :func:`flash_add_fwd`'s
+    takes, with ``out`` and ``do`` of v's dtype and shape, ``do`` contiguous
+    and ``lse`` fp32 ``[h, B, P]``; anything else raises.
+    """
+    kw = dict(slope=slope, seed=seed, rate=rate)
+    if v.device.type == "cpu":
+        return flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do, bwd_delta(do, out), **kw)
+    if v.device.type != "cuda":
+        raise ValueError(f"no flash_add_bwd kernel for device {v.device}")
+    _check_add_args(e_row, e_col, v, adj, val, seed, rate)
+    for name, t in (("out", out), ("do", do)):
+        if t.dtype != v.dtype or t.shape != v.shape or t.device != v.device:
+            raise ValueError(f"{name} must match v in dtype, shape and device")
+    if not do.is_contiguous():  # out is read only by bwd_delta, through its strides
+        raise ValueError("do must be contiguous")
+    B, P, h, f = v.shape
+    if lse.dtype != torch.float32 or lse.shape != (h, B, P) or lse.device != v.device:
+        raise ValueError("lse must be fp32 [h, B, P] on v's device")
+    lse = lse.contiguous()
+    delta = bwd_delta(do, out)
+    der, dec, dv = torch.empty_like(e_row), torch.empty_like(e_col), torch.empty_like(v)
+    lib = _library()
+    with torch.cuda.device(v.device):
+        err = lib.dfgnn_flash_add_bwd(
+            _DTYPE_CODES[v.dtype], e_row.data_ptr(), e_col.data_ptr(), v.data_ptr(),
+            adj.data_ptr(), None if val is None else val.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), do.data_ptr(), der.data_ptr(), dec.data_ptr(), dv.data_ptr(),
+            B, P, h, f, slope, *_dropout_args(seed, rate),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "flash_add_bwd", lib)
+    global ADD_BWD_LAUNCHES
+    ADD_BWD_LAUNCHES += 1
+    return der, dec, dv
 
 
 class _FlashDot(torch.autograd.Function):
@@ -284,6 +494,32 @@ class _FlashDot(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _FlashAdd(torch.autograd.Function):
+    """Kernels #2 and #4 in autograd, on every device.
+
+    ``slope``, ``seed`` and ``rate`` are constants; the backward regenerates
+    the forward's dropout mask from the seed.  ``adj`` and ``val`` get no
+    gradient, as in the JAX package's ``_flash_add_bwd``.
+    """
+
+    @staticmethod
+    def forward(ctx, e_row, e_col, v, adj, val, slope, seed, rate):
+        need = any(ctx.needs_input_grad)
+        out, lse = flash_add_fwd(e_row, e_col, v, adj, val, slope=slope, seed=seed,
+                                 rate=rate, want_lse=need)
+        if need:
+            ctx.save_for_backward(e_row, e_col, v, adj, val, out, lse)
+            ctx.kw = dict(slope=slope, seed=seed, rate=rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        e_row, e_col, v, adj, val, out, lse = ctx.saved_tensors
+        der, dec, dv = flash_add_bwd(e_row, e_col, v, adj, val, out, lse,
+                                     grad_out.contiguous(), **ctx.kw)
+        return der, dec, dv, None, None, None, None, None
+
+
 def flash_graph_attention(
     batch: DenseBatch,
     q: Optional[torch.Tensor],
@@ -300,20 +536,28 @@ def flash_graph_attention(
     """Fused masked attention over a :class:`DenseBatch`, ``[B, P, h, f]``.
 
     Numerics match :func:`dfgnn_tpu_torch.ops.dense_block.dense_graph_attention`.
+    ``score="add"`` takes node-major ``e_row``/``e_col`` ``[B, P, h]``, and
+    ``dropout_rate > 0`` drops its attention weights in the kernels with the
+    edge hash of a seed drawn from ``dropout_generator`` (a CPU generator).
     Edge values (``batch.val``) scale the raw scores and get no gradient.
-    Differentiable through :class:`_FlashDot`: the kernels on CUDA tensors,
-    their plain versions on CPU tensors.
+    Differentiable through :class:`_FlashDot` and :class:`_FlashAdd`: the
+    kernels on CUDA tensors, their plain versions on CPU tensors.
     """
-    del e_row, e_col, negative_slope, dropout_generator  # add score / dropout: not ported
+    rate = float(dropout_rate)
+    val = None if batch.val is None else batch.val.float()
     if score == "add":
-        raise NotImplementedError(
-            "the additive (GAT) flash kernel _fwd_kernel_add is not ported yet: "
-            "ROADMAP.md queue 2, kernel #2")
+        seed = 0
+        if rate > 0.0:
+            if dropout_generator is None:
+                raise ValueError("dropout_rate > 0 requires dropout_generator")
+            seed = edge_dropout.seed_from_generator(dropout_generator)
+        return _FlashAdd.apply(e_row.contiguous(), e_col.contiguous(), v, batch.adj, val,
+                               float(negative_slope), seed, rate)
     if score != "dot":
         raise ValueError(f"unknown score mode {score!r}")
-    if dropout_rate > 0.0:
+    if rate > 0.0:
         raise NotImplementedError(
-            "in-kernel attention dropout (the edge hash) is not ported yet: "
-            "ROADMAP.md queue 1 item 4. method='dense' takes dropout")
-    val = None if batch.val is None else batch.val.float()
+            "attention dropout on the dot score (the edge hash in kernels #1 and #3, "
+            "_fwd_kernel_dot and _bwd_kernel_dot) is not ported yet: ROADMAP.md queue 2. "
+            "method='dense' takes dropout")
     return _FlashDot.apply(q, k, v, batch.adj, val)

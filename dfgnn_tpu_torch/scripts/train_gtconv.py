@@ -10,10 +10,9 @@ loss, a metric per epoch (ROC-AUC, mean AP or accuracy), and
 
 ``--checkgrad`` compares every parameter's gradient on the first batch
 through ``impl="flash"`` (the flash kernels) with the gradient through
-``impl="dense"`` (autograd through the dense formulation), at rtol 1e-3,
-atol 1e-2, and exits 1 on a mismatch.  The JAX script's oracle is
-``impl="reference"`` on the edge-list graph, which the port does not have
-yet; the dense formulation is the oracle until it does.
+``impl="reference"`` on the batch's block-diagonal edge-list Graph
+(autograd through the segment-op oracle), as the JAX script does, at
+rtol 1e-3, atol 1e-2, and exits 1 on a mismatch.
 
 As in the JAX script, the node-level datasets (PATTERN, CLUSTER, the -SP
 sets) fail: their labels are per node and GTModel's output is per graph.
@@ -107,18 +106,19 @@ def main(argv=None):
 
 
 def _checkgrad(model, loss_fn, batch, x, y, m):
-    """Flash-vs-dense gradient comparison on one batch, through the task's
+    """Flash-vs-oracle gradient comparison on one batch, through the task's
     training loss."""
-    def grads(impl):
+    def grads(g, impl):
         model.zero_grad(set_to_none=True)
-        loss_fn(batch, x, y, m, impl=impl).backward()
+        loss_fn(g, x, y, m, impl=impl).backward()
         return {name: p.grad.detach().cpu().numpy() for name, p in model.named_parameters()}
 
-    g_fused = grads("flash")
-    g_ref = grads("dense")
+    g_fused = grads(batch, "flash")
+    g_ref = grads(batch.to_graph(), "reference")
     model.zero_grad(set_to_none=True)
-    print("checkgrad: impl='flash' (the flash kernels) against impl='dense' "
-          "(autograd through the dense formulation), rtol 1e-3, atol 1e-2")
+    print("checkgrad: impl='flash' (the flash kernels) against impl='reference' on the "
+          "block-diagonal Graph (autograd through the segment-op oracle), rtol 1e-3, "
+          "atol 1e-2")
     ok = True
     for name, a in g_fused.items():
         b = g_ref[name]

@@ -1,0 +1,108 @@
+"""Fused-vs-unfused accuracy parity harness, the twin of :mod:`dfgnn_tpu.train.parity`.
+
+The reference trains the fused and unfused paths on the same task and
+compares the end metric.  :func:`run_parity_batched` does so on a
+PATTERN-like batch of SBM graphs with noisy one-hot features: the fused
+side is ``FullGraphNet`` through ``impl="flash"`` on a :class:`DenseBatch`
+(the flash kernels on the card), the unfused side the same model through the
+segment-op oracle on the block-diagonal :class:`Graph`.  Same init, data and
+Adam (optax's defaults), so the gap isolates the kernels' numerics.
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+
+import numpy as np
+import torch
+
+from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+from dfgnn_tpu_torch.device import resolve_device
+from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.models import FullGraphNet
+from dfgnn_tpu_torch.ops import flash_mask
+from dfgnn_tpu_torch.train.loop import TrainState, evaluate_accuracy, make_loss_fn, train_step
+
+
+def _noisy_onehot(rng, block, n_classes: int, noise: float = 0.3):
+    """Features = one-hot(block), each row replaced by a random class with
+    probability ``noise``: the planted signal a GNN recovers from its
+    neighbours, so block classification is learnable and needs attention."""
+    n = len(block)
+    lab = np.where(rng.random(n) < noise, rng.integers(0, n_classes, size=n), block)
+    return np.eye(n_classes, dtype=np.float32)[lab]
+
+
+def _train(model, g, x, y, mask, steps: int, lr: float, impl, device):
+    """Adam steps; per step the loss and the flash forward and backward
+    kernel launches (dot and add summed)."""
+    state = TrainState.create(model, lr=lr, device=device)
+    loss_fn = functools.partial(make_loss_fn(model, "node_classification", 2), impl=impl)
+    seen = []
+    for _ in range(steps):
+        before = flash_mask.launch_counts()
+        _, loss = train_step(state, loss_fn, g, x, y, mask)
+        fwd, bwd, add_fwd, add_bwd = (a - b for a, b in zip(flash_mask.launch_counts(), before))
+        seen.append({"loss": float(loss), "fwd_launches": fwd + add_fwd,
+                     "bwd_launches": bwd + add_bwd})
+    return seen
+
+
+def _accuracy(model, g, x, y, mask, impl) -> float:
+    with torch.no_grad():
+        pred = model(g, x, impl=impl).argmax(dim=-1)
+    return evaluate_accuracy(y.cpu().numpy(), pred.cpu().numpy(), mask.cpu().numpy())
+
+
+def batched_inputs(seed: int = 0, n_graphs: int = 32, noise: float = 0.3, device="cuda"):
+    """The batched harness's task: ``(batch, x, y, mask)``, a DenseBatch of
+    ``n_graphs`` PATTERN-like SBM graphs at P=128 with noisy one-hot
+    features ``[B*P, 2]``, block labels and the node mask, drawn from
+    ``np.random.default_rng(seed)`` in the JAX harness's order."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    graphs = pattern_like_batch(rng, n_graphs)
+    P = 128
+    batch = DenseBatch.from_graph_list([(r, c, n) for r, c, n, _ in graphs], np_pad=P,
+                                       device=dev)
+    x = np.zeros((n_graphs * P, 2), dtype=np.float32)
+    y = np.zeros(n_graphs * P, dtype=np.int64)
+    for b, (_, _, n, block) in enumerate(graphs):
+        x[b * P: b * P + n] = _noisy_onehot(rng, block, 2, noise)
+        y[b * P: b * P + n] = block
+    return (batch, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+            batch.node_mask.reshape(-1).float())
+
+
+def run_parity_batched(seed: int = 0, n_graphs: int = 32, hidden: int = 32, layers: int = 2,
+                       steps: int = 120, lr: float = 1e-2, conv: str = "gt",
+                       noise: float = 0.3, device="cuda") -> dict:
+    """PATTERN-like node classification: flash kernels against the oracle.
+
+    The task is :func:`batched_inputs`'s; the weights are drawn from
+    ``torch.Generator().manual_seed(seed)``.  Returns the accuracies, their
+    gap, the majority baseline and, per fused step, the loss and kernel
+    launches.
+    """
+    dev = resolve_device(device)
+    batch, x, y, mask = batched_inputs(seed, n_graphs, noise, dev)
+    g_ref = batch.to_graph()
+    model = FullGraphNet(conv=conv, num_classes=2, hidden_size=hidden, num_layers=layers,
+                         in_size=2, generator=torch.Generator().manual_seed(seed), device=dev)
+    model_ref = copy.deepcopy(model)
+    fused_steps = _train(model, batch, x, y, mask, steps, lr, "flash", dev)
+    _train(model_ref, g_ref, x, y, mask, steps, lr, "reference", dev)
+    acc_f = _accuracy(model, batch, x, y, mask, "flash")
+    acc_u = _accuracy(model_ref, g_ref, x, y, mask, "reference")
+    frac1 = float((y * mask).sum() / mask.sum())
+    return {"task": "batched-SBM", "acc_fused": acc_f, "acc_unfused": acc_u,
+            "gap": abs(acc_f - acc_u), "majority_baseline": max(frac1, 1.0 - frac1),
+            "fused_steps": fused_steps}
+
+
+def run_parity_full(*args, **kwargs) -> dict:
+    """Full-graph parity runs the bucketed layout, which is not ported yet."""
+    raise NotImplementedError(
+        "full-graph parity needs the bucketed full-graph path (BucketedGraph, "
+        "ops/bucket.py), which is not ported yet: ROADMAP.md queue 1 item 7")

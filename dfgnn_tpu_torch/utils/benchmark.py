@@ -1,4 +1,4 @@
-"""Timing on the CUDA device.
+"""Timing on the CUDA device, and the row-wise correctness check.
 
 The reference's protocol: 3 warmup runs, then the mean of 10 timed runs,
 timed with CUDA events on the current stream.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,23 @@ def benchmark(fn: Callable, *args, warmup: int = 3, iters: int = 10):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end) / iters
+
+
+def check_correct(a, b, *, rtol: float = 1e-3, atol: float = 1e-5,
+                  max_report: int = 5, tolerate_per_node: int = 1) -> bool:
+    """Row-wise closeness check with per-node diagnostics, a copy of the JAX
+    package's: a node counts as mismatched only if more than
+    ``tolerate_per_node`` of its elements violate ``isclose(rtol, atol)``;
+    offending nodes are printed with both rows.  True when all nodes pass."""
+    flat_a = np.asarray(a).reshape(len(a), -1)
+    flat_b = np.asarray(b).reshape(len(b), -1)
+    bad_counts = (~np.isclose(flat_a, flat_b, rtol=rtol, atol=atol)).sum(axis=1)
+    bad_nodes = np.nonzero(bad_counts > tolerate_per_node)[0]
+    for i in bad_nodes[:max_report]:
+        print(f"check_correct: node {i} mismatch ({bad_counts[i]} elems)")
+        print("  a:", flat_a[i][:8])
+        print("  b:", flat_b[i][:8])
+    if bad_nodes.size:
+        print(f"check_correct: {bad_nodes.size}/{len(flat_a)} nodes mismatched")
+        return False
+    return True

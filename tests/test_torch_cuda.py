@@ -197,3 +197,117 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
     for name, g in grads.items():
         torch.testing.assert_close(g, cpu_grads[name], rtol=1e-3, atol=1e-5)
+
+
+# Kernels #2 and #4, the additive (GAT) score.  (B, h, P, f, with_val): the
+# serving and training shapes, edge values, a long P, ragged P, the smallest f
+# and the largest shape the kernels take.
+ADD_SHAPES = [
+    (1024, 1, 128, 128, False),
+    (1024, 1, 128, 64, False),
+    (3, 2, 64, 16, True),
+    (2, 4, 512, 32, False),
+    (2, 2, 100, 64, True),
+    (3, 2, 40, 8, False),
+    (1, 1, 2048, 256, False),
+]
+
+
+def _add_inputs(seed, B, h, P, f, *, with_val=False, dtype=torch.float32):
+    """Seeded e_row, e_col [B, P, h], v, adj (padded nodes, empty rows), val."""
+    _, _, v, adj, val = _inputs(seed, B, h, P, f, with_val=with_val, dtype=dtype)
+    rng = np.random.default_rng(seed + 500)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32))
+                    .cuda().to(dtype) for _ in range(2))
+    return e_row, e_col, v, adj, val
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("B,h,P,f,with_val", ADD_SHAPES)
+def test_add_kernels_match_plain_fp32(cuda, B, h, P, f, with_val, rate):
+    e_row, e_col, v, adj, val = _add_inputs(20, B, h, P, f, with_val=with_val)
+    kw = dict(slope=0.2, seed=12345, rate=rate)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    assert (lse == flash_mask.NEG_BIG).any()  # empty rows were covered
+    do = torch.from_numpy(np.random.default_rng(21).standard_normal(v.shape)
+                          .astype(np.float32)).cuda()
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, want_out, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, want_lse, do,
+                                          flash_mask.bwd_delta(do, want_out), **kw)
+    for name, g, w in zip(("d e_row", "d e_col", "dv"), got, want):
+        err = float((g - w).abs().max())
+        print(f"{name} B={B} h={h} P={P} f={f} val={with_val} rate={rate}: max abs err "
+              f"{err:.3e}, max |grad| {float(w.abs().max()):.3e}")
+        torch.testing.assert_close(g, w, **BWD_FP32_TOL)
+
+
+def test_add_kernels_match_plain_bf16(cuda):
+    e_row, e_col, v, adj, _ = _add_inputs(22, 64, 2, 128, 64, dtype=torch.bfloat16)
+    kw = dict(slope=0.2, seed=7, rate=0.4)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=3e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    do = torch.from_numpy(np.random.default_rng(23).standard_normal(v.shape)
+                          .astype(np.float32)).cuda().bfloat16()
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, want_out, want_lse, do, **kw)
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, want_lse, do,
+                                          flash_mask.bwd_delta(do, want_out), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        # sums cast to bf16 and p * keep rounded to bf16 before dv's product:
+        # a bf16 step of the largest gradient, 2**-6 of it, bounds the difference
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+def test_add_dropout_keeps_the_hash_mask(cuda):
+    """With v = one-hot columns, out[r, c] = ex[r, c] * keep / l: the kept
+    entries are exactly the hash's, on the card as on the CPU."""
+    B, h, P, rate = 2, 2, 64, 0.4
+    e_row, e_col, _, adj, _ = _add_inputs(24, B, h, P, 64)
+    v = torch.eye(P, device=cuda).reshape(1, P, 1, P).expand(B, P, h, P).contiguous()
+    out, _ = flash_mask.flash_add_fwd(e_row, e_col, v, adj, seed=99, rate=rate)
+    clean, _ = flash_mask.flash_add_fwd(e_row, e_col, v, adj)
+    keep = flash_mask.dropout_factor(99, rate, B, h, P, cuda).permute(0, 2, 1, 3)
+    live = clean > 0
+    assert torch.equal(out[live] != 0, keep[live] != 0)
+    frac = float((keep[live] != 0).float().mean())
+    assert abs(frac - (1 - rate)) < 0.05, frac
+
+
+def test_add_launch_counters_count_kernel_calls_only(cuda):
+    e_row, e_col, v, adj, _ = _add_inputs(25, 2, 1, 64, 32)
+    flash_mask.reset_launch_counts()
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True)
+    flash_mask.flash_add_fwd(e_row.cpu(), e_col.cpu(), v.cpu(), adj.cpu())
+    flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, out, lse, out)
+    flash_mask.flash_add_bwd(e_row.cpu(), e_col.cpu(), v.cpu(), adj.cpu(), None, out.cpu(),
+                             lse.cpu(), out.cpu())
+    assert flash_mask.launch_counts() == (0, 0, 1, 1)
+    with pytest.raises(ValueError, match="e_row"):
+        flash_mask.flash_add_fwd(e_row[:, :, :1].expand(2, 64, 2), e_col, v, adj)
+    with pytest.raises(ValueError, match="dropout"):
+        flash_mask.flash_add_fwd(e_row, e_col, v, adj, rate=1.0)
+
+
+def test_gat_autograd_on_card_matches_dense(cuda):
+    """Autograd through _FlashAdd (kernels #2 and #4) against autograd
+    through the dense oracle."""
+    e_row, e_col, v, adj, val = _add_inputs(26, 4, 2, 128, 32, with_val=True)
+    batch = DenseBatch(adj=adj, node_mask=torch.ones(4, 128, dtype=torch.bool, device=cuda),
+                       val=val, n_graphs=4, np_pad=128)
+    grads = []
+    for fn in (flash_mask.flash_graph_attention, dense_block.dense_graph_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (e_row, e_col, v)]
+        fn(batch, None, None, leaves[2], score="add", e_row=leaves[0],
+           e_col=leaves[1]).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)

@@ -67,13 +67,19 @@ def test_layouts_not_ported_raise(layout):
 
 
 def test_flash_refuses_what_is_not_ported():
+    """Dot-score dropout (kernels #1 and #3) still raises; the add score,
+    ported with kernels #2 and #4, runs and matches the dense oracle."""
     batch, q, k, v = _small()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(NotImplementedError, match="kernels #1 and #3"):
         graph_attention(batch, q, k, v, dropout_rate=0.1, dropout_generator=gen)
-    with pytest.raises(NotImplementedError, match="_fwd_kernel_add"):
-        e = torch.zeros(2, 16, 1)
-        graph_attention(batch, None, None, v, score="add", e_row=e, e_col=e)
+    rng = np.random.default_rng(1)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((2, 16, 1)).astype(np.float32))
+                    for _ in range(2))
+    add = dict(score="add", e_row=e_row, e_col=e_col, negative_slope=0.1)
+    torch.testing.assert_close(graph_attention(batch, None, None, v, **add),
+                               graph_attention(batch, None, None, v, method="dense", **add),
+                               rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="score"):
         flash_mask.flash_graph_attention(batch, q, k, v, score="cosine")
     # dropout stays reachable through the dense path
@@ -121,7 +127,10 @@ def test_package_imports_no_jax():
             "dfgnn_tpu_torch.utils.benchmark, dfgnn_tpu_torch.data.synthetic, "
             "dfgnn_tpu_torch.data.datasets, dfgnn_tpu_torch.data.collate, "
             "dfgnn_tpu_torch.train, dfgnn_tpu_torch.utils.config, "
-            "dfgnn_tpu_torch.scripts.train_gtconv, dfgnn_tpu_torch.scripts.profile_train_step\n"
+            "dfgnn_tpu_torch.scripts.train_gtconv, dfgnn_tpu_torch.scripts.profile_train_step, "
+            "dfgnn_tpu_torch.scripts.train_parity, dfgnn_tpu_torch.scripts.test_batch_graph, "
+            "dfgnn_tpu_torch.ops.reference, dfgnn_tpu_torch.ops.edge_dropout, "
+            "dfgnn_tpu_torch.train.parity\n"
             "assert 'yaml' not in sys.modules and 'sklearn' not in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dfgnn_tpu')]\n"
             "assert not bad, bad\n")

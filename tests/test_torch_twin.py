@@ -94,7 +94,7 @@ def test_checkgrad_is_ok_on_the_cpu(capsys):
     assert train_gtconv.main(SMALL + ["--epochs", "1", "--checkgrad"]) == {"checkgrad": "OK"}
     out = capsys.readouterr().out
     assert "checkgrad: OK" in out.splitlines()
-    assert "impl='dense'" in out  # it names its oracle
+    assert "impl='reference'" in out  # it names its oracle, the JAX script's
 
 
 def test_trains_an_epoch_on_the_cpu(capsys):
