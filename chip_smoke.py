@@ -5,30 +5,41 @@
 
 Builds the port's CUDA kernels from ``dfgnn_tpu_torch/csrc/`` and holds each
 against its plain PyTorch version on the card: the flash-attention forward
-(kernel #1) and backward (#3) of the dot score, and the forward (#2) and
-backward (#4) of the additive (GAT) score, with and without dropout; each is
-timed beside its bound and beside one PyTorch call
-(``scaled_dot_product_attention``).  Then it drives the slice's paths with
-random weights from a seed, each with the launch counts set to 0 just before
-it and read just after:
+(kernel #1) and backward (#3) of the dot score, the forward (#2) and
+backward (#4) of the additive (GAT) score, with and without dropout and with
+fp32 scores beside a bf16 v, and the whole-layer kernels of GT (#5) and GAT
+(#6, with and without dropout, and against the decomposed path with the
+same seed); each is timed beside its bound and beside PyTorch's nearest call
+(``scaled_dot_product_attention``, after ``F.linear`` for #5 and #6).  Then
+it drives the slice's paths with random weights from a seed, each with the
+six launch counts set to 0 just before it and read just after:
 - GTModel serving: the 8-layer, hidden-128, 1-head model over three bs=1024
-  PATTERN-like requests through ``method="auto"``, logits held against
+  PATTERN-like requests through ``method="auto"`` and through
+  ``impl="flash_fused"`` (8 launches of #5 a request), logits held against
   ``method="dense"``;
 - GTModel training: the twin ``dfgnn_tpu_torch.scripts.train_gtconv`` on
   ogbg-molhiv, bs=1024, two epochs of 8 steps, 8 forward and 8 backward
-  launches a step; 3 Adam steps held against ``method="dense"``;
-  ``--checkgrad`` against the segment-op oracle; a train step's time and
-  peak memory;
+  launches a step; 3 Adam steps through ``auto`` and through
+  ``flash_fused`` (8 + 8 + 8 launches of #5, #1, #3 a step) held against
+  ``method="dense"``; ``--checkgrad`` against the segment-op oracle; a train
+  step's time and peak memory;
 - GAT serving: the twin ``dfgnn_tpu_torch.scripts.test_batch_graph`` at the
   reference's setting (PATTERN, bs=1024, dim 128, 1 head, every format
   checked against the oracle), one kernel #2 launch per flash forward;
 - GAT training: the twin ``dfgnn_tpu_torch.scripts.train_parity --conv gat``
   (FullGraphNet, hidden 64, 2 layers, 200 Adam steps against the oracle),
   2 + 2 add-kernel launches a step; then a timed Adam step of that model on
-  a bs=1024 PATTERN-like batch, with its peak memory.
-Prints progress, then a ``{"kernels": [...]}`` JSON line, and last a
-``{"ok": true, ...}`` line.  Exits non-zero, with no result line, when there
-is no CUDA device or any check fails.  Imports no JAX.
+  a bs=1024 PATTERN-like batch, with its peak memory;
+- GAT serving at the fig-1 setting through ``impl="flash_fused"`` (one #6 a
+  forward) and in bf16 through ``GATConv``'s auto route;
+- GAT bf16 training: ``run_parity_batched(conv="gat", dtype=bf16)``, 200
+  steps with 2 + 2 + 2 launches of #6, #2, #4 a step, and a timed bf16
+  ``FullGraphNet(gat)`` Adam step with its peak memory;
+- the shmoo twin at dim 256 (bs=256) and bs 1024 and 2048 (dim 128).
+Prints progress and each phase's wall time, then a ``{"kernels": [...]}``
+JSON line (six records), and last a ``{"ok": true, ...}`` line.  Exits
+non-zero, with no result line, when there is no CUDA device or any check
+fails.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +85,17 @@ ADD_SHAPES = [  # (B, h, P, f, with_val, dtype): kernels #2 and #4
     (1024, 1, 128, 128, False, torch.bfloat16),
 ]
 ADD_BWD_SHAPES = ADD_SHAPES + [(2, 2, 100, 64, True, torch.float32)]
+LAYER_SHAPES = [  # (B, h, P, din, f, dtype): kernels #5 and #6
+    (1024, 1, 128, 128, 128, torch.float32),   # GT and GAT serving at full width
+    (1024, 1, 128, 128, 128, torch.bfloat16),
+    (1024, 1, 128, 64, 64, torch.bfloat16),    # the bf16 GAT training step's shape
+    (3, 2, 64, 48, 16, torch.float32),         # several heads, din != f
+    (2, 2, 100, 64, 64, torch.float32),        # P not a multiple of the tiles
+]
+LAYER_MAIN = (1024, 1, 128, 128, 128)
+BF16_REL = 5e-2  # the JAX package's bf16 bar: max |bf16 - fp32| / max |fp32|
+PARITY_BF16_GAP = 0.05  # the JAX parity bound's cap
+SHMOO_DIMS, SHMOO_BATCHES = (256,), (1024, 2048)
 DROP_RATES, DROP_SEED = (0.0, 0.4), 0x5EED
 GAT_SERVE_ARGS = ["--dataset", "PATTERN", "--conv", "gat", "--dim", "128", "--heads", "1",
                   "--batch-size", "1024", "--format", "all"]
@@ -151,6 +173,20 @@ def step_peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - start) / 2 ** 20, start / 2 ** 20
 
 
+def layer_work(score, B, P, din, h, f, edges, itemsize):
+    """(flops, bytes) the whole layer must do: its projections over every
+    node (3 for #5, 1 and the two score contractions for #6) and its
+    attention products over the edges (2 for #5, 1 for #6); each input (x,
+    the weights, adj) read once and the output written once."""
+    if score == "dot":
+        flops = 3 * 2 * B * P * din * h * f + 2 * 2 * edges * h * f
+        weights = 3 * (h * din * f * itemsize + h * f * 4)
+    else:
+        flops = 2 * B * P * din * h * f + 2 * 2 * B * P * h * f + 2 * edges * h * f
+        weights = h * din * f * itemsize + 3 * h * f * 4
+    return flops, B * P * din * itemsize + weights + B * P * P + B * P * h * f * itemsize
+
+
 def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
     """Times plain, kernel, kernel, plain; returns the two means (ms)."""
     p1 = bench(plain_fn)[1]
@@ -162,6 +198,16 @@ def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+_PHASE_START = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Prints the wall time since the previous phase ended."""
+    now = time.perf_counter()
+    print(f"[phase {name}: {now - _PHASE_START[0]:.2f} s wall]", flush=True)
+    _PHASE_START[0] = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -170,14 +216,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dfgnn_tpu_torch import DenseBatch, GTModel
-    from dfgnn_tpu_torch.models import FullGraphNet
+    from dfgnn_tpu_torch.models import FullGraphNet, Model, make_conv
     from dfgnn_tpu_torch.data.collate import batch_iterator
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import flash_mask
-    from dfgnn_tpu_torch.scripts import test_batch_graph, train_gtconv, train_parity
+    from dfgnn_tpu_torch.scripts import shmoo, test_batch_graph, train_gtconv, train_parity
     from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
-    from dfgnn_tpu_torch.train.parity import _noisy_onehot
+    from dfgnn_tpu_torch.train.parity import _noisy_onehot, run_parity_batched
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
     # 1. device
@@ -200,6 +246,7 @@ def main() -> int:
             name = line.split("'")[1]
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    phase_done("1-2 device and build")
 
     def inputs(seed, B, h, P, f, with_val, dtype):
         q, k, v, adj, val = (torch.from_numpy(a).cuda() for a in
@@ -212,6 +259,12 @@ def main() -> int:
     bwd_rec = {"name": "flash_mask_bwd", "route": "cuda",
                "source": "dfgnn_tpu_torch/csrc/flash_mask_bwd.cu",
                "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:256"}
+    layer_rec = {"name": "flash_layer_dot_fwd", "route": "cuda",
+                 "source": "dfgnn_tpu_torch/csrc/flash_layer_dot.cu",
+                 "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:508"}
+    layer_add_rec = {"name": "flash_layer_add_fwd", "route": "cuda",
+                     "source": "dfgnn_tpu_torch/csrc/flash_layer_add.cu",
+                     "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:649"}
 
     def set_bound(rec, n_products, adj, h, f, nbytes):
         bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, nbytes)
@@ -247,6 +300,8 @@ def main() -> int:
                       f"{lib_ms:.4f} ms")
                 set_bound(fwd_rec, 2, adj, h, f, attention_bytes(B, h, P, f, 4)[0])
                 fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+
+    phase_done("3 kernel #1")
 
     # 4. kernel #3 against its plain version
     for i, (B, h, P, f, with_val, dtype) in enumerate(BWD_SHAPES):
@@ -288,6 +343,8 @@ def main() -> int:
                 set_bound(bwd_rec, 5, adj, h, f, attention_bytes(B, h, P, f, 4)[1])
                 bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
+    phase_done("4 kernel #3")
+
     # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
     model = GTModel("PATTERN", out_size=2, hidden_size=HIDDEN, num_layers=LAYERS, num_heads=1,
                     generator=torch.Generator().manual_seed(0), device="cuda").eval()
@@ -301,21 +358,29 @@ def main() -> int:
     print(f"made {N_REQUESTS} requests of {BATCH} PATTERN-like graphs, "
           f"{[b.n_edges for b, _ in requests]} edges")
 
-    logits = []
-    flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
-    with torch.inference_mode():
-        for batch, x in requests:
-            before = flash_mask.LAUNCHES
-            logits.append(model(batch, x))
-            torch.cuda.synchronize()
-            if flash_mask.LAUNCHES - before != LAYERS:
-                raise AssertionError(f"{flash_mask.LAUNCHES - before} kernel launches in a "
-                                     f"request, expected {LAYERS}")
-    serve_fwd, serve_bwd = flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES
-    if serve_bwd != 0:
-        raise AssertionError(f"serving launched the backward kernel {serve_bwd} times")
+    def serve(impl, kernel):
+        """Logits of each request through ``impl``; ``LAYERS`` launches of
+        kernel ``kernel`` (an index of launch_counts()) a request, none else."""
+        out = []
+        flash_mask.reset_launch_counts()
+        with torch.inference_mode():
+            for batch, x in requests:
+                before = flash_mask.launch_counts()[kernel]
+                out.append(model(batch, x, impl=impl))
+                torch.cuda.synchronize()
+                if flash_mask.launch_counts()[kernel] - before != LAYERS:
+                    raise AssertionError(f"{impl}: {flash_mask.launch_counts()[kernel] - before} "
+                                         f"kernel launches in a request, expected {LAYERS}")
+        seen = flash_mask.launch_counts()
+        want = tuple(N_REQUESTS * LAYERS if i == kernel else 0 for i in range(6))
+        if seen != want:
+            raise AssertionError(f"{impl} serving launched #1, #3, #2, #4, #5, #6 {seen}, "
+                                 f"expected {want}")
+        return out
+
+    logits = serve(None, 0)
     print(f"served {N_REQUESTS} requests through method='auto': "
-          f"{serve_fwd} forward kernel launches ({LAYERS} per request), 0 backward")
+          f"{N_REQUESTS * LAYERS} kernel #1 launches ({LAYERS} per request), none of the others")
 
     with torch.inference_mode():
         for i, ((batch, x), got) in enumerate(zip(requests, logits)):
@@ -346,14 +411,37 @@ def main() -> int:
           f"auto {auto_ms:.4f} ms ({edges / auto_ms * 1e3:.4e} edges/s), "
           f"dense {dense_ms:.4f} ms ({edges / dense_ms * 1e3:.4e} edges/s); "
           f"edges/s = edges x layers / forward time")
-    del model, requests, logits
+    phase_done("5 GT serving through auto")
+
+    # 5b. GT serving through the whole-layer kernel #5
+    fused = serve("flash_fused", 4)
+    with torch.inference_mode():
+        for i, ((batch, x), got) in enumerate(zip(requests, fused)):
+            e = max_err(got, model(batch, x, impl="dense"), MODEL_TOL)
+            print(f"request {i}: flash_fused vs dense logits max abs err {e:.3e} (tol {MODEL_TOL})")
+        batch, x = requests[0]
+        fused_ms, auto_ms = in_turns(
+            benchmark,
+            lambda: model(batch, x),
+            lambda: model(batch, x, impl="flash_fused"), names=("auto", "flash_fused"))
+        dense_ms = benchmark(lambda: model(batch, x, impl="dense"))[1]
+    print(f"served {N_REQUESTS} requests through impl='flash_fused': {N_REQUESTS * LAYERS} "
+          f"kernel #5 launches ({LAYERS} per request), none of the others; GTModel forward per "
+          f"bs={BATCH} request ({smi}): flash_fused {fused_ms:.4f} ms "
+          f"({edges / fused_ms * 1e3:.4e} edges/s), auto {auto_ms:.4f} ms, dense "
+          f"{dense_ms:.4f} ms")
+    del model, requests, logits, fused
+    phase_done("5b GT serving through flash_fused")
 
     # 6. training: the trainer twin, ogbg-molhiv, bs=1024, 8 steps an epoch
-    flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
+    flash_mask.reset_launch_counts()
     t0 = time.perf_counter()
     history = train_gtconv.main(TRAIN_ARGS + ["--epochs", str(EPOCHS)])
     torch.cuda.synchronize()
-    train_fwd, train_bwd = flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES
+    seen = flash_mask.launch_counts()
+    train_fwd, train_bwd = seen[:2]
+    if seen[2:] != (0, 0, 0, 0):
+        raise AssertionError(f"the GT training twin launched #2, #4, #5 or #6: {seen}")
     steps = history["steps"]
     if len(steps) != EPOCHS * STEPS_PER_EPOCH:
         raise AssertionError(f"{len(steps)} train steps, expected {EPOCHS * STEPS_PER_EPOCH}")
@@ -368,35 +456,49 @@ def main() -> int:
           f"{train_fwd} forward (training and {EPOCHS} evaluation passes) and {train_bwd} "
           f"backward launches in the run; losses {[round(st['loss'], 5) for st in steps]}")
     fwd_rec["launches"], bwd_rec["launches"] = train_fwd, train_bwd
+    phase_done("6 GT training twin")
 
-    # 7. trajectory: 3 Adam steps through the kernels (8 + 8 launches a step) and
-    #    through the dense path (none)
+    # 7. trajectory: 3 Adam steps through the kernels (8 + 8 launches a step),
+    #    through the whole-layer kernel (8 #5 + 8 #1 + 8 #3 a step) and through
+    #    the dense path (none)
     ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
     batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
-    models = {"auto": GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
-                              generator=torch.Generator().manual_seed(2))}
-    models["dense"] = GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
-                              method="dense", generator=torch.Generator().manual_seed(3))
-    models["dense"].load_state_dict(models["auto"].state_dict())
+    per_step = {"auto": (LAYERS, LAYERS, 0, 0, 0, 0), "dense": (0,) * 6,
+                "flash_fused": (LAYERS, LAYERS, 0, 0, LAYERS, 0)}
+    models = {name: GTModel("ogbg-molhiv", out_size=1, hidden_size=HIDDEN, num_layers=LAYERS,
+                            method=name, generator=torch.Generator().manual_seed(2))
+              for name in per_step}
+    for name in ("dense", "flash_fused"):
+        models[name].load_state_dict(models["auto"].state_dict())
     losses = {}
     for name, m in models.items():
         state = TrainState.create(m, lr=1e-3, step_lr_every=20)
         loss_fn = make_loss_fn(m, ds.task, ds.num_classes)
-        flash_mask.LAUNCHES = flash_mask.BWD_LAUNCHES = 0
-        losses[name] = [float(train_step(state, loss_fn, *b)[1]) for b in batches]
-        want = TRAJECTORY_STEPS * LAYERS if name == "auto" else 0
-        if (flash_mask.LAUNCHES, flash_mask.BWD_LAUNCHES) != (want, want):
-            raise AssertionError(f"{name}: {flash_mask.LAUNCHES} forward and "
-                                 f"{flash_mask.BWD_LAUNCHES} backward launches, expected {want}")
-    for i, (a, d) in enumerate(zip(losses["auto"], losses["dense"])):
-        if not abs(a - d) <= TRAJECTORY_RTOL * abs(d):
-            raise AssertionError(f"Adam step {i}: loss auto {a} vs dense {d}")
-        print(f"Adam step {i}: loss auto {a:.7f}, dense {d:.7f}, rel diff {abs(a - d) / abs(d):.2e} "
-              f"(rtol {TRAJECTORY_RTOL})")
+        losses[name] = []
+        for b in batches:
+            flash_mask.reset_launch_counts()
+            losses[name].append(float(train_step(state, loss_fn, *b)[1]))
+            if flash_mask.launch_counts() != per_step[name]:
+                raise AssertionError(f"{name}: a step launched #1, #3, #2, #4, #5, #6 "
+                                     f"{flash_mask.launch_counts()}, expected {per_step[name]}")
+    for i, d in enumerate(losses["dense"]):
+        for name in ("auto", "flash_fused"):
+            a = losses[name][i]
+            if not abs(a - d) <= TRAJECTORY_RTOL * abs(d):
+                raise AssertionError(f"Adam step {i}: loss {name} {a} vs dense {d}")
+        print(f"Adam step {i}: loss auto {losses['auto'][i]:.7f}, flash_fused "
+              f"{losses['flash_fused'][i]:.7f}, dense {d:.7f}, rel diff "
+              f"{max(abs(losses[n][i] - d) for n in ('auto', 'flash_fused')) / abs(d):.2e} "
+              f"(rtol {TRAJECTORY_RTOL}); launches a step: auto {per_step['auto']}, "
+              f"flash_fused {per_step['flash_fused']}")
+    layer_rec["launches"] = TRAJECTORY_STEPS * LAYERS
     del models
+    phase_done("7 GT Adam steps: auto, flash_fused, dense")
 
     # 8. --checkgrad at full width (exits 1 on a mismatch)
     train_gtconv.main(TRAIN_ARGS + ["--checkgrad"])
+
+    phase_done("8 checkgrad")
 
     # 9. a train step's time and peak memory: forward, backward, Adam update
     batch, x, y, m = batches[0]
@@ -404,18 +506,24 @@ def main() -> int:
                     generator=torch.Generator().manual_seed(4))
     state = TrainState.create(model, lr=1e-3, step_lr_every=20)
     loss_fn = make_loss_fn(model, ds.task, ds.num_classes)
-    steps = {"auto": lambda: train_step(state, loss_fn, batch, x, y, m),
-             "dense": lambda: train_step(state, lambda *a: loss_fn(*a, impl="dense"),
-                                         batch, x, y, m)}
+    steps = {impl: (lambda impl=impl: train_step(state, lambda *a: loss_fn(*a, impl=impl),
+                                                 batch, x, y, m))
+             for impl in ("auto", "dense", "flash_fused")}
     step_auto, step_dense = in_turns(benchmark, steps["dense"], steps["auto"],
                                      names=("dense", "auto"))
+    step_fused, step_auto2 = in_turns(benchmark, steps["auto"], steps["flash_fused"],
+                                      names=("auto", "flash_fused"))
     peaks = {name: step_peak_mib(fn) for name, fn in steps.items()}
     print(f"train step (forward + backward + Adam) per bs={BATCH} ogbg-molhiv batch ({smi}): "
-          f"auto {step_auto:.4f} ms, dense {step_dense:.4f} ms; peak device memory allocated "
-          f"during one step above what was allocated at its start (the model, Adam's moments, "
-          f"the batches and this script's other tensors; {peaks['dense'][1]:.1f} MiB at the "
-          f"last step's start): auto {peaks['auto'][0]:.1f} MiB, dense {peaks['dense'][0]:.1f} MiB")
+          f"auto {step_auto:.4f} ms, dense {step_dense:.4f} ms (one pair of turns); "
+          f"flash_fused {step_fused:.4f} ms, auto {step_auto2:.4f} ms (the next pair); peak "
+          f"device memory allocated during one step above what was allocated at its start (the "
+          f"model, Adam's moments, the batches and this script's other tensors; "
+          f"{peaks['dense'][1]:.1f} MiB at the last step's start): auto "
+          f"{peaks['auto'][0]:.1f} MiB, dense {peaks['dense'][0]:.1f} MiB, flash_fused "
+          f"{peaks['flash_fused'][0]:.1f} MiB")
     del model, state, steps, batches
+    phase_done("9 GT train step time")
 
     # 10. kernels #2 and #4 (the additive score) against their plain versions,
     #     without and with dropout: the kernel and the plain version draw the
@@ -539,6 +647,124 @@ def main() -> int:
                 add_bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms)
 
+    # 10 (continued). fp32 scores with a bf16 v, as the bf16 GAT layer hands them
+    #    to kernels #2 and #4
+    B, h, P, f = 1024, 1, 128, 64
+    e_row, e_col, v, adj, _ = add_inputs(60, B, h, P, f, False, torch.float32)
+    v = v.bfloat16()
+    do = torch.from_numpy(np.random.default_rng(160).standard_normal(v.shape)
+                          .astype(np.float32)).cuda().bfloat16()
+    for rate in DROP_RATES:
+        kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+        out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
+        want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+        e_out, e_lse = max_err(out, want_out, BF16_TOL), max_err(lse, want_lse, FP32_TOL)
+        got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, want_out, want_lse, do, **kw)
+        want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, want_lse, do,
+                                              flash_mask.bwd_delta(do, want_out), **kw)
+        if [t.dtype for t in got] != [torch.float32, torch.float32, torch.bfloat16]:
+            raise AssertionError(f"d e_row, d e_col, dv dtypes {[t.dtype for t in got]}")
+        errs = [max_err(g, w, bwd_bf16_tol(w)) for g, w in zip(got, want)]
+        print(f"add kernels with fp32 e_row, e_col and bf16 v, B={B} h={h} P={P} f={f} "
+              f"rate={rate}: max abs err out {e_out:.3e}, lse {e_lse:.3e}, d e_row {errs[0]:.3e}, "
+              f"d e_col {errs[1]:.3e}, dv {errs[2]:.3e}")
+    phase_done("10 kernels #2 and #4")
+
+    # 10b. kernels #5 and #6 (the whole layers) against their plain versions;
+    #      #6 with dropout also against the decomposed path (the projection,
+    #      the score contractions and kernel #2) with the same seed
+    def layer_inputs(seed, B, h, P, din, f, dtype):
+        rng = np.random.default_rng(seed)
+        _, _, _, adj, _ = inputs(seed, B, h, P, 8, False, torch.float32)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+        x = t(rng.standard_normal((B, P, din))).to(dtype)
+        ws = [t(rng.standard_normal((h, din, f)) / np.sqrt(din)).to(dtype) for _ in range(3)]
+        vecs = [t(rng.standard_normal((h, f)) / np.sqrt(f)) for _ in range(3)]
+        return x, ws, vecs, adj
+
+    for i, (B, h, P, din, f, dtype) in enumerate(LAYER_SHAPES):
+        x, (wq, wk, wv), (bq, bk, bv), adj = layer_inputs(70 + i, B, h, P, din, f, dtype)
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        dot_args = (x, wq, bq, wk, bk, wv, bv, adj)
+        out = flash_mask.flash_layer_dot_fwd(*dot_args, scale=f ** -0.5)
+        torch.cuda.synchronize()
+        e_dot = max_err(out, flash_mask.flash_layer_dot_fwd_plain(*dot_args, scale=f ** -0.5),
+                        tol)
+        w, (b, al, ar) = wq, (bq, bk, bv)
+        e_add = {}
+        for rate in DROP_RATES:
+            kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+            got = flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, **kw)
+            torch.cuda.synchronize()
+            e_add[rate] = max_err(got, flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj,
+                                                                            **kw), tol)
+            if rate > 0.0 and dtype == torch.float32:
+                z = torch.einsum("bpd,hdf->bphf", x, w) + b
+                decomposed, _ = flash_mask.flash_add_fwd((z * al).sum(-1), (z * ar).sum(-1), z,
+                                                         adj, **kw)
+                e_dec = max_err(got, decomposed, FP32_TOL)
+                print(f"  #6 with dropout rate {rate} vs the decomposed path (kernel #2, same "
+                      f"seed): max abs err {e_dec:.3e} (tol {FP32_TOL})" + kept(adj, h, rate))
+        print(f"layer kernels vs plain B={B} h={h} P={P} din={din} f={f} {dtype}: max abs err "
+              f"#5 {e_dot:.3e}, #6 {e_add[0.0]:.3e}, #6 with dropout {e_add[0.4]:.3e} (tol {tol})")
+        if (B, h, P, din, f) != LAYER_MAIN:
+            continue
+        mask = adj[:, None].bool()
+        x2 = x.reshape(B * P, din)
+        w_cat = torch.cat([t.permute(0, 2, 1).reshape(h * f, din) for t in (wq, wk, wv)])
+        b_cat = torch.cat([t.reshape(h * f) for t in (bq, bk, bv)]).to(dtype)
+        heads = lambda t: t.reshape(B, P, h, f).transpose(1, 2)
+
+        def sdpa_dot():
+            q, k, v = F.linear(x2, w_cat, b_cat).split(h * f, dim=1)
+            return F.scaled_dot_product_attention(heads(q) * f ** -0.5, heads(k), heads(v),
+                                                  attn_mask=mask, scale=1.0)
+
+        w_flat, zq = w.permute(0, 2, 1).reshape(h * f, din), torch.zeros(B, h, P, 8, device="cuda",
+                                                                          dtype=dtype)
+
+        def sdpa_add():
+            z = heads(F.linear(x2, w_flat, b.reshape(h * f).to(dtype))).float()
+            el = torch.einsum("bhpf,hf->bhp", z, al)
+            er = torch.einsum("bhpf,hf->bhp", z, ar)
+            s = torch.where(mask, F.leaky_relu(el[..., None] + er[..., None, :], 0.2),
+                            flash_mask.NEG_BIG).to(dtype)
+            return F.scaled_dot_product_attention(zq, zq, z.to(dtype), attn_mask=s)
+
+        timed = {}
+        for name, rec, kernel_fn, plain_fn, lib_fn in (
+                ("#5", layer_rec,
+                 lambda: flash_mask.flash_layer_dot_fwd(*dot_args, scale=f ** -0.5),
+                 lambda: flash_mask.flash_layer_dot_fwd_plain(*dot_args, scale=f ** -0.5),
+                 sdpa_dot),
+                ("#6", layer_add_rec,
+                 lambda: flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj),
+                 lambda: flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj), sdpa_add)):
+            ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
+            lib_ms = benchmark(lib_fn)[1]
+            timed[name] = ms
+            print(f"  {name} {dtype} at the main shape ({smi}): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library composition {lib_ms:.4f} ms")
+            if dtype == torch.float32:
+                score = "dot" if name == "#5" else "add"
+                flops, nbytes = layer_work(score, B, P, din, h, f, int(adj.sum()), 4)
+                bound_ms, bound_by = bound(flops, nbytes)
+                rec.update(bound_ms=bound_ms, bound_by=bound_by, ms=ms, plain_ms=plain_ms,
+                           max_abs_err=e_dot if name == "#5" else e_add[0.0], library_ms=lib_ms)
+                print(f"  {name} bound on these inputs ({int(adj.sum())} edges; {flops / 1e9:.2f} "
+                      f"GFLOP, {nbytes / 1e6:.1f} MB): {rec['bound_ms']:.4f} ms "
+                      f"({rec['bound_by']})")
+        if dtype == torch.float32:
+            drop_ms = benchmark(lambda: flash_mask.flash_layer_add_fwd(
+                x, w, b, al, ar, adj, slope=0.2, seed=DROP_SEED, rate=0.4))[1]
+            print(f"  #6 fp32 with dropout rate 0.4: kernel {drop_ms:.4f} ms (without "
+                  f"{timed['#6']:.4f} ms)")
+    print("library compositions: #5 = one F.linear over the concatenated [3*h*f, din] "
+          "weights, then scaled_dot_product_attention with the boolean mask; #6 = F.linear, "
+          "the two score contractions, the masked leaky scores as a float attn_mask (built "
+          "inside the timed call) and scaled_dot_product_attention with q = k = 0 of width 8")
+    phase_done("10b kernels #5 and #6")
+
     # 11. GAT serving: the test_batch_graph twin at the reference's fig-1 setting
     flash_mask.reset_launch_counts()
     t0 = time.perf_counter()
@@ -548,16 +774,18 @@ def main() -> int:
     for fmt in ("dense", "flash"):
         if serve[fmt]["ok"] is not True:
             raise AssertionError(f"GAT serving: format {fmt} does not match the oracle")
-    if serve["flash"]["launches"] != [0, 0, 1, 0]:
-        raise AssertionError(f"GAT serving: launches of #1, #3, #2, #4 in one flash forward "
-                             f"{serve['flash']['launches']}, expected [0, 0, 1, 0]")
-    if seen[0] or seen[1] or seen[3]:
-        raise AssertionError(f"GAT serving launched #1, #3 or #4: {seen}")
+    if serve["flash"]["launches"] != [0, 0, 1, 0, 0, 0]:
+        raise AssertionError(f"GAT serving: launches of #1, #3, #2, #4, #5, #6 in one flash "
+                             f"forward {serve['flash']['launches']}, expected [0, 0, 1, 0, 0, 0]")
+    if seen[:2] != (0, 0) or seen[3:] != (0, 0, 0):
+        raise AssertionError(f"GAT serving launched #1, #3, #4, #5 or #6: {seen}")
     print(f"GAT serving twin ({' '.join(GAT_SERVE_ARGS)}) in {time.perf_counter() - t0:.2f} s "
           f"(host clock): every format matches the oracle; 1 kernel #2 launch per flash "
-          f"forward, {seen[2]} in the run, 0 of #1, #3, #4; Model forward per bs=1024 batch "
+          f"forward, {seen[2]} in the run, none of the others; Model forward per bs=1024 batch "
           f"({smi}): " + ", ".join(f"{fmt} {r['ms']:.4f} ms ({r['edges_per_s']:.4e} edges/s)"
                                    for fmt, r in serve.items()))
+
+    phase_done("11 GAT serving twin")
 
     # 12. GAT training: the train_parity twin, FullGraphNet(gat), hidden 64, 2 layers
     flash_mask.reset_launch_counts()
@@ -569,13 +797,13 @@ def main() -> int:
     if len(steps) != PARITY_STEPS:
         raise AssertionError(f"{len(steps)} parity steps, expected {PARITY_STEPS}")
     for n, st in enumerate(steps):
-        if (st["fwd_launches"], st["bwd_launches"]) != (GAT_LAYERS, GAT_LAYERS):
-            raise AssertionError(f"parity step {n}: {st['fwd_launches']} forward and "
-                                 f"{st['bwd_launches']} backward launches, expected "
-                                 f"{GAT_LAYERS} each")
+        got = (st["fwd_launches"], st["bwd_launches"], st["layer_launches"])
+        if got != (GAT_LAYERS, GAT_LAYERS, 0):
+            raise AssertionError(f"parity step {n}: forward, backward and whole-layer launches "
+                                 f"{got}, expected ({GAT_LAYERS}, {GAT_LAYERS}, 0)")
         if not math.isfinite(st["loss"]):
             raise AssertionError(f"parity step {n}: loss {st['loss']}")
-    want = (0, 0, PARITY_STEPS * GAT_LAYERS + GAT_LAYERS, PARITY_STEPS * GAT_LAYERS)
+    want = (0, 0, PARITY_STEPS * GAT_LAYERS + GAT_LAYERS, PARITY_STEPS * GAT_LAYERS, 0, 0)
     if seen != want:
         raise AssertionError(f"parity run launched #1, #3, #2, #4 {seen} times, expected {want}")
     base = parity["majority_baseline"]
@@ -592,6 +820,7 @@ def main() -> int:
           f"{parity['acc_unfused']:.4f}, gap {parity['gap']:.4f} (bar {PARITY_GAP_BAR}), "
           f"majority baseline {base:.4f}")
     add_fwd_rec["launches"], add_bwd_rec["launches"] = seen[2], seen[3]
+    phase_done("12 GAT training twin")
 
     # 13. a GAT Adam step's time and peak memory: FullGraphNet(gat) on a bs=1024
     #     PATTERN-like batch with noisy one-hot features
@@ -616,8 +845,8 @@ def main() -> int:
     gsteps["auto"]()
     torch.cuda.synchronize()
     seen = flash_mask.launch_counts()
-    if seen != (0, 0, GAT_LAYERS, GAT_LAYERS):
-        raise AssertionError(f"GAT auto step launched #1, #3, #2, #4 {seen}")
+    if seen != (0, 0, GAT_LAYERS, GAT_LAYERS, 0, 0):
+        raise AssertionError(f"GAT auto step launched #1, #3, #2, #4, #5, #6 {seen}")
     gat_auto, gat_dense = in_turns(benchmark, gsteps["dense"], gsteps["auto"],
                                    names=("dense", "auto"))
     gpeaks = {name: step_peak_mib(fn) for name, fn in gsteps.items()}
@@ -626,8 +855,117 @@ def main() -> int:
           f"auto {gat_auto:.4f} ms, dense {gat_dense:.4f} ms; peak device memory allocated "
           f"during one step above its start ({gpeaks['dense'][1]:.1f} MiB at the last step's "
           f"start): auto {gpeaks['auto'][0]:.1f} MiB, dense {gpeaks['dense'][0]:.1f} MiB")
+    phase_done("13 GAT train step time")
 
-    records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec]
+    # 14. GAT serving at the fig-1 setting (Model("PATTERN", "gat", 128), bs=1024)
+    #     through the whole-layer kernel #6, and GATConv's bf16 auto route
+    rng = np.random.default_rng(8)
+    sbatch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    sx = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+    gmodel = Model("PATTERN", "gat", HIDDEN, generator=torch.Generator().manual_seed(6)).eval()
+    conv16 = make_conv("gat", HIDDEN, HIDDEN, 1, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(6))
+    conv16.load_state_dict(gmodel.conv.state_dict())
+    with torch.inference_mode():
+        flash_mask.reset_launch_counts()
+        fused_out = gmodel(sbatch, sx, impl="flash_fused")
+        torch.cuda.synchronize()
+        seen_fused = flash_mask.launch_counts()
+        flash_mask.reset_launch_counts()
+        out16 = conv16(sbatch, gmodel.inproj(sx))
+        torch.cuda.synchronize()
+        seen16 = flash_mask.launch_counts()
+        for name, seen in (("flash_fused", seen_fused), ("bf16 auto", seen16)):
+            if seen != (0, 0, 0, 0, 0, 1):
+                raise AssertionError(f"GAT {name} forward launched #1, #3, #2, #4, #5, #6 "
+                                     f"{seen}, expected one #6")
+        e = max_err(fused_out, gmodel(sbatch, sx, impl="flash"), MODEL_TOL)
+        if out16.dtype != torch.bfloat16 or fused_out.shape != (BATCH * NP_PAD, HIDDEN):
+            raise AssertionError(f"GAT outputs {out16.dtype}, {tuple(fused_out.shape)}")
+        rel16 = float((out16.float() - fused_out).abs().max() / fused_out.abs().max())
+        if not rel16 < BF16_REL:
+            raise AssertionError(f"bf16 GAT vs fp32: max |diff| / max |fp32| {rel16}")
+        fused_ms, flash_ms = in_turns(benchmark, lambda: gmodel(sbatch, sx, impl="flash"),
+                                      lambda: gmodel(sbatch, sx, impl="flash_fused"),
+                                      names=("flash", "flash_fused"))
+        gdense_ms = benchmark(lambda: gmodel(sbatch, sx, impl="dense"))[1]
+        bf16_ms = benchmark(lambda: conv16(sbatch, gmodel.inproj(sx)))[1]
+    edges = sbatch.n_edges
+    print(f"GAT serving at fig-1 (Model PATTERN gat dim {HIDDEN}, bs={BATCH}, {edges} edges): "
+          f"one #6 launch per flash_fused forward and per bf16 auto forward, none of the others; "
+          f"flash_fused vs flash max abs err {e:.3e} (tol {MODEL_TOL}); bf16 auto vs fp32 "
+          f"max |diff| / max |fp32| {rel16:.3e} (bar {BF16_REL}); forward ({smi}): flash_fused "
+          f"{fused_ms:.4f} ms ({edges / fused_ms * 1e3:.4e} edges/s), flash {flash_ms:.4f} ms, "
+          f"dense {gdense_ms:.4f} ms, bf16 auto {bf16_ms:.4f} ms")
+    del gmodel, conv16, sbatch, sx, fused_out, out16
+    phase_done("14 GAT fig-1 serving through #6 and bf16")
+
+    # 15. GAT bf16 training: the parity harness in bf16 (the fused side through
+    #     its auto route, kernel #6; the oracle fp32), at the twin's size
+    flash_mask.reset_launch_counts()
+    parity16 = run_parity_batched(seed=0, n_graphs=32, hidden=GAT_HIDDEN, layers=GAT_LAYERS,
+                                  steps=PARITY_STEPS, conv="gat", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    for n, st in enumerate(parity16["fused_steps"]):
+        got = (st["fwd_launches"], st["bwd_launches"], st["layer_launches"])
+        if got != (GAT_LAYERS,) * 3:
+            raise AssertionError(f"bf16 parity step {n}: #2, #4 and #6 launches {got}, "
+                                 f"expected {(GAT_LAYERS,) * 3}")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"bf16 parity step {n}: loss {st['loss']}")
+    n_steps = PARITY_STEPS * GAT_LAYERS
+    want = (0, 0, n_steps, n_steps, 0, n_steps + GAT_LAYERS)
+    if seen != want:
+        raise AssertionError(f"bf16 parity launched #1, #3, #2, #4, #5, #6 {seen}, expected {want}")
+    base = parity16["majority_baseline"]
+    for side in ("acc_fused", "acc_unfused"):
+        if not parity16[side] > base + 0.1:
+            raise AssertionError(f"bf16 parity {side} {parity16[side]} not above the majority "
+                                 f"baseline {base} + 0.1")
+    if not parity16["gap"] <= PARITY_BF16_GAP:
+        raise AssertionError(f"bf16 parity gap {parity16['gap']} above {PARITY_BF16_GAP}")
+    print(f"GAT bf16 parity ({PARITY_STEPS} Adam steps a side, hidden {GAT_HIDDEN}, "
+          f"{GAT_LAYERS} layers, 32 graphs): 2 #6 + 2 #2 + 2 #4 launches every fused step, "
+          f"{seen} in the run; accuracy bf16 fused {parity16['acc_fused']:.4f}, fp32 oracle "
+          f"{parity16['acc_unfused']:.4f}, gap {parity16['gap']:.4f} (bar {PARITY_BF16_GAP}), "
+          f"majority baseline {base:.4f}")
+    layer_add_rec["launches"] = seen[5]
+
+    gat16 = FullGraphNet("gat", num_classes=2, hidden_size=GAT_HIDDEN, num_layers=GAT_LAYERS,
+                         dtype=torch.bfloat16, in_size=2,
+                         generator=torch.Generator().manual_seed(5))
+    gat16.load_state_dict(gat.state_dict())
+    gstate16 = TrainState.create(gat16, lr=1e-2)
+    gloss16 = make_loss_fn(gat16, "node_classification", 2)
+    step16 = lambda: train_step(gstate16, gloss16, gbatch, xg, yg, mg)
+    flash_mask.reset_launch_counts()
+    step16()
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    if seen != (0, 0, GAT_LAYERS, GAT_LAYERS, 0, GAT_LAYERS):
+        raise AssertionError(f"bf16 GAT step launched #1, #3, #2, #4, #5, #6 {seen}")
+    gat_bf16, gat_fp32 = in_turns(benchmark, gsteps["auto"], step16,
+                                  names=("fp32 auto", "bf16 auto"))
+    peak16 = step_peak_mib(step16)
+    print(f"bf16 GAT train step (FullGraphNet gat, dtype bf16, auto: #6 forward, #2 and #4 "
+          f"backward) per bs={BATCH} PATTERN-like batch ({smi}): {gat_bf16:.4f} ms, fp32 auto "
+          f"{gat_fp32:.4f} ms; peak device memory allocated during one step above its start "
+          f"{peak16[0]:.1f} MiB ({peak16[1]:.1f} MiB at its start)")
+    del gat, gat16, gstate, gstate16, gsteps
+    phase_done("15 GAT bf16 training")
+
+    # 16. the shmoo twin at three points of its grid (the full grid is
+    #     `python -m dfgnn_tpu_torch.scripts.shmoo`); default_ok is a reading
+    shmoo.shmoo(list(shmoo.IMPLS), dims=SHMOO_DIMS, batch_sizes=SHMOO_BATCHES,
+                log=lambda line: print(line, flush=True))
+    print(f"shmoo ({smi}): bf16 layer forward ms per impl, fp32 flash beside; 'auto' is the "
+          f"port's bf16 route, and DEFAULT MISMATCH marks a point where it is more than 8% "
+          f"behind the winner (a reading; nothing here asserts it)")
+    phase_done("16 shmoo points")
+
+    records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rec in records:

@@ -14,8 +14,9 @@
 //   dpre = pre >= 0 ? ds : slope * ds     leaky' on the pre-val sum
 //   d e_row[r] = sum_c dpre     d e_col[c] = sum_r dpre
 //   dv   = round_to<T>(p * keep)^T . dO
-// d e_row and d e_col are fp32 sums cast to e_row's type.  fp32 or bf16
-// inputs and outputs, fp32 arithmetic.
+// e_row, e_col and the sums d e_row, d e_col are fp32 whatever v's type, as
+// the Pallas kernel reads the scalars; v, dO and dv are fp32 or bf16.  fp32
+// arithmetic.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs two
 // products, dO . v^T and p^T . dO, only on the edges: 4*f operations per
@@ -79,11 +80,11 @@ __device__ __forceinline__ float entry_dpre(float dp, float pre, float lse, floa
 // so a warp reads 32 neighbouring V rows and one broadcast dO row.
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
-flash_add_bwd_rows(const T* __restrict__ e_row, const T* __restrict__ e_col,
+flash_add_bwd_rows(const float* __restrict__ e_row, const float* __restrict__ e_col,
                    const T* __restrict__ v, const uint8_t* __restrict__ adj,
                    const float* __restrict__ val, const float* __restrict__ lse,
                    const float* __restrict__ delta, const T* __restrict__ dout,
-                   T* __restrict__ der, int B, int P, int H, float slope, Dropout drop) {
+                   float* __restrict__ der, int B, int P, int H, float slope, Dropout drop) {
   extern __shared__ float smem[];
   float* rows = smem;                  // [kRows][F]: dO rows
   float* tile = rows + kRows * F;      // [kCols][F + 1]: V tiles
@@ -110,10 +111,10 @@ flash_add_bwd_rows(const T* __restrict__ e_row, const T* __restrict__ e_col,
     const int r = i / F, d = i - r * F;
     rows[i] = r0 + r < P ? to_f32(dout[base + (r0 + r) * row_stride + d]) : 0.f;
   }
-  for (int c = tid; c < P; c += kThreads) ecs[c] = to_f32(e_col[sbase + long(c) * H]);
+  for (int c = tid; c < P; c += kThreads) ecs[c] = e_col[sbase + long(c) * H];
   if (tid < kRows) {
     const bool live = r0 + tid < P;
-    ers[tid] = live ? to_f32(e_row[sbase + long(r0 + tid) * H]) : 0.f;
+    ers[tid] = live ? e_row[sbase + long(r0 + tid) * H] : 0.f;
     lse_s[tid] = live ? lse[row_off + r0 + tid] : 0.f;
     delta_s[tid] = live ? delta[row_off + r0 + tid] : 0.f;
   }
@@ -165,18 +166,18 @@ flash_add_bwd_rows(const T* __restrict__ e_row, const T* __restrict__ e_col,
     for (int c = lane; c < P; c += 32) acc += ss[r * P + c];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0 && r0 + r < P) der[sbase + long(r0 + r) * H] = from_f32<T>(acc);
+    if (lane == 0 && r0 + r < P) der[sbase + long(r0 + r) * H] = acc;
   }
 }
 
 // (b) d e_col and dv.
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
-flash_add_bwd_cols(const T* __restrict__ e_row, const T* __restrict__ e_col,
+flash_add_bwd_cols(const float* __restrict__ e_row, const float* __restrict__ e_col,
                    const T* __restrict__ v, const uint8_t* __restrict__ adj,
                    const float* __restrict__ val, const float* __restrict__ lse,
                    const float* __restrict__ delta, const T* __restrict__ dout,
-                   T* __restrict__ dec, T* __restrict__ dv, int B, int P, int H, float slope,
+                   float* __restrict__ dec, T* __restrict__ dv, int B, int P, int H, float slope,
                    Dropout drop) {
   extern __shared__ float smem[];
   float* vs = smem;                       // [kKeys][F]: this block's V rows
@@ -205,7 +206,7 @@ flash_add_bwd_cols(const T* __restrict__ e_row, const T* __restrict__ e_col,
     const int c = i / F, d = i - c * F;
     vs[i] = c0 + c < P ? to_f32(v[base + (c0 + c) * row_stride + d]) : 0.f;
   }
-  if (tid < kKeys) ecs[tid] = c0 + tid < P ? to_f32(e_col[sbase + long(c0 + tid) * H]) : 0.f;
+  if (tid < kKeys) ecs[tid] = c0 + tid < P ? e_col[sbase + long(c0 + tid) * H] : 0.f;
 
   // dp: thread -> one dO row r of the tile and every kGroups1-th key, so a
   // warp reads 32 neighbouring dO rows and one broadcast V row.
@@ -228,7 +229,7 @@ flash_add_bwd_cols(const T* __restrict__ e_row, const T* __restrict__ e_col,
     load_tile<T, F, kQRows, kThreads>(dout, base, row_stride, r0, P, dt);
     if (tid < kQRows) {
       const bool live = r0 + tid < P;
-      er_t[tid] = live ? to_f32(e_row[sbase + long(r0 + tid) * H]) : 0.f;
+      er_t[tid] = live ? e_row[sbase + long(r0 + tid) * H] : 0.f;
       lse_t[tid] = live ? lse[row_off + r0 + tid] : 0.f;
       delta_t[tid] = live ? delta[row_off + r0 + tid] : 0.f;
     }
@@ -278,7 +279,7 @@ flash_add_bwd_cols(const T* __restrict__ e_row, const T* __restrict__ e_col,
     const int c = cg + j * kGroups3;
     if (c < kKeys && c0 + c < P) dv[base + (c0 + c) * row_stride + d3] = from_f32<T>(dv_acc[j]);
   }
-  if (tid < kKeys && c0 + tid < P) dec[sbase + long(c0 + tid) * H] = from_f32<T>(dec_acc);
+  if (tid < kKeys && c0 + tid < P) dec[sbase + long(c0 + tid) * H] = dec_acc;
 }
 
 template <typename T, int F>
@@ -289,8 +290,8 @@ cudaError_t launch(const void* e_row, const void* e_col, const void* v, const ui
   static_assert(kThreads % F == 0, "a feature column per thread needs F | kThreads");
   static_assert(kRows % (kThreads / kCols) == 0 && kKeys % (kThreads / kQRows) == 0,
                 "rows and keys split evenly over the thread groups");
-  const T* er = static_cast<const T*>(e_row);
-  const T* ec = static_cast<const T*>(e_col);
+  const float* er = static_cast<const float*>(e_row);
+  const float* ec = static_cast<const float*>(e_col);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
 
@@ -302,7 +303,7 @@ cudaError_t launch(const void* e_row, const void* e_col, const void* v, const ui
   const long blocks_b = long(B) * H * ((P + kKeys - 1) / kKeys);
   if (blocks_a > 0x7fffffffL || blocks_b > 0x7fffffffL) return cudaErrorInvalidValue;
   flash_add_bwd_rows<T, F><<<unsigned(blocks_a), kThreads, smem_a, stream>>>(
-      er, ec, vt, adj, val, lse, delta, dot, static_cast<T*>(der), B, P, H, slope, drop);
+      er, ec, vt, adj, val, lse, delta, dot, static_cast<float*>(der), B, P, H, slope, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -311,7 +312,7 @@ cudaError_t launch(const void* e_row, const void* e_col, const void* v, const ui
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_b));
   if (err != cudaSuccess) return err;
   flash_add_bwd_cols<T, F><<<unsigned(blocks_b), kThreads, smem_b, stream>>>(
-      er, ec, vt, adj, val, lse, delta, dot, static_cast<T*>(dec), static_cast<T*>(dv), B, P, H,
+      er, ec, vt, adj, val, lse, delta, dot, static_cast<float*>(dec), static_cast<T*>(dv), B, P, H,
       slope, drop);
   return cudaGetLastError();
 }
@@ -340,8 +341,8 @@ cudaError_t dispatch_f(const void* e_row, const void* e_col, const void* v, cons
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  e_row, e_col, der, dec: [B, P, H] contiguous;
-// v, dout, dv: [B, P, H, F] contiguous; adj: [B, P, P] uint8; val: [B, P, P]
+// dtype (of v, dout and dv): 0 = fp32, 1 = bf16.  e_row, e_col, der, dec:
+// fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous; adj: [B, P, P] uint8; val: [B, P, P]
 // fp32 or null; lse, delta: [H, B, P] fp32.  drop, seed, threshold and scale
 // as dfgnn_flash_add_fwd's.  Launches two kernels on `stream`, allocates
 // nothing, and returns the first CUDA error (0 when both launched).

@@ -3,8 +3,9 @@
 //
 // Replaces dfgnn_tpu/ops/pallas/flash_mask.py::_fwd_kernel_add (:173) and its
 // body _softmax_matmul (:131), driven there by _fwd (:239).  For every graph
-// b and head h of a DenseBatch, from per-node scalars e_row, e_col [B, P, h]
-// (the layer's node-major layout, read through strides: no [h, B, P] copy):
+// b and head h of a DenseBatch, from per-node fp32 scalars e_row, e_col
+// [B, P, h] (the layer's node-major layout, read through strides: no
+// [h, B, P] copy; fp32 whatever v's type, as the Pallas kernel reads them):
 //   pre = e_row[r] + e_col[c]
 //   s   = leaky_relu(pre) (pre >= 0 ? pre : slope * pre), times val[b]
 //   s   = adj[b] ? s : -1e30
@@ -14,7 +15,7 @@
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the dropout factor of flash_common.cuh (1 without dropout): l sums
 // the undropped ex and lse does not see dropout, as in the Pallas kernel.
-// fp32 or bf16 inputs; fp32 arithmetic.
+// fp32 or bf16 v and out; fp32 arithmetic.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs one
 // product, ex . v, only on the edges: 2*f operations per edge and head.  At
@@ -50,7 +51,7 @@ size_t smem_bytes(int P) {
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
-flash_add_fwd_kernel(const T* __restrict__ e_row, const T* __restrict__ e_col,
+flash_add_fwd_kernel(const float* __restrict__ e_row, const float* __restrict__ e_col,
                      const T* __restrict__ v, const uint8_t* __restrict__ adj,
                      const float* __restrict__ val, T* __restrict__ out,
                      float* __restrict__ lse, int B, int P, int H, float slope, Dropout drop) {
@@ -73,8 +74,8 @@ flash_add_fwd_kernel(const T* __restrict__ e_row, const T* __restrict__ e_col,
   const uint8_t* adj_b = adj + long(b) * P * P;
   const float* val_b = val ? val + long(b) * P * P : nullptr;
 
-  for (int c = tid; c < P; c += kThreads) ecs[c] = to_f32(e_col[sbase + long(c) * H]);
-  if (tid < kRows) ers[tid] = r0 + tid < P ? to_f32(e_row[sbase + long(r0 + tid) * H]) : 0.f;
+  for (int c = tid; c < P; c += kThreads) ecs[c] = e_col[sbase + long(c) * H];
+  if (tid < kRows) ers[tid] = r0 + tid < P ? e_row[sbase + long(r0 + tid) * H] : 0.f;
   __syncthreads();
 
   // Scores: consecutive threads take consecutive columns of a row.
@@ -160,7 +161,7 @@ cudaError_t launch(const void* e_row, const void* e_col, const void* v, const ui
   const long n_blocks = long(B) * H * ((P + kRows - 1) / kRows);
   if (n_blocks > 0x7fffffffL) return cudaErrorInvalidValue;
   flash_add_fwd_kernel<T, F><<<unsigned(n_blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(e_row), static_cast<const T*>(e_col), static_cast<const T*>(v), adj,
+      static_cast<const float*>(e_row), static_cast<const float*>(e_col), static_cast<const T*>(v), adj,
       val, static_cast<T*>(out), lse, B, P, H, slope, drop);
   return cudaGetLastError();
 }
@@ -187,7 +188,8 @@ cudaError_t dispatch_f(const void* e_row, const void* e_col, const void* v, cons
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  e_row, e_col: [B, P, H] contiguous; v, out:
+// dtype (of v and out): 0 = fp32, 1 = bf16.  e_row, e_col: fp32 [B, P, H]
+// contiguous; v, out:
 // [B, P, H, F] contiguous; adj: [B, P, P] uint8; val: [B, P, P] fp32 or null;
 // lse: [H, B, P] fp32 or null.  drop != 0 applies dropout with the hash's
 // seed and threshold and the fp32 scale 1 / (1 - rate).  Launches on

@@ -2,8 +2,8 @@
 
 The counterpart of :mod:`dfgnn_tpu.models.model`: ``Model`` (inproj and one
 conv), the graph-level ``GTModel``, the node-level ``FullGraphNet`` and the
-multi-layer ``GATNet``.  fp32 only; the JAX package's bf16 ``dtype`` option
-is not ported.
+multi-layer ``GATNet``.  ``FullGraphNet`` takes the JAX package's ``dtype``:
+bf16 for its conv stack, with the projections and log-softmax in fp32.
 """
 
 from __future__ import annotations
@@ -145,20 +145,25 @@ class FullGraphNet(nn.Module):
 
     ``remat=True`` recomputes each conv layer in the backward
     (``torch.utils.checkpoint``), the JAX package's ``nn.remat``.
+    ``dtype=torch.bfloat16`` runs the conv stack in bf16 (each conv's
+    ``dtype``; GAT's bf16 auto is then kernel #6 on a DenseBatch); the
+    parameters stay fp32, and the stack's output is cast to fp32 before
+    ``output_proj``.
     """
 
     def __init__(self, conv: str, num_classes: int, hidden_size: int = 64,
                  num_layers: int = 8, num_heads: int = 1, method: str = "auto",
-                 remat: bool = False, *, in_size: int, generator: torch.Generator,
-                 device="cuda"):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None, *, in_size: int,
+                 generator: torch.Generator, device="cuda"):
         super().__init__()
         self.remat = remat
         self.input_proj = linear(in_size, hidden_size, generator, device)
         # GAT concatenates its heads of hidden_size; the others split hidden_size
         width = hidden_size * num_heads if conv == "gat" else hidden_size
+        kw = {} if dtype is None else {"dtype": dtype}
         self.layers = nn.ModuleList(
             make_conv(conv, hidden_size if i == 0 else width, hidden_size, num_heads,
-                      method=method, generator=generator, device=device)
+                      method=method, generator=generator, device=device, **kw)
             for i in range(num_layers))
         self.output_proj = linear(width, num_classes, generator, device)
 
@@ -169,7 +174,7 @@ class FullGraphNet(nn.Module):
                 h = checkpoint(layer, g, h, impl, use_reentrant=False)
             else:
                 h = layer(g, h, impl=impl)
-        return F.log_softmax(self.output_proj(h), dim=-1)
+        return F.log_softmax(self.output_proj(h.float()), dim=-1)
 
 
 class GATNet(nn.Module):

@@ -75,7 +75,10 @@ def dense_graph_attention(
     w_clean = w
     if dropout_rate > 0.0:
         w = attn_dropout(w, dropout_rate, dropout_generator)
-    out = torch.einsum("bhrc,bchf->brhf", w, v)
+    # JAX promotes a mixed product (fp32 weights of GAT's fp32 scores with a
+    # bf16 v) to fp32; torch's einsum refuses mixed operands
+    dt = torch.promote_types(w.dtype, v.dtype)
+    out = torch.einsum("bhrc,bchf->brhf", w.to(dt), v.to(dt))
     if return_weights:
         return out, w_clean
     return out

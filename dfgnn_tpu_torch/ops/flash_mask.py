@@ -1,20 +1,24 @@
 """Masked dense flash attention over a :class:`DenseBatch`, forward and backward.
 
-The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask`.  Its four Pallas
+The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask`.  Its six Pallas
 kernels become hand-written CUDA kernels, built with ``nvcc`` for ``sm_90a``
 into one library at first use and bound with ``ctypes``:
 
-    _fwd_kernel_dot  (#1)  csrc/flash_mask_fwd.cu   flash_mask_fwd
-    _bwd_kernel_dot  (#3)  csrc/flash_mask_bwd.cu   flash_mask_bwd
-    _fwd_kernel_add  (#2)  csrc/flash_add_fwd.cu    flash_add_fwd
-    _bwd_kernel_add  (#4)  csrc/flash_add_bwd.cu    flash_add_bwd
+    _fwd_kernel_dot    (#1)  csrc/flash_mask_fwd.cu   flash_mask_fwd
+    _bwd_kernel_dot    (#3)  csrc/flash_mask_bwd.cu   flash_mask_bwd
+    _fwd_kernel_add    (#2)  csrc/flash_add_fwd.cu    flash_add_fwd
+    _bwd_kernel_add    (#4)  csrc/flash_add_bwd.cu    flash_add_bwd
+    _layer_kernel_dot  (#5)  csrc/flash_layer_dot.cu  flash_layer_dot_fwd
+    _layer_kernel_add  (#6)  csrc/flash_layer_add.cu  flash_layer_add_fwd
 
 For tensors on the CPU each wrapper runs its ``*_plain`` twin, the same
 function in plain PyTorch; for CUDA tensors it launches its kernel or
 raises.  It never falls back.  :class:`_FlashDot` and :class:`_FlashAdd` tie
-each pair into autograd on every device.  The additive (GAT) kernels take
-the per-edge dropout of :mod:`dfgnn_tpu_torch.ops.edge_dropout`; the dot
-kernels do not yet.
+#1/#3 and #2/#4 into autograd on every device; :class:`_FlashLayerDot` and
+:class:`_FlashLayerAdd` run the whole-layer kernels forward and recompute
+their backward as torch ops around #1 and #3, or #2 and #4.  The additive
+(GAT) kernels take the per-edge dropout of
+:mod:`dfgnn_tpu_torch.ops.edge_dropout`; the dot kernels do not yet.
 """
 
 from __future__ import annotations
@@ -53,16 +57,22 @@ LAUNCHES = 0  # kernel #1, by flash_mask_fwd
 BWD_LAUNCHES = 0  # kernel #3, by flash_mask_bwd
 ADD_LAUNCHES = 0  # kernel #2, by flash_add_fwd
 ADD_BWD_LAUNCHES = 0  # kernel #4, by flash_add_bwd
+LAYER_LAUNCHES = 0  # kernel #5, by flash_layer_dot_fwd
+LAYER_ADD_LAUNCHES = 0  # kernel #6, by flash_layer_add_fwd
 
 
-def launch_counts() -> tuple[int, int, int, int]:
-    """Launches of kernels #1, #3, #2 and #4 since their counts were last reset."""
-    return LAUNCHES, BWD_LAUNCHES, ADD_LAUNCHES, ADD_BWD_LAUNCHES
+def launch_counts() -> tuple[int, int, int, int, int, int]:
+    """Launches of kernels #1, #3, #2, #4, #5 and #6 since their counts were
+    last reset."""
+    return (LAUNCHES, BWD_LAUNCHES, ADD_LAUNCHES, ADD_BWD_LAUNCHES, LAYER_LAUNCHES,
+            LAYER_ADD_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     global LAUNCHES, BWD_LAUNCHES, ADD_LAUNCHES, ADD_BWD_LAUNCHES
+    global LAYER_LAUNCHES, LAYER_ADD_LAUNCHES
     LAUNCHES = BWD_LAUNCHES = ADD_LAUNCHES = ADD_BWD_LAUNCHES = 0
+    LAYER_LAUNCHES = LAYER_ADD_LAUNCHES = 0
 
 
 def _nvcc() -> str:
@@ -125,6 +135,10 @@ def _library() -> ctypes.CDLL:
     lib.dfgnn_flash_add_fwd.restype = i
     lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *drop, vp]
     lib.dfgnn_flash_add_bwd.restype = i
+    lib.dfgnn_flash_layer_dot_fwd.argtypes = [i, *[vp] * 9, i, i, i, i, i, f, vp]
+    lib.dfgnn_flash_layer_dot_fwd.restype = i
+    lib.dfgnn_flash_layer_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, i, *drop, vp]
+    lib.dfgnn_flash_layer_add_fwd.restype = i
     lib.dfgnn_cuda_error_string.argtypes = [i]
     lib.dfgnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -301,8 +315,9 @@ def _check_kernel_args(q, k, v, adj, val):
 def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
     if v.dim() == 4:
         for name, t in (("e_row", e_row), ("e_col", e_col)):
-            if t.dtype != v.dtype or t.shape != v.shape[:3] or t.device != v.device:
-                raise ValueError(f"{name} must be [B, P, h] of v's dtype on v's device")
+            if (t.dtype not in (torch.float32, v.dtype) or t.shape != v.shape[:3]
+                    or t.device != v.device):
+                raise ValueError(f"{name} must be [B, P, h] of fp32 or v's dtype on v's device")
     _check_block_args(v, adj, val, e_row=e_row, e_col=e_col)
     if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
         raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
@@ -396,10 +411,11 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
     """Additive-score attention forward: ``(out [B, P, h, f], lse [h, B, P] | None)``.
 
     CPU tensors run :func:`flash_add_fwd_plain`.  CUDA tensors launch kernel
-    #2 on the current stream: ``e_row, e_col`` ``[B, P, h]`` and ``v`` of one
-    dtype (fp32 or bf16), contiguous; ``adj``, ``val`` as
-    :func:`flash_mask_fwd` takes them; ``0 <= rate < 1`` and a uint32
-    ``seed``.  Anything else raises.
+    #2 on the current stream: fp32 or bf16 ``v``, contiguous; ``e_row,
+    e_col`` ``[B, P, h]`` contiguous, fp32 or v's dtype (the kernel reads
+    fp32, as the Pallas kernel does, so bf16 scalars are widened exactly);
+    ``adj``, ``val`` as :func:`flash_mask_fwd` takes them; ``0 <= rate < 1``
+    and a uint32 ``seed``.  Anything else raises.
     """
     if v.device.type == "cpu":
         out, lse = flash_add_fwd_plain(e_row, e_col, v, adj, val, slope=slope, seed=seed,
@@ -408,6 +424,7 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
     if v.device.type != "cuda":
         raise ValueError(f"no flash_add_fwd kernel for device {v.device}")
     _check_add_args(e_row, e_col, v, adj, val, seed, rate)
+    e_row, e_col = e_row.float(), e_col.float()
     B, P, h, f = v.shape
     out = torch.empty_like(v)
     lse = (torch.empty((h, B, P), dtype=torch.float32, device=v.device)
@@ -435,7 +452,9 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
     and on CUDA tensors launches kernel #4 (two passes, one C call) with the
     forward's seed and rate.  The kernel takes what :func:`flash_add_fwd`'s
     takes, with ``out`` and ``do`` of v's dtype and shape, ``do`` contiguous
-    and ``lse`` fp32 ``[h, B, P]``; anything else raises.
+    and ``lse`` fp32 ``[h, B, P]``; anything else raises.  ``d e_row`` and
+    ``d e_col`` are fp32 sums returned in the scalars' own dtype, as the JAX
+    package's VJP returns them.
     """
     kw = dict(slope=slope, seed=seed, rate=rate)
     if v.device.type == "cpu":
@@ -453,6 +472,8 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
         raise ValueError("lse must be fp32 [h, B, P] on v's device")
     lse = lse.contiguous()
     delta = bwd_delta(do, out)
+    e_dtypes = e_row.dtype, e_col.dtype
+    e_row, e_col = e_row.float(), e_col.float()
     der, dec, dv = torch.empty_like(e_row), torch.empty_like(e_col), torch.empty_like(v)
     lib = _library()
     with torch.cuda.device(v.device):
@@ -465,7 +486,7 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
     _raise_on(err, "flash_add_bwd", lib)
     global ADD_BWD_LAUNCHES
     ADD_BWD_LAUNCHES += 1
-    return der, dec, dv
+    return der.to(e_dtypes[0]), dec.to(e_dtypes[1]), dv
 
 
 class _FlashDot(torch.autograd.Function):
@@ -561,3 +582,334 @@ def flash_graph_attention(
             "_fwd_kernel_dot and _bwd_kernel_dot) is not ported yet: ROADMAP.md queue 2. "
             "method='dense' takes dropout")
     return _FlashDot.apply(q, k, v, batch.adj, val)
+
+
+# ---------------------------------------------------------------------------
+# The whole-layer kernels (#5, #6): the projections and the attention of one
+# conv layer in one launch.  Their backward recomputes q, k, v (or z, e_l,
+# e_r) with torch ops and reuses kernels #1 and #3 (or #2 and #4), as the JAX
+# package's custom VJPs reuse its Pallas kernels.
+# ---------------------------------------------------------------------------
+
+# The whole-layer kernels' tiles (csrc/flash_layer.cuh): query rows per
+# attention tile, rows per projection pass, depth of an x / W tile; and the
+# shared memory one H100 block may use.
+_LAYER_Q, _LAYER_PR, _LAYER_K = 32, 64, 32
+MAX_SMEM_BYTES = 232448
+
+
+def layer_smem_bytes(score: str, P: int, f: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of kernel #5 (``score="dot"``) or #6
+    (``"add"``), as ``smem_bytes`` in their sources computes it: the fp32
+    staging tiles and score rows, then K, V and a q tile (#5) or z (#6) in
+    the input dtype, each row padded to an odd number of 32-bit words."""
+    item = 4 if dtype == torch.float32 else 2
+    row = f + 4 // item
+    floats = _LAYER_PR * (_LAYER_K + 1) + _LAYER_K * f + _LAYER_Q * (P + 1) + _LAYER_Q
+    if score == "dot":
+        return 4 * floats + item * (2 * P + _LAYER_Q) * row
+    return 4 * (floats + 2 * P) + item * P * row
+
+
+def _layer_project(x, w, b, scale: float = 1.0):
+    """``(x . W + b) * scale`` ``[B, P, h, f]`` fp32 from ``x`` ``[B, P, din]``,
+    ``w`` ``[h, din, f]`` and fp32 ``b`` ``[h, f]``: the products of the
+    input-dtype values summed in fp32, as the kernels and the JAX VJPs form
+    them."""
+    return (torch.einsum("bpd,hdf->bphf", x.float(), w.float()) + b) * scale
+
+
+def _layer_qkv(x, wq, bq, wk, bk, wv, bv, scale: float):
+    """q, k, v ``[B, P, h, f]``: the fp32 projections (q times ``scale``)
+    rounded to x's dtype, as kernel #5 forms them."""
+    return [_layer_project(x, w, b, s).to(x.dtype)
+            for w, b, s in ((wq, bq, scale), (wk, bk, 1.0), (wv, bv, 1.0))]
+
+
+def flash_layer_dot_fwd_plain(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
+    """Kernel #5's function in plain PyTorch, on any device.
+
+    ``x``: ``[B, P, din]``; ``w*``: ``[h, din, f]`` of x's dtype; ``b*``: fp32
+    ``[h, f]``; ``adj``: ``[B, P, P]``.  q, k and v are the fp32 projections
+    (q times ``scale``) rounded to x's dtype, then kernel #1's function.
+    Returns ``out`` ``[B, P, h, f]`` in x's dtype.
+    """
+    q, k, v = _layer_qkv(x, wq, bq, wk, bk, wv, bv, scale)
+    return flash_mask_fwd_plain(q, k, v, adj)[0]
+
+
+def _layer_add_scalars(z32, al, ar):
+    """``e_l, e_r`` ``[B, P, h]`` fp32: the fp32 ``z`` contracted with ``a_l``
+    and ``a_r`` ``[h, f]``."""
+    return (z32 * al).sum(dim=-1), (z32 * ar).sum(dim=-1)
+
+
+def flash_layer_add_fwd_plain(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int = 0,
+                              rate: float = 0.0):
+    """Kernel #6's function in plain PyTorch, on any device.
+
+    ``x``: ``[B, P, din]``; ``w``: ``[h, din, f]`` of x's dtype; ``b``, ``al``,
+    ``ar``: fp32 ``[h, f]``.  ``z = x . W + b`` in fp32; ``e_l``, ``e_r`` come
+    from that fp32 ``z``, and ``z`` rounded to x's dtype enters kernel #2's
+    function with the edge-hash dropout of ``seed`` and ``rate``.  Returns
+    ``out`` ``[B, P, h, f]`` in x's dtype.
+    """
+    z32 = _layer_project(x, w, b)
+    el, er = _layer_add_scalars(z32, al, ar)
+    return flash_add_fwd_plain(el, er, z32.to(x.dtype), adj, slope=slope, seed=seed,
+                               rate=rate)[0]
+
+
+def _check_layer_args(score, x, adj, ws, fp32s):
+    """What kernels #5 and #6 take: fp32 or bf16 ``x`` ``[B, P, din]``,
+    weights ``ws`` ``[h, din, f]`` of x's dtype with f in KERNEL_HEAD_DIMS,
+    fp32 ``[h, f]`` vectors ``fp32s``, uint8 ``adj`` ``[B, P, P]``, all
+    contiguous on x's device, and a block whose shared memory fits."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes fp32 or bf16, not {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, P, din], got {tuple(x.shape)}")
+    B, P, din = x.shape
+    h, _, f = ws[0].shape
+    for t in ws:
+        if t.dtype != x.dtype or t.shape != (h, din, f) or t.device != x.device:
+            raise ValueError("the weights must be [h, din, f] of x's dtype on x's device")
+    for t in fp32s:
+        if t.dtype != torch.float32 or t.shape != (h, f) or t.device != x.device:
+            raise ValueError("biases and score vectors must be fp32 [h, f] on x's device")
+    if adj.dtype != torch.uint8 or adj.shape != (B, P, P) or adj.device != x.device:
+        raise ValueError("adj must be uint8 [B, P, P] on x's device")
+    if not all(t.is_contiguous() for t in (x, adj, *ws, *fp32s)):
+        raise ValueError("the kernel takes contiguous tensors")
+    kernel = "#5 (_layer_kernel_dot)" if score == "dot" else "#6 (_layer_kernel_add)"
+    need = layer_smem_bytes(score, P, f, x.dtype)
+    if f not in KERNEL_HEAD_DIMS or not 1 <= P <= KERNEL_MAX_P or need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"kernel {kernel} takes head dims {KERNEL_HEAD_DIMS} and P whose block fits "
+            f"{MAX_SMEM_BYTES} bytes of shared memory; P={P}, f={f}, {x.dtype} needs {need}. "
+            "The supported set is in ROADMAP.md queue 2 (kernels #5 and #6); "
+            "impl='flash' runs the decomposed layer")
+
+
+def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
+    """The whole GT layer forward: ``out`` ``[B, P, h, f]`` in x's dtype.
+
+    CPU tensors run :func:`flash_layer_dot_fwd_plain`.  CUDA tensors launch
+    kernel #5 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
+    ``w*`` ``[h, din, f]`` of x's dtype, fp32 ``b*`` ``[h, f]``, uint8
+    ``adj``, all contiguous, at a shape whose block fits
+    (:func:`layer_smem_bytes`).  Anything else raises.
+    """
+    if x.device.type == "cpu":
+        return flash_layer_dot_fwd_plain(x, wq, bq, wk, bk, wv, bv, adj, scale=scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no flash_layer_dot_fwd kernel for device {x.device}")
+    _check_layer_args("dot", x, adj, (wq, wk, wv), (bq, bk, bv))
+    B, P, din = x.shape
+    h, _, f = wq.shape
+    out = torch.empty((B, P, h, f), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.dfgnn_flash_layer_dot_fwd(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(),
+            bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), adj.data_ptr(), out.data_ptr(),
+            B, P, h, din, f, float(scale), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "flash_layer_dot_fwd", lib)
+    global LAYER_LAUNCHES
+    LAYER_LAUNCHES += 1
+    return out
+
+
+def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int = 0,
+                        rate: float = 0.0):
+    """The whole GAT layer forward: ``out`` ``[B, P, h, f]`` in x's dtype.
+
+    CPU tensors run :func:`flash_layer_add_fwd_plain`.  CUDA tensors launch
+    kernel #6 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
+    ``w`` ``[h, din, f]`` of x's dtype, fp32 ``b``, ``al``, ``ar`` ``[h, f]``,
+    uint8 ``adj``, all contiguous, at a shape whose block fits
+    (:func:`layer_smem_bytes`); ``0 <= rate < 1`` and a uint32 ``seed``.
+    Anything else raises.
+    """
+    if x.device.type == "cpu":
+        return flash_layer_add_fwd_plain(x, w, b, al, ar, adj, slope=slope, seed=seed,
+                                         rate=rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"no flash_layer_add_fwd kernel for device {x.device}")
+    _check_layer_args("add", x, adj, (w,), (b, al, ar))
+    if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
+        raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
+    B, P, din = x.shape
+    h, _, f = w.shape
+    out = torch.empty((B, P, h, f), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.dfgnn_flash_layer_add_fwd(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), al.data_ptr(),
+            ar.data_ptr(), adj.data_ptr(), out.data_ptr(), B, P, h, din, f, float(slope),
+            *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "flash_layer_add_fwd", lib)
+    global LAYER_ADD_LAUNCHES
+    LAYER_ADD_LAUNCHES += 1
+    return out
+
+
+def _projection_grads(x32, w32, dy):
+    """``(dW [h, din, f], db [h, f], dx [B, P, din])`` of ``y = x . W + b``
+    from ``dy`` ``[B, P, h, f]``, all fp32."""
+    return (torch.einsum("bpd,bphf->hdf", x32, dy), dy.sum(dim=(0, 1)),
+            torch.einsum("bphf,hdf->bpd", dy, w32))
+
+
+class _FlashLayerDot(torch.autograd.Function):
+    """Kernel #5 in autograd, on every device: the JAX package's
+    ``_flash_layer_dot`` and its VJP.
+
+    The forward casts the fp32 weights ``[h, din, f]`` to x's dtype and
+    launches #5.  The backward recomputes q, k and v with the forward's
+    rounding, takes lse from kernel #1 and dq, dk, dv from kernel #3 (the
+    saved output for ``delta``), and contracts them to dx, dW and db in fp32.
+    ``adj`` gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, adj, scale):
+        ws = [w.to(x.dtype).contiguous() for w in (wq, wk, wv)]
+        out = flash_layer_dot_fwd(x, ws[0], bq, ws[1], bk, ws[2], bv, adj, scale=scale)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, *ws, bq, bk, bv, adj, out)
+            ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, wq, wk, wv, bq, bk, bv, adj, out = ctx.saved_tensors
+        scale = ctx.scale
+        q, k, v = _layer_qkv(x, wq, bq, wk, bk, wv, bv, scale)
+        _, lse = flash_mask_fwd(q, k, v, adj, None, want_lse=True)
+        dq, dk, dv = flash_mask_bwd(q, k, v, adj, None, out, lse, grad_out.contiguous())
+        x32 = x.float()
+        grads, dx = [], torch.zeros_like(x32)
+        for w, dy in ((wq, dq.float() * scale), (wk, dk.float()), (wv, dv.float())):
+            dw, db, dx_part = _projection_grads(x32, w.float(), dy)
+            grads += [dw, db]
+            dx = dx + dx_part
+        dwq, dbq, dwk, dbk, dwv, dbv = grads
+        return dx.to(x.dtype), dwq, dbq, dwk, dbk, dwv, dbv, None, None
+
+
+class _FlashLayerAdd(torch.autograd.Function):
+    """Kernel #6 in autograd, on every device: the JAX package's
+    ``_flash_layer_add`` and its VJP.
+
+    The forward casts the fp32 weight ``[h, din, f]`` to x's dtype and
+    launches #6.  The backward recomputes z32, e_l and e_r, takes lse from
+    kernel #2 and (d e_l, d e_r, dz) from kernel #4 with the forward's seed
+    and rate, forms dz + d e_l a_l + d e_r a_r, and contracts to dx, dW, db,
+    da_l and da_r in fp32.  ``adj`` gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b, al, ar, adj, slope, seed, rate):
+        wt = w.to(x.dtype).contiguous()
+        out = flash_layer_add_fwd(x, wt, b, al, ar, adj, slope=slope, seed=seed, rate=rate)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, wt, b, al, ar, adj, out)
+            ctx.kw = dict(slope=slope, seed=seed, rate=rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, wt, b, al, ar, adj, out = ctx.saved_tensors
+        z32 = _layer_project(x, wt, b)
+        z = z32.to(x.dtype)
+        el, er = _layer_add_scalars(z32, al, ar)
+        _, lse = flash_add_fwd(el, er, z, adj, None, want_lse=True, **ctx.kw)
+        der, dec, dz_attn = flash_add_bwd(el, er, z, adj, None, out, lse,
+                                          grad_out.contiguous(), **ctx.kw)
+        dz = dz_attn.float() + der[..., None] * al + dec[..., None] * ar
+        dal = torch.einsum("bph,bphf->hf", der, z32)
+        dar = torch.einsum("bph,bphf->hf", dec, z32)
+        dw, db, dx = _projection_grads(x.float(), wt.float(), dz)
+        return dx.to(x.dtype), dw, db, dal, dar, None, None, None, None
+
+
+def _layer_batch(batch) -> None:
+    """What the whole-layer path takes: a DenseBatch without edge values."""
+    if not isinstance(batch, DenseBatch):
+        raise ValueError(f"impl='flash_fused' runs on a DenseBatch, not {type(batch).__name__}")
+    if batch.val is not None:
+        raise NotImplementedError("fused layer path does not take edge values")
+
+
+def _heads_first(w, din: int, h: int, f: int):
+    """A Dense kernel ``[din, h*f]`` as the kernels' ``[h, din, f]``."""
+    return w.reshape(din, h, f).permute(1, 0, 2)
+
+
+def flash_layer_attention(
+    batch: DenseBatch,
+    x: torch.Tensor,
+    wq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, bv: torch.Tensor,
+    *,
+    num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """The whole GT conv layer (q, k, v projections and masked attention) as
+    kernel #5 over a :class:`DenseBatch`.
+
+    ``x``: node-flat ``[B*P, din]``; ``w*``: Dense kernels ``[din, h*f]``
+    (fp32 parameters, cast to x's dtype); ``b*``: biases ``[h*f]``.  Returns
+    node-flat ``[B*P, h*f]`` in x's dtype.  Differentiable through
+    :class:`_FlashLayerDot`; raises on edge values (``batch.val``).
+    """
+    _layer_batch(batch)
+    B, P = batch.n_graphs, batch.np_pad
+    din, h = x.shape[-1], num_heads
+    f = wq.shape[-1] // h
+    w = lambda t: _heads_first(t, din, h, f)
+    bias = lambda t: t.reshape(h, f).float()
+    out = _FlashLayerDot.apply(x.reshape(B, P, din).contiguous(), w(wq), bias(bq), w(wk),
+                               bias(bk), w(wv), bias(bv), batch.adj, float(scale))
+    return out.reshape(B * P, h * f)
+
+
+def flash_layer_attention_gat(
+    batch: DenseBatch,
+    x: torch.Tensor,
+    w: torch.Tensor, b: torch.Tensor,
+    a_l: torch.Tensor, a_r: torch.Tensor,
+    *,
+    num_heads: int,
+    negative_slope: float = 0.2,
+    dropout_rate: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The whole GAT conv layer (W projection, a_l / a_r scoring, masked
+    additive attention, optional in-kernel dropout) as kernel #6 over a
+    :class:`DenseBatch`.
+
+    ``x``: node-flat ``[B*P, din]``; ``w``: Dense kernel ``[din, h*f]``;
+    ``b``: bias ``[h*f]``; ``a_l``, ``a_r``: ``[f, h]`` (the layer's
+    convention).  ``dropout_rate > 0`` drops attention weights with the edge
+    hash of a seed drawn from ``dropout_generator`` (a CPU generator).
+    Returns node-flat ``[B*P, h*f]`` in x's dtype.  Differentiable through
+    :class:`_FlashLayerAdd`; raises on edge values (``batch.val``).
+    """
+    _layer_batch(batch)
+    rate = float(dropout_rate)
+    seed = 0
+    if rate > 0.0:
+        if dropout_generator is None:
+            raise ValueError("dropout_rate > 0 requires dropout_generator")
+        seed = edge_dropout.seed_from_generator(dropout_generator)
+    B, P = batch.n_graphs, batch.np_pad
+    din, h = x.shape[-1], num_heads
+    f = w.shape[-1] // h
+    out = _FlashLayerAdd.apply(x.reshape(B, P, din).contiguous(), _heads_first(w, din, h, f),
+                               b.reshape(h, f).float(), a_l.T.float().contiguous(),
+                               a_r.T.float().contiguous(), batch.adj, float(negative_slope),
+                               seed, rate)
+    return out.reshape(B * P, h * f)

@@ -33,7 +33,7 @@ from dfgnn_tpu_torch.utils.config import build_parser, parse_args, resolve_forma
 def main(argv=None) -> dict:
     """Returns per format the mean ms and edges/s over the timed batches (None
     on the CPU), whether the checked batch matched the oracle (None for
-    ``reference``), and the launches of each kernel (#1, #3, #2, #4) during
+    ``reference``), and the launches of each kernel (#1, #3, #2, #4, #5, #6) during
     the checked forward."""
     parser = build_parser(__doc__)
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on")

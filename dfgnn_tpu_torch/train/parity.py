@@ -4,14 +4,15 @@ The reference trains the fused and unfused paths on the same task and
 compares the end metric.  :func:`run_parity_batched` does so on a
 PATTERN-like batch of SBM graphs with noisy one-hot features: the fused
 side is ``FullGraphNet`` through ``impl="flash"`` on a :class:`DenseBatch`
-(the flash kernels on the card), the unfused side the same model through the
-segment-op oracle on the block-diagonal :class:`Graph`.  Same init, data and
-Adam (optax's defaults), so the gap isolates the kernels' numerics.
+(the flash kernels on the card), or in bf16 through its auto route (the
+whole-layer kernels for GAT), the unfused side the same model in fp32
+through the segment-op oracle on the block-diagonal :class:`Graph`.  Same
+init, data and Adam (optax's defaults), so the gap isolates the kernels'
+numerics.
 """
 
 from __future__ import annotations
 
-import copy
 import functools
 
 import numpy as np
@@ -35,17 +36,19 @@ def _noisy_onehot(rng, block, n_classes: int, noise: float = 0.3):
 
 
 def _train(model, g, x, y, mask, steps: int, lr: float, impl, device):
-    """Adam steps; per step the loss and the flash forward and backward
-    kernel launches (dot and add summed)."""
+    """Adam steps; per step the loss and the kernel launches: the attention
+    forward (#1 and #2), backward (#3 and #4) and whole-layer (#5 and #6)
+    kernels, dot and add summed."""
     state = TrainState.create(model, lr=lr, device=device)
     loss_fn = functools.partial(make_loss_fn(model, "node_classification", 2), impl=impl)
     seen = []
     for _ in range(steps):
         before = flash_mask.launch_counts()
         _, loss = train_step(state, loss_fn, g, x, y, mask)
-        fwd, bwd, add_fwd, add_bwd = (a - b for a, b in zip(flash_mask.launch_counts(), before))
+        fwd, bwd, add_fwd, add_bwd, layer, layer_add = (
+            a - b for a, b in zip(flash_mask.launch_counts(), before))
         seen.append({"loss": float(loss), "fwd_launches": fwd + add_fwd,
-                     "bwd_launches": bwd + add_bwd})
+                     "bwd_launches": bwd + add_bwd, "layer_launches": layer + layer_add})
     return seen
 
 
@@ -77,23 +80,29 @@ def batched_inputs(seed: int = 0, n_graphs: int = 32, noise: float = 0.3, device
 
 def run_parity_batched(seed: int = 0, n_graphs: int = 32, hidden: int = 32, layers: int = 2,
                        steps: int = 120, lr: float = 1e-2, conv: str = "gt",
-                       noise: float = 0.3, device="cuda") -> dict:
+                       noise: float = 0.3, dtype=None, device="cuda") -> dict:
     """PATTERN-like node classification: flash kernels against the oracle.
 
     The task is :func:`batched_inputs`'s; the weights are drawn from
-    ``torch.Generator().manual_seed(seed)``.  Returns the accuracies, their
-    gap, the majority baseline and, per fused step, the loss and kernel
-    launches.
+    ``torch.Generator().manual_seed(seed)``.  ``dtype=torch.bfloat16`` trains
+    the fused side in bf16 through the auto route (for GAT the whole-layer
+    kernel #6) while the oracle stays fp32, as the JAX harness does.
+    Returns the accuracies, their gap, the majority baseline and, per fused
+    step, the loss and kernel launches.
     """
     dev = resolve_device(device)
     batch, x, y, mask = batched_inputs(seed, n_graphs, noise, dev)
     g_ref = batch.to_graph()
-    model = FullGraphNet(conv=conv, num_classes=2, hidden_size=hidden, num_layers=layers,
-                         in_size=2, generator=torch.Generator().manual_seed(seed), device=dev)
-    model_ref = copy.deepcopy(model)
-    fused_steps = _train(model, batch, x, y, mask, steps, lr, "flash", dev)
+    kw = dict(conv=conv, num_classes=2, hidden_size=hidden, num_layers=layers, in_size=2,
+              device=dev)
+    model = FullGraphNet(**kw, dtype=dtype, generator=torch.Generator().manual_seed(seed))
+    model_ref = FullGraphNet(**kw, generator=torch.Generator().manual_seed(seed))
+    model_ref.load_state_dict(model.state_dict())
+    # bf16: the fused side takes the auto route; fp32 keeps the explicit flash kernels
+    fused_impl = None if dtype is not None else "flash"
+    fused_steps = _train(model, batch, x, y, mask, steps, lr, fused_impl, dev)
     _train(model_ref, g_ref, x, y, mask, steps, lr, "reference", dev)
-    acc_f = _accuracy(model, batch, x, y, mask, "flash")
+    acc_f = _accuracy(model, batch, x, y, mask, fused_impl)
     acc_u = _accuracy(model_ref, g_ref, x, y, mask, "reference")
     frac1 = float((y * mask).sum() / mask.sum())
     return {"task": "batched-SBM", "acc_fused": acc_f, "acc_unfused": acc_u,

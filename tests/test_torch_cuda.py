@@ -13,6 +13,7 @@ from dfgnn_tpu_torch import DenseBatch, GTModel
 from dfgnn_tpu_torch.data.collate import collate_dense
 from dfgnn_tpu_torch.data.datasets import load_batched
 from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
+from dfgnn_tpu_torch.models import make_conv
 from dfgnn_tpu_torch.ops import dense_block, flash_mask
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 
@@ -290,7 +291,7 @@ def test_add_launch_counters_count_kernel_calls_only(cuda):
     flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, out, lse, out)
     flash_mask.flash_add_bwd(e_row.cpu(), e_col.cpu(), v.cpu(), adj.cpu(), None, out.cpu(),
                              lse.cpu(), out.cpu())
-    assert flash_mask.launch_counts() == (0, 0, 1, 1)
+    assert flash_mask.launch_counts() == (0, 0, 1, 1, 0, 0)
     with pytest.raises(ValueError, match="e_row"):
         flash_mask.flash_add_fwd(e_row[:, :, :1].expand(2, 64, 2), e_col, v, adj)
     with pytest.raises(ValueError, match="dropout"):
@@ -311,3 +312,151 @@ def test_gat_autograd_on_card_matches_dense(cuda):
         grads.append([t.grad for t in leaves])
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_add_kernels_take_fp32_scores_with_bf16_v(cuda):
+    """The bf16 GAT path hands kernels #2 and #4 fp32 scores with a bf16 v, as
+    the JAX package's bf16 layer does; d e_row and d e_col come back fp32."""
+    e_row, e_col, v, adj, _ = _add_inputs(27, 64, 2, 128, 64, dtype=torch.bfloat16)
+    e_row, e_col = (t.float() + 0.01 for t in (e_row, e_col))  # not bf16-exact
+    kw = dict(slope=0.2, seed=7, rate=0.4)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=3e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    do = torch.from_numpy(np.random.default_rng(28).standard_normal(v.shape)
+                          .astype(np.float32)).cuda().bfloat16()
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, want_out, want_lse, do, **kw)
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, want_lse, do,
+                                          flash_mask.bwd_delta(do, want_out), **kw)
+    assert [g.dtype for g in got] == [torch.float32, torch.float32, torch.bfloat16]
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+# Kernels #5 and #6, the whole layers.  (B, h, P, din, f, dtype): the GT and
+# GAT serving shapes in fp32 and bf16, the GAT step's f=64, several heads with
+# din != f, ragged P, the smallest f, bf16 at f=256 and the largest fp32 P at
+# f=128 that #5's block takes.
+LAYER_SHAPES = [
+    (1024, 1, 128, 128, 128, torch.float32),
+    (1024, 1, 128, 128, 128, torch.bfloat16),
+    (64, 1, 128, 64, 64, torch.float32),
+    (3, 2, 64, 48, 16, torch.float32),
+    (2, 2, 100, 64, 64, torch.float32),
+    (3, 2, 40, 24, 8, torch.float32),
+    (2, 1, 128, 256, 256, torch.bfloat16),
+    (2, 1, 164, 128, 128, torch.float32),
+]
+
+
+def _layer_inputs(seed, B, h, P, din, f, dtype):
+    """x [B, P, din] in dtype; the kernels' weights [h, din, f] in dtype
+    (variance 1 / din) and fp32 [h, f] vectors; adj with padded nodes and
+    empty rows."""
+    rng = np.random.default_rng(seed)
+    _, _, _, adj, _ = _inputs(seed, B, h, P, 8)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    x = t(rng.standard_normal((B, P, din))).to(dtype)
+    ws = [t(rng.standard_normal((h, din, f)) / np.sqrt(din)).to(dtype) for _ in range(3)]
+    vecs = [t(rng.standard_normal((h, f)) / np.sqrt(f)) for _ in range(3)]
+    return x, ws, vecs, adj
+
+
+def _layer_tol(dtype):
+    # bf16 outputs are O(1) values with 8 significant bits
+    return dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_SHAPES)
+def test_layer_dot_kernel_matches_plain(cuda, B, h, P, din, f, dtype):
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(30, B, h, P, din, f, dtype)
+    args = (x, wq, bq, wk, bk, wv, bv, adj)
+    out = flash_mask.flash_layer_dot_fwd(*args, scale=f ** -0.5)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_layer_dot_fwd_plain(*args, scale=f ** -0.5)
+    assert out.dtype == dtype and out.shape == (B, P, h, f)
+    torch.testing.assert_close(out.float(), want.float(), **_layer_tol(dtype))
+    assert not out[~adj.bool().any(-1)].any()  # empty and padded rows give 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_SHAPES)
+def test_layer_add_kernel_matches_plain(cuda, B, h, P, din, f, dtype, rate):
+    x, (w, _, _), (b, al, ar), adj = _layer_inputs(31, B, h, P, din, f, dtype)
+    kw = dict(slope=0.2, seed=4321, rate=rate)
+    out = flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, **kw)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj, **kw)
+    assert out.dtype == dtype and out.shape == (B, P, h, f)
+    torch.testing.assert_close(out.float(), want.float(), **_layer_tol(dtype))
+
+
+def test_layer_add_dropout_matches_the_decomposed_path(cuda):
+    """#6 with dropout equals the projection, the score contractions and
+    kernel #2 with the same seed: the two draw the same mask."""
+    x, (w, _, _), (b, al, ar), adj = _layer_inputs(32, 64, 2, 128, 64, 32, torch.float32)
+    kw = dict(slope=0.2, seed=77, rate=0.4)
+    z = torch.einsum("bpd,hdf->bphf", x, w) + b
+    el, er = (z * al).sum(-1), (z * ar).sum(-1)
+    want, _ = flash_mask.flash_add_fwd(el, er, z, adj, **kw)
+    got = flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert not torch.equal(got, flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj))
+
+
+def test_layer_kernels_refuse_what_does_not_fit(cuda):
+    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, 256, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP"):  # fp32 K and V of f=256 exceed 227 KB
+        flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mask.flash_layer_add_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w, b,
+                                       b, b, adj)
+
+
+@pytest.mark.parametrize("conv", ["gt", "gat"])
+def test_fused_layer_autograd_on_card_matches_cpu(cuda, conv):
+    """A flash_fused conv's forward and backward on the card (#5, then #1 and
+    #3; or #6, then #2 and #4) against the same conv on the CPU (the plain
+    versions): the output and every gradient."""
+    rng = np.random.default_rng(34)
+    graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 4)]
+    batch = DenseBatch.from_graph_list(graphs, np_pad=128, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((4 * 128, 32)).astype(np.float32))
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        layer = make_conv(conv, 32, 32, 2, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        flash_mask.reset_launch_counts()
+        out = layer(batch.to(dev), xd, impl="flash_fused")
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)).sum().backward()
+        seen[dev] = (out.detach().cpu(), flash_mask.launch_counts(),
+                     [t.grad.cpu() for t in (xd, *layer.parameters())])
+    want = (1, 1, 0, 0, 1, 0) if conv == "gt" else (0, 0, 1, 1, 0, 1)
+    assert seen["cpu"][1] == (0,) * 6 and seen["cuda"][1] == want
+    torch.testing.assert_close(seen["cuda"][0], seen["cpu"][0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(seen["cuda"][2], seen["cpu"][2]):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_bf16_gat_auto_runs_kernel_six(cuda):
+    """GATConv in bf16 on a DenseBatch: auto is the whole-layer kernel; its
+    output is bf16 and within a bf16 step of the fp32 layer's."""
+    rng = np.random.default_rng(35)
+    graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 8)]
+    batch = DenseBatch.from_graph_list(graphs, np_pad=128)
+    x = torch.from_numpy(rng.standard_normal((8 * 128, 64)).astype(np.float32)).cuda()
+    layer = make_conv("gat", 64, 64, 1, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    ref = make_conv("gat", 64, 64, 1, generator=torch.Generator().manual_seed(0))
+    flash_mask.reset_launch_counts()
+    with torch.inference_mode():
+        out = layer(batch, x)
+        assert flash_mask.launch_counts() == (0, 0, 0, 0, 0, 1)
+        want = ref(batch, x, impl="flash")
+    assert out.dtype == torch.bfloat16
+    err = float((out.float() - want).abs().max()) / float(want.abs().max())
+    assert err < 5e-2, err

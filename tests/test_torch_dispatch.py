@@ -89,14 +89,21 @@ def test_flash_refuses_what_is_not_ported():
 
 
 def test_gtconv_flash_fused_raises(monkeypatch):
+    """The whole-layer kernel takes a DenseBatch without edge values: with
+    them, or on a Graph, impl='flash_fused' raises, as flash_layer_attention
+    does in the JAX package."""
     batch, *_ = _small()
     conv = GTConv(8, 8, generator=torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros(2 * 16, 8)
-    with pytest.raises(NotImplementedError, match="_layer_kernel_dot"):
-        conv(batch, x, impl="flash_fused")
+    assert conv(batch, x, impl="flash_fused").shape == (2 * 16, 8)
+    with_val = batch.replace(val=batch.adj.float())
+    with pytest.raises(NotImplementedError, match="edge values"):
+        conv(with_val, x, impl="flash_fused")
+    with pytest.raises(ValueError, match="DenseBatch"):
+        conv(batch.to_graph(), x, impl="flash_fused")
     monkeypatch.setenv("DFGNN_TPU_FORCE_METHOD", "flash_fused")  # GTConv reads it too
-    with pytest.raises(NotImplementedError, match="_layer_kernel_dot"):
-        conv(batch, x)
+    with pytest.raises(NotImplementedError, match="edge values"):
+        conv(with_val, x)
 
 
 def test_cpu_calls_leave_the_launch_counter_at_zero():
@@ -130,7 +137,7 @@ def test_package_imports_no_jax():
             "dfgnn_tpu_torch.scripts.train_gtconv, dfgnn_tpu_torch.scripts.profile_train_step, "
             "dfgnn_tpu_torch.scripts.train_parity, dfgnn_tpu_torch.scripts.test_batch_graph, "
             "dfgnn_tpu_torch.ops.reference, dfgnn_tpu_torch.ops.edge_dropout, "
-            "dfgnn_tpu_torch.train.parity\n"
+            "dfgnn_tpu_torch.train.parity, dfgnn_tpu_torch.scripts.shmoo\n"
             "assert 'yaml' not in sys.modules and 'sklearn' not in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dfgnn_tpu')]\n"
             "assert not bad, bad\n")

@@ -105,23 +105,26 @@ def test_gatnet_forward_matches_jax(rng):
 
 
 @functools.cache
-def _jax_adam_step():
-    """One flax FullGraphNet(gat, 2 heads) Adam step through impl='flash' on
-    a seeded task: its inputs, loss, logits, gradients and updated params."""
+def _jax_adam_step(bf16: bool = False):
+    """One flax FullGraphNet(gat, 2 heads) Adam step on a seeded task, through
+    impl='flash' in fp32 or the bf16 auto route (the whole-layer kernel): its
+    inputs, loss, logits, gradients and updated params."""
     rng = np.random.default_rng(3)
     jb, tb = _batches(rng)
     n = jb.n_graphs * jb.np_pad
     x = rng.standard_normal((n, 2)).astype(np.float32)
     y = rng.integers(0, 2, size=n)
     mask = np.asarray(jb.node_mask).reshape(-1).astype(np.float32)
-    jm = JaxFullGraphNet(conv="gat", num_classes=2, hidden_size=8, num_layers=2, num_heads=2)
+    jm = JaxFullGraphNet(conv="gat", num_classes=2, hidden_size=8, num_layers=2, num_heads=2,
+                         dtype=jnp.bfloat16 if bf16 else None)
     params = _init(jm, 2, jb, x)
     opt = optax.adam(1e-2)
+    impl = None if bf16 else "flash"
 
     @jax.jit
     def step(p):
         def loss_fn(p_):
-            logits = jm.apply(p_, jb, jnp.asarray(x), impl="flash")
+            logits = jm.apply(p_, jb, jnp.asarray(x), impl=impl)
             l = optax.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(y))
             return jnp.sum(l * mask) / jnp.maximum(jnp.sum(mask), 1), logits
         (l, logits), g = jax.value_and_grad(loss_fn, has_aux=True)(p)
@@ -154,6 +157,31 @@ def test_fullgraphnet_gat_adam_step_matches_jax(remat):
                                    err_msg=name)
 
 
+def test_fullgraphnet_gat_bf16_adam_step_matches_jax():
+    """One Adam step of FullGraphNet(gat, 2 heads, dtype=bf16) through its
+    auto route, the whole-layer kernel's Function (its plain versions on the
+    CPU), against JAX's: the fp32 logits, the loss, every gradient and every
+    updated parameter at the bf16 bar, max |port - JAX| / max |JAX| < 5e-2."""
+    tb, x, y, mask, params, want_loss, want_logits, grads, after = _jax_adam_step(bf16=True)
+    tm = FullGraphNet("gat", num_classes=2, hidden_size=8, num_layers=2, num_heads=2,
+                      dtype=torch.bfloat16, in_size=2, generator=_gen(), device="cpu")
+    tm.load_state_dict(params)
+    xt, yt, mt = torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(mask)
+    rel = lambda got, want: float((got - want).abs().max()) / float(want.abs().max())
+    logits = tm(tb, xt)
+    assert logits.dtype == torch.float32
+    assert rel(logits.detach(), torch.tensor(want_logits)) < 5e-2
+    state = TrainState.create(tm, lr=1e-2, device="cpu")
+    flash_mask.reset_launch_counts()
+    _, loss = train_step(state, make_loss_fn(tm, "node_classification", 2), tb, xt, yt, mt)
+    assert flash_mask.launch_counts() == (0,) * 6  # CPU tensors: plain versions
+    assert abs(float(loss) - want_loss) < 5e-2 * abs(want_loss)
+    for name, p in tm.named_parameters():
+        assert p.dtype == torch.float32, name  # Adam updates fp32 parameters
+        assert rel(p.grad, grads[name]) < 5e-2, name
+        assert rel(p.detach(), after[name]) < 5e-2, name
+
+
 def test_run_parity_batched_gat_twin():
     """The parity twin trains on the JAX harness's task (graphs, noisy one-hot
     features and labels from the same numpy generator), trains both sides,
@@ -177,4 +205,4 @@ def test_run_parity_batched_gat_twin():
                for s in got["fused_steps"])
     assert got["fused_steps"][-1]["loss"] < got["fused_steps"][0]["loss"]
     assert got["gap"] == pytest.approx(abs(got["acc_fused"] - got["acc_unfused"]))
-    assert flash_mask.launch_counts() == (0, 0, 0, 0)
+    assert flash_mask.launch_counts() == (0,) * 6
