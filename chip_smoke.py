@@ -35,9 +35,21 @@ six launch counts set to 0 just before it and read just after:
 - GAT bf16 training: ``run_parity_batched(conv="gat", dtype=bf16)``, 200
   steps with 2 + 2 + 2 launches of #6, #2, #4 a step, and a timed bf16
   ``FullGraphNet(gat)`` Adam step with its peak memory;
-- the shmoo twin at dim 256 (bs=256) and bs 1024 and 2048 (dim 128).
-Prints progress and each phase's wall time, then a ``{"kernels": [...]}``
-JSON line (six records), and last a ``{"ok": true, ...}`` line.  Exits
+- the shmoo twin at dim 256 (bs=256) and bs 1024 and 2048 (dim 128);
+- the gather kernels #7 (``gather_rows``) and #8 (``take_rows``) against
+  their plain versions, exactly, and timed beside ``torch.index_select``;
+- full-graph serving: the twin ``dfgnn_tpu_torch.scripts.test_full_graph``
+  on the reddit stand-in (14.6M edges) at dim 128 with GT and GAT, the bucket
+  path against the oracle on a 4M-edge subsample;
+- full-graph training: the twin ``dfgnn_tpu_torch.scripts.train_gatconv``
+  (GATNet, arxiv stand-in), the bucket path's custom backward against
+  autograd through the oracle at dropout 0 and 0.4, and ``run_parity_full``;
+- the gather probe twin ``dfgnn_tpu_torch.scripts.microbench_gather``, the
+  path that launches #7 and #8, with its table sweep.
+The bucket path is torch ops, so the full-graph phases launch none of the
+hand-written kernels, and they assert that.  Prints progress and each
+phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
+and last a ``{"ok": true, ...}`` line.  Exits
 non-zero, with no result line, when there is no CUDA device or any check
 fails.  Imports no JAX.
 """
@@ -100,6 +112,17 @@ DROP_RATES, DROP_SEED = (0.0, 0.4), 0x5EED
 GAT_SERVE_ARGS = ["--dataset", "PATTERN", "--conv", "gat", "--dim", "128", "--heads", "1",
                   "--batch-size", "1024", "--format", "all"]
 PARITY_STEPS, PARITY_GAP_BAR = 200, 0.02
+GATHER_SHAPES = [  # (table rows, row shape, dtype, rows gathered, chunk, lookahead): #7
+    (1 << 18, (128,), torch.float32, 1 << 20, 512, 15),        # the probe's main shape
+    (232965, (256,), torch.float32, 1 << 20, 512, 15),         # reddit's packed k||v table
+    (1 << 18, (128,), torch.float32, (1 << 20) + 77, 512, 15), # M not a multiple of chunk
+    (1 << 18, (128,), torch.bfloat16, 1 << 20, 256, 7),        # a bf16 table
+]
+TAKE_SLABS, TAKE_MAIN = (512, 1024, 4096), 4096  # #8's slabs of 128 fp32, 2**20 ids
+FULL_SERVE_ARGS = ["--dataset", "reddit", "--dim", "128", "--heads", "1", "--format", "all_fg"]
+FULL_TRAIN_ARGS = ["--dataset", "arxiv", "--dim", "64", "--heads", "4", "--n-layers", "2",
+                   "--epochs", "5", "--lr", "1e-2"]
+GRAD_SUB_EDGES, GRAD_TOL = 1_000_000, dict(rtol=1e-3, atol=1e-4)
 GAT_HIDDEN, GAT_LAYERS = 64, 2
 N_REQUESTS, BATCH, NP_PAD, HIDDEN, LAYERS = 3, 1024, 128, 128, 8
 TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", str(LAYERS),
@@ -220,10 +243,16 @@ def main() -> int:
     from dfgnn_tpu_torch.data.collate import batch_iterator
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
-    from dfgnn_tpu_torch.ops import flash_mask
-    from dfgnn_tpu_torch.scripts import shmoo, test_batch_graph, train_gtconv, train_parity
+    from dfgnn_tpu_torch.ops import _cuda, flash_mask, gather
+    from dfgnn_tpu_torch.scripts import (microbench_gather, shmoo, test_batch_graph,
+                                         test_full_graph, train_gatconv, train_gtconv,
+                                         train_parity)
     from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
-    from dfgnn_tpu_torch.train.parity import _noisy_onehot, run_parity_batched
+    from dfgnn_tpu_torch import formats
+    from dfgnn_tpu_torch.data.datasets import load_full_graph
+    from dfgnn_tpu_torch.graph import Graph
+    from dfgnn_tpu_torch.ops import bucket, edge_dropout, reference
+    from dfgnn_tpu_torch.train.parity import _noisy_onehot, run_parity_batched, run_parity_full
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
     # 1. device
@@ -239,7 +268,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    lib, log = flash_mask.build()
+    lib, log = _cuda.build()
     print(f"built {lib.name} with nvcc in {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -790,9 +819,10 @@ def main() -> int:
     # 12. GAT training: the train_parity twin, FullGraphNet(gat), hidden 64, 2 layers
     flash_mask.reset_launch_counts()
     t0 = time.perf_counter()
-    parity = train_parity.main(["--conv", "gat", "--steps", str(PARITY_STEPS)])
+    parity_both = train_parity.main(["--conv", "gat", "--steps", str(PARITY_STEPS)])
     torch.cuda.synchronize()
     seen = flash_mask.launch_counts()
+    parity, parity_full = parity_both["batched"], parity_both["full"]
     steps = parity["fused_steps"]
     if len(steps) != PARITY_STEPS:
         raise AssertionError(f"{len(steps)} parity steps, expected {PARITY_STEPS}")
@@ -813,12 +843,20 @@ def main() -> int:
                                  f"baseline {base} + 0.1")
     if not parity["gap"] <= PARITY_GAP_BAR:
         raise AssertionError(f"parity gap {parity['gap']} above {PARITY_GAP_BAR}")
+    # the twin's full-graph half (hidden 64, 200 steps at lr 1e-2) is read, not
+    # held to the bar: its two trajectories agree to 1e-6 for the first steps,
+    # then Adam's loss spikes make the last step's accuracy chaotic on both
+    # sides (PERF.md section 6); phase 19 holds run_parity_full at the JAX defaults
+    if not parity_full["acc_fused"] > parity_full["majority_baseline"] + 0.1:
+        raise AssertionError(f"full-graph GAT parity: fused accuracy {parity_full['acc_fused']}")
     print(f"GAT training twin (train_parity --conv gat, {PARITY_STEPS} Adam steps each side) in "
           f"{time.perf_counter() - t0:.2f} s (host clock): {GAT_LAYERS} + {GAT_LAYERS} add-kernel "
           f"launches every fused step, {seen[2]} forward (training and the accuracy pass) and "
           f"{seen[3]} backward in the run; accuracy fused {parity['acc_fused']:.4f}, oracle "
           f"{parity['acc_unfused']:.4f}, gap {parity['gap']:.4f} (bar {PARITY_GAP_BAR}), "
-          f"majority baseline {base:.4f}")
+          f"majority baseline {base:.4f}; its full-graph half (bucket path, SBM n=2000, no "
+          f"flash kernel; a reading): accuracy fused {parity_full['acc_fused']:.4f}, oracle "
+          f"{parity_full['acc_unfused']:.4f}, gap {parity_full['gap']:.4f}")
     add_fwd_rec["launches"], add_bwd_rec["launches"] = seen[2], seen[3]
     phase_done("12 GAT training twin")
 
@@ -965,7 +1003,198 @@ def main() -> int:
           f"behind the winner (a reading; nothing here asserts it)")
     phase_done("16 shmoo points")
 
-    records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec]
+    # 17. kernels #7 and #8 against their plain versions: a copy, so exactly equal
+    gather_rec = {"name": "gather_rows", "route": "cuda",
+                  "source": "dfgnn_tpu_torch/csrc/gather_rows.cu",
+                  "replaces": "scripts/microbench_gather.py:62"}
+    take_rec = {"name": "take_rows", "route": "cuda",
+                "source": "dfgnn_tpu_torch/csrc/gather_rows.cu",
+                "replaces": "scripts/microbench_gather.py:107"}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for i, (N, shape, dtype, M, chunk, la) in enumerate(GATHER_SHAPES):
+        tbl = torch.randn((N, *shape), device="cuda", generator=gen).to(dtype)
+        idx = torch.randint(0, N, (M,), device="cuda", generator=gen, dtype=torch.int32)
+        out = gather.gather_rows(tbl, idx, chunk=chunk, lookahead=la)
+        torch.cuda.synchronize()
+        want = gather.gather_rows_plain(tbl, idx)
+        err = float((out.float() - want.float()).abs().max())
+        if not torch.equal(out, want):
+            raise AssertionError(f"gather_rows differs from index_select: max err {err}")
+        print(f"#7 gather_rows vs plain: table {N} x {shape} {dtype}, {M} rows, chunk {chunk}, "
+              f"lookahead {la}: equal (max abs err {err})")
+        if i > 0:
+            continue
+        row_bytes = tbl[0].numel() * tbl.element_size()
+        ms, plain_ms = in_turns(benchmark, lambda: gather.gather_rows_plain(tbl, idx),
+                                lambda: gather.gather_rows(tbl, idx, chunk=chunk, lookahead=la))
+        lib_ms = benchmark(lambda: torch.index_select(tbl, 0, idx))[1]
+        nbytes = 2 * M * row_bytes + M * 4  # rows read and written, ids read
+        bound_ms, bound_by = bound(0, nbytes)
+        gather_rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  at the probe's shape ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e9:.3f} GB)")
+    tbl = torch.randn((1 << 18, 128), device="cuda", generator=gen)
+    for S in TAKE_SLABS:
+        slab = tbl[:S].contiguous()
+        idx = torch.randint(-100, S + 100, (1 << 20,), device="cuda", generator=gen,
+                            dtype=torch.int32)  # ids outside [0, S) on both sides
+        out = gather.take_rows(slab, idx)
+        torch.cuda.synchronize()
+        want = gather.take_rows_plain(slab, idx)
+        err = float((out - want).abs().max())
+        if not torch.equal(out, want):
+            raise AssertionError(f"take_rows differs from its plain version: max err {err}")
+        ms, plain_ms = in_turns(benchmark, lambda: gather.take_rows_plain(slab, idx),
+                                lambda: gather.take_rows(slab, idx))
+        clipped = gather.take_ids(idx, S)
+        lib_ms = benchmark(lambda: torch.index_select(slab, 0, clipped))[1]
+        nbytes = idx.numel() * (4 + 512) + S * 512  # ids and the slab read, rows written
+        bound_ms, bound_by = bound(0, nbytes)
+        print(f"#8 take_rows vs plain: slab {S} x 128 fp32, 2**20 ids in [-100, {S + 100}): "
+              f"equal; {gather.take_smem_bytes(S, 512)} B of shared memory a block; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.index_select of the clipped ids "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
+        if S == TAKE_MAIN:
+            take_rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    del tbl, slab, idx, out, want, clipped
+    phase_done("17 kernels #7 and #8")
+
+    def no_kernel_launches(what):
+        """The bucket path is torch ops: no hand-written kernel may launch."""
+        seen = flash_mask.launch_counts() + gather.launch_counts()
+        if any(seen):
+            raise AssertionError(f"{what} launched #1, #3, #2, #4, #5, #6, #7, #8 {seen}")
+
+    # 18. full-graph serving: the test_full_graph twin on the reddit stand-in
+    for conv in ("gt", "gat"):
+        flash_mask.reset_launch_counts()
+        gather.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = test_full_graph.main(FULL_SERVE_ARGS + ["--conv", conv])
+        torch.cuda.synchronize()
+        no_kernel_launches(f"full-graph {conv} serving")
+        if full["bucket"]["ok"] is not True:
+            raise AssertionError(f"full-graph {conv}: the bucket path does not match the oracle")
+        print(f"full-graph {conv} serving twin ({' '.join(FULL_SERVE_ARGS)}) in "
+              f"{time.perf_counter() - t0:.2f} s (host clock, data set-up included): "
+              f"correctness vs oracle: OK; layer forward ({smi}): " + ", ".join(
+                  f"{fmt} {r['ms']:.4f} ms on {r['n_edges']} edges ({r['edges_per_s']:.4e} "
+                  f"edges/s, peak {r['peak_mib']:.1f} MiB)" for fmt, r in full.items()))
+        phase_done(f"18 full-graph {conv} serving")
+
+    # 18 (continued). the reading behind build_buckets' auto layout: the GT
+    #    layer on the flat layout and on the source-blocked one
+    ds = load_full_graph("reddit", quiet=True)
+    g = Graph.from_coo(ds.rows, ds.cols, ds.n_nodes)
+    x = torch.from_numpy(ds.features[:, :HIDDEN].astype(np.float32)).cuda()
+    layer = make_conv("gt", HIDDEN, HIDDEN, 1, generator=torch.Generator().manual_seed(0)).eval()
+    flat = formats.build_buckets(g, src_block_rows=None)
+    blocked = formats.build_buckets(g, src_block_rows=formats._SRC_BLOCK_ROWS)
+    with torch.inference_mode():
+        blocked_ms, flat_ms = in_turns(benchmark, lambda: layer(flat, x),
+                                       lambda: layer(blocked, x), names=("flat", "blocked"))
+        e = max_err(layer(blocked, x), layer(flat, x), MODEL_TOL)
+    print(f"reddit stand-in GT layer, dim {HIDDEN} ({smi}): flat layout {flat_ms:.4f} ms "
+          f"({flat.padded_edges} padded lanes), source-blocked by {formats._SRC_BLOCK_ROWS} rows "
+          f"{blocked_ms:.4f} ms ({blocked.padded_edges} padded lanes, "
+          f"{len(blocked.blocks)} blocks); outputs within {e:.3e}")
+    del ds, g, x, flat, blocked
+    phase_done("18 flat and blocked layouts")
+
+    # 19. full-graph training: the train_gatconv twin, the custom backward
+    #     against autograd through the oracle, and run_parity_full
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train_gatconv.main(FULL_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    no_kernel_launches("GATNet training")
+    losses = trained["losses"]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"GATNet losses {losses}")
+    print(f"GATNet twin ({' '.join(FULL_TRAIN_ARGS)}) in {time.perf_counter() - t0:.2f} s "
+          f"(host clock): losses {[round(x, 5) for x in losses]}; train step "
+          f"{trained['epoch_ms']:.2f} ms an epoch, inference {trained['infer_ms']:.2f} ms "
+          f"(host clock around synchronised work), test accuracy {trained['acc']:.4f}, peak "
+          f"device memory {trained['peak_mib']:.1f} MiB ({smi})")
+
+    ds = load_full_graph("arxiv", quiet=True)
+    sub = np.random.default_rng(19).choice(ds.n_edges, GRAD_SUB_EDGES, replace=False)
+    g_sub = Graph.from_coo(ds.rows[sub], ds.cols[sub], ds.n_nodes)
+    bg_sub = formats.build_buckets(g_sub, with_transpose=True)
+    h, f, n = 4, 64, ds.n_nodes
+    rng = np.random.default_rng(20)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    heads = torch.arange(h, device="cuda")[None, :]
+
+    def oracle(score, a, b, v, seed, rate):
+        """The segment-op oracle with the bucket path's hash dropout on its
+        normalised weights."""
+        s = (reference.sddmm_dot(g_sub, a, b) if score == "dot"
+             else reference.sddmm_add(g_sub, a, b, 0.2))
+        w = reference.edge_softmax(g_sub, s)
+        if rate > 0.0:
+            w = w * edge_dropout.keep_scale(seed, g_sub.rows[:, None], g_sub.cols[:, None],
+                                            heads, rate)
+        return reference.spmm(g_sub, w, v)
+
+    for score in ("dot", "add"):
+        ab = [arr(n, h, f), arr(n, h, f)] if score == "dot" else [arr(n, h), arr(n, h)]
+        v, do = arr(n, h, f), arr(n, h, f)
+        for rate in DROP_RATES:
+            seed = edge_dropout.seed_from_generator(torch.Generator().manual_seed(DROP_SEED))
+            ins = [t.clone().requires_grad_(True) for t in (*ab, v)]
+            qk = (ins[0], ins[1]) if score == "dot" else (None, None)
+            kw = {} if score == "dot" else dict(e_row=ins[0], e_col=ins[1])
+            out = bucket.bucket_graph_attention(
+                bg_sub, *qk, ins[2], score=score, dropout_rate=rate,
+                dropout_generator=torch.Generator().manual_seed(DROP_SEED), **kw)
+            if type(out.grad_fn).__name__ != "_BucketFusedBackward":
+                raise AssertionError(f"the bucket path took {type(out.grad_fn).__name__}")
+            got = torch.autograd.grad(out, ins, do)
+            refs = [t.clone().requires_grad_(True) for t in (*ab, v)]
+            want_out = oracle(score, *refs, seed, rate)
+            want = torch.autograd.grad(want_out, refs, do)
+            errs = [max_err(out.detach(), want_out.detach(), MODEL_TOL)] + [
+                max_err(g_, w_, GRAD_TOL) for g_, w_ in zip(got, want)]
+            print(f"custom backward vs autograd through the oracle, {score} score, arxiv "
+                  f"stand-in {GRAD_SUB_EDGES}-edge subgraph, h={h} f={f}, dropout {rate}: max "
+                  f"abs err out {errs[0]:.3e}, grads " + ", ".join(f"{e:.3e}" for e in errs[1:])
+                  + f" (tol {GRAD_TOL})")
+    del ds, g_sub, bg_sub
+
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    pf = run_parity_full(conv="gt")
+    torch.cuda.synchronize()
+    no_kernel_launches("full-graph parity")
+    if not (pf["gap"] <= PARITY_GAP_BAR and pf["acc_fused"] > pf["majority_baseline"] + 0.1):
+        raise AssertionError(f"run_parity_full: {pf}")
+    print(f"run_parity_full (conv gt, the JAX defaults: SBM n=2000, 4 blocks, hidden 32, 2 "
+          f"layers, 120 Adam steps): accuracy bucket {pf['acc_fused']:.4f}, oracle "
+          f"{pf['acc_unfused']:.4f}, gap {pf['gap']:.4f} (bar {PARITY_GAP_BAR}), majority "
+          f"baseline {pf['majority_baseline']:.4f}")
+    phase_done("19 full-graph training")
+
+    # 20. the gather probe twin, the path of kernels #7 and #8
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    probe = microbench_gather.main([])
+    torch.cuda.synchronize()
+    seen = gather.launch_counts()
+    if min(seen) == 0 or any(flash_mask.launch_counts()):
+        raise AssertionError(f"the gather probe launched #7, #8 {seen} and #1-#6 "
+                             f"{flash_mask.launch_counts()}")
+    gather_rec["launches"], take_rec["launches"] = seen
+    print(f"gather probe twin: {len(probe)} rows; {seen[0]} #7 and {seen[1]} #8 launches "
+          f"({smi})")
+    phase_done("20 gather probe")
+
+    records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
+               gather_rec, take_rec]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rec in records:

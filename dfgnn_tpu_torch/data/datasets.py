@@ -1,21 +1,25 @@
-"""Batched-graph datasets (numpy only).
+"""Full-graph and batched-graph datasets (numpy only).
 
-A copy of the batched half of :mod:`dfgnn_tpu.data.datasets`: the same
-registry, the same ``zlib.crc32(name)``-seeded synthetic stand-ins and the
-same loaders, so the two packages make identical datasets.  The copy exists
-because importing anything under ``dfgnn_tpu`` imports JAX.  The full-graph
-half (planetoid, ``load_full_graph``) comes with the full-graph path.
+A copy of :mod:`dfgnn_tpu.data.datasets`: the same registry, the same
+``zlib.crc32(name)``-seeded synthetic stand-ins and the same loaders, so the
+two packages make identical datasets.  The copy exists because importing
+anything under ``dfgnn_tpu`` imports JAX.
 
 Loading policy, as in the JAX package:
-1. ``<data_dir>/<name>_batched.npz`` when present;
-2. ``digits`` / ``digits-func``: sklearn's handwritten digits as pixel graphs;
+1. ``<data_dir>/<name>.npz`` (full graphs) or ``<name>_batched.npz`` when
+   present;
+2. Planetoid pickles (``ind.<name>.*``) for cora / citeseer / pubmed;
+   ``digits`` / ``digits-func``: sklearn's handwritten digits as pixel graphs;
 3. otherwise a deterministic synthetic stand-in at the reference's scale
-   anchors, marked ``synthetic=True``.
+   anchors, marked ``synthetic=True``.  scipy (the full-graph stand-ins'
+   planted labels and the Planetoid reader) and scikit-learn are imported
+   only where they are used.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import sys
 import zlib
 from dataclasses import dataclass
@@ -24,6 +28,30 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from dfgnn_tpu_torch.data import synthetic as syn
+
+
+@dataclass
+class FullGraphDataset:
+    """One large graph with node features, labels and split masks."""
+
+    name: str
+    rows: np.ndarray
+    cols: np.ndarray
+    features: np.ndarray       # [n, d] float or int
+    labels: np.ndarray         # [n]
+    num_classes: int
+    train_mask: np.ndarray
+    val_mask: np.ndarray
+    test_mask: np.ndarray
+    synthetic: bool = False
+
+    @property
+    def n_nodes(self) -> int:
+        return self.features.shape[0]
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.rows)
 
 
 @dataclass
@@ -44,6 +72,19 @@ class BatchedGraphDataset:
         return len(self.graphs)
 
 
+# scale anchors from the reference's measured statistics
+_FULL_ANCHORS = {
+    # name: (n_nodes, avg_deg, n_feat, n_classes, power_law)
+    "cora": (2708, 4, 1433, 7, False),
+    "cite": (3327, 3, 3703, 6, False),
+    "citeseer": (3327, 3, 3703, 6, False),
+    "pubmed": (19717, 5, 500, 3, False),
+    "arxiv": (169343, 13, 128, 40, False),
+    "reddit": (232965, 492, 602, 41, True),
+    "ppa": (576289, 73, 58, 47, True),
+    "protein": (132534, 300, 8, 112, True),
+}
+
 _BATCH_ANCHORS = {
     # name: (mean_nodes, deg, feature_kind, in_dim, n_classes, task)
     "PATTERN": (119, 51, "category", 3, 2, "node_classification"),
@@ -61,6 +102,127 @@ _BATCH_ANCHORS = {
     "digits": (64, 8, "float", 3, 10, "graph_classification"),
     "digits-func": (64, 8, "float", 3, 10, "graph_classification_multilabel"),
 }
+
+
+def _parse_planetoid(name: str, data_dir: str) -> Optional[FullGraphDataset]:
+    """Planetoid ``ind.<name>.*`` pickle format (cora / citeseer / pubmed)."""
+    alias = {"cite": "citeseer"}.get(name, name)
+    names = ["x", "y", "tx", "ty", "allx", "ally", "graph"]
+    paths = [os.path.join(data_dir, f"ind.{alias}.{s}") for s in names]
+    ti_path = os.path.join(data_dir, f"ind.{alias}.test.index")
+    if not all(os.path.exists(p) for p in paths) or not os.path.exists(ti_path):
+        return None
+    objs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            objs.append(pickle.load(f, encoding="latin1"))
+    x, y, tx, ty, allx, ally, graph = objs
+    test_idx = np.loadtxt(ti_path, dtype=np.int64)
+    test_range = np.sort(test_idx)
+
+    import scipy.sparse as sp
+
+    features = sp.vstack((allx, tx)).tolil()
+    features[test_idx, :] = features[test_range, :]
+    features = np.asarray(features.todense(), dtype=np.float32)
+    labels_oh = np.vstack((ally, ty))
+    labels_oh[test_idx, :] = labels_oh[test_range, :]
+    labels = labels_oh.argmax(axis=1)
+
+    rows_l, cols_l = [], []
+    for src, nbrs in graph.items():
+        for dst in nbrs:
+            rows_l.append(src)
+            cols_l.append(dst)
+    rows = np.asarray(rows_l)
+    cols = np.asarray(cols_l)
+
+    n = features.shape[0]
+    train_mask = np.zeros(n, bool)
+    val_mask = np.zeros(n, bool)
+    test_mask = np.zeros(n, bool)
+    train_mask[: y.shape[0]] = True
+    val_mask[y.shape[0]: y.shape[0] + 500] = True
+    test_mask[test_idx] = True
+    return FullGraphDataset(
+        name=name, rows=rows, cols=cols, features=features,
+        labels=labels, num_classes=int(labels.max()) + 1,
+        train_mask=train_mask, val_mask=val_mask, test_mask=test_mask,
+    )
+
+
+def _load_npz_full(name: str, data_dir: str) -> Optional[FullGraphDataset]:
+    p = os.path.join(data_dir, f"{name}.npz")
+    if not os.path.exists(p):
+        return None
+    z = np.load(p, allow_pickle=False)
+    n = z["features"].shape[0]
+
+    def mask(key):
+        return z[key] if key in z else np.zeros(n, bool)
+
+    return FullGraphDataset(
+        name=name, rows=z["rows"], cols=z["cols"], features=z["features"],
+        labels=z["labels"], num_classes=int(z["labels"].max()) + 1,
+        train_mask=mask("train_mask"), val_mask=mask("val_mask"),
+        test_mask=mask("test_mask"),
+    )
+
+
+def _synthetic_full(name: str, scale: float = 1.0) -> FullGraphDataset:
+    n, deg, d, c, power = _FULL_ANCHORS[name]
+    n = max(64, int(n * scale))
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if power:
+        # reddit keeps the JAX package's deg-64 cap so its stand-in is the
+        # one the JAX package measured; the other super-node graphs use their
+        # true average degree
+        cap = 64 if name == "reddit" else 300
+        rows, cols = syn.power_law_graph(rng, n, avg_deg=min(deg, cap), alpha=1.6)
+    else:
+        rows, cols = syn.constant_degree_graph(rng, n, deg)
+    d_eff = min(d, 256)  # cap synthetic feature width
+    features = rng.standard_normal((n, d_eff)).astype(np.float32)
+    # planted learnable labels: class = argmax of a random projection of
+    # (own + mean-neighbour) features, so message passing helps
+    try:
+        import scipy.sparse as sp
+
+        A = sp.coo_matrix(
+            (np.ones(rows.size, np.float32), (rows, cols)), shape=(n, n)
+        ).tocsr()
+        h = features + np.asarray(A.dot(features)) / np.maximum(
+            np.asarray(A.sum(axis=1)), 1.0)
+        w = rng.standard_normal((d_eff, c)).astype(np.float32)
+        labels = (h @ w).argmax(axis=1)
+    except ImportError:  # scipy-free: feature-only labels, as the JAX package
+        w = rng.standard_normal((d_eff, c)).astype(np.float32)
+        labels = (features @ w).argmax(axis=1)
+    masks = rng.random(n)
+    return FullGraphDataset(
+        name=name, rows=rows, cols=cols, features=features, labels=labels,
+        num_classes=c,
+        train_mask=masks < 0.6, val_mask=(masks >= 0.6) & (masks < 0.8),
+        test_mask=masks >= 0.8, synthetic=True,
+    )
+
+
+def load_full_graph(name: str, data_dir: str = "data", *, scale: float = 1.0,
+                    quiet: bool = False) -> FullGraphDataset:
+    """A full-graph dataset by name (role of the reference's
+    ``load_data_full_graph``); ``scale`` shrinks a synthetic stand-in's node
+    count."""
+    if name not in _FULL_ANCHORS:
+        raise KeyError(f"unknown full-graph dataset {name!r}; choose from {sorted(_FULL_ANCHORS)}")
+    ds = _load_npz_full(name, data_dir)
+    if ds is None and name in ("cora", "cite", "citeseer", "pubmed"):
+        ds = _parse_planetoid(name, data_dir)
+    if ds is None:
+        ds = _synthetic_full(name, scale)
+        if not quiet:
+            print(f"[dfgnn-tpu] {name}: no local data found, using synthetic "
+                  f"stand-in (n={ds.n_nodes}, e={ds.n_edges})", file=sys.stderr)
+    return ds
 
 
 def _synthetic_batched(name: str, n_graphs: int) -> BatchedGraphDataset:
@@ -199,5 +361,5 @@ def load_batched(name: str, data_dir: str = "data", *, n_graphs: int = 1024,
 
 
 def dataset_names():
-    """Datasets this module loads (the full-graph ones are not ported yet)."""
-    return {"batched": sorted(_BATCH_ANCHORS)}
+    """Datasets this module loads."""
+    return {"full": sorted(_FULL_ANCHORS), "batched": sorted(_BATCH_ANCHORS)}

@@ -1,6 +1,6 @@
 """Synthetic graph generators (numpy only).
 
-A copy of the batched-graph generators of :mod:`dfgnn_tpu.data.synthetic`:
+A copy of the generators of :mod:`dfgnn_tpu.data.synthetic`:
 given the same ``np.random.Generator`` each returns the same arrays, so the
 two packages can be fed identical inputs.  The copy exists because importing
 anything under ``dfgnn_tpu`` imports JAX.
@@ -65,6 +65,39 @@ def small_graph_batch(rng, n_graphs: int, mean_nodes: int = 70, deg: int = 8,
         rows, cols = constant_degree_graph(rng, n, min(deg, n - 1))
         out.append((rows, cols, n, None))
     return out
+
+
+def community_graph(rng, n: int, n_communities: int, avg_deg: float = 10.0,
+                    intra_frac: float = 0.9):
+    """Locality-structured full graph: nodes are grouped into contiguous
+    communities and each edge lands inside its source's community with
+    probability ``intra_frac`` (reddit-like community structure).  Returns
+    (rows, cols)."""
+    deg = np.maximum(rng.poisson(avg_deg, size=n), 1)
+    rows = np.repeat(np.arange(n), deg)
+    E = int(deg.sum())
+    csize = -(-n // n_communities)
+    com_lo = (rows // csize) * csize
+    com_hi = np.minimum(com_lo + csize, n)
+    intra = rng.random(E) < intra_frac
+    local = com_lo + rng.integers(0, csize, size=E) % (com_hi - com_lo)
+    remote = rng.integers(0, n, size=E)
+    cols = np.where(intra, local, remote)
+    return rows, cols
+
+
+def power_law_graph(rng, n: int, avg_deg: float = 10.0, alpha: float = 1.8,
+                    max_deg_frac: float = 0.1):
+    """Full graph with power-law in-row degrees: the reddit / super-node
+    regime (single rows with 1e4+ neighbours) that exercises the segment and
+    tiled paths.  Returns (rows, cols)."""
+    raw = rng.pareto(alpha, size=n) + 1.0
+    deg = np.minimum((raw / raw.mean() * avg_deg).astype(np.int64),
+                     int(n * max_deg_frac))
+    deg = np.maximum(deg, 1)
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, size=int(deg.sum()))
+    return rows, cols
 
 
 def attention_inputs(rng, B: int, h: int, P: int, f: int):

@@ -108,6 +108,38 @@ class Graph:
             self, indptr=move(self.indptr), rows=move(self.rows), cols=move(self.cols),
             val=move(self.val), node_mask=move(self.node_mask), graph_id=move(self.graph_id))
 
+    def to_csc(self) -> "CSCAux":
+        """The column-direction view of the edges, built on the host and put
+        on this graph's device: the edges sorted stably by column, with the
+        permutation back to CSR edge ids (the reference's CSC + ``val_idx``
+        arrays).  Padded entries carry ``n_nodes``; ``edge_perm`` pads with
+        ``e_pad - 1``."""
+        rows = self.rows[: self.n_edges].cpu().numpy()
+        cols = self.cols[: self.n_edges].cpu().numpy()
+        order = np.argsort(cols, kind="stable")
+        col_ptr = np.zeros(self.n_nodes + 1, dtype=np.int64)
+        np.add.at(col_ptr, cols + 1, 1)
+        e_pad = self.e_pad
+        perm = np.full(e_pad, e_pad - 1, dtype=np.int64)
+        perm[: self.n_edges] = order
+        rows_csc = np.full(e_pad, self.n_nodes, dtype=np.int64)
+        rows_csc[: self.n_edges] = rows[order]
+        cols_csc = np.full(e_pad, self.n_nodes, dtype=np.int64)
+        cols_csc[: self.n_edges] = cols[order]
+        put = lambda a: torch.from_numpy(a).to(self.rows.device)
+        return CSCAux(col_ptr=put(np.cumsum(col_ptr)), rows=put(rows_csc), cols=put(cols_csc),
+                      edge_perm=put(perm))
+
+
+@dataclass(frozen=True)
+class CSCAux:
+    """Column-direction (transposed) view of a Graph's edges."""
+
+    col_ptr: torch.Tensor    # [n_nodes + 1] int64
+    rows: torch.Tensor       # [e_pad] int64, source node per CSC-ordered edge
+    cols: torch.Tensor       # [e_pad] int64, sorted ascending
+    edge_perm: torch.Tensor  # [e_pad] int64, CSC edge -> CSR edge id
+
 
 @dataclass(frozen=True)
 class DenseBatch:

@@ -16,6 +16,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dfgnn_tpu_torch.device import resolve_device
+from dfgnn_tpu_torch.formats import BlockedBucketedGraph, BucketedGraph
 from dfgnn_tpu_torch.graph import DenseBatch, Graph
 from dfgnn_tpu_torch.models.conv import GATConv, GTConv, linear, make_conv
 
@@ -76,19 +77,18 @@ def graph_pool(g, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if isinstance(g, DenseBatch):
         s = torch.where(g.node_mask[..., None], x.reshape(g.n_graphs, g.np_pad, -1), 0.0).sum(1)
         cnt = g.node_mask.sum(dim=1, keepdim=True)
-    elif isinstance(g, Graph):
+    elif isinstance(g, (Graph, BucketedGraph, BlockedBucketedGraph)):
         if g.graph_id is None:
             s = x.sum(dim=0, keepdim=True)
             return s if op == "sum" else s / x.shape[0]
+        node_mask = getattr(g, "node_mask", None)
         real = (torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-                if g.node_mask is None else g.node_mask)
+                if node_mask is None else node_mask)
         xm = torch.where(real[:, None], x, 0.0)
         s = xm.new_zeros((g.n_graphs, x.shape[1])).index_add(0, g.graph_id, xm)
         cnt = xm.new_zeros((g.n_graphs, 1)).index_add(0, g.graph_id, real[:, None].to(x.dtype))
     else:
-        raise NotImplementedError(
-            f"graph_pool on {type(g).__name__} is not ported yet: DenseBatch and Graph "
-            "are (ROADMAP.md queue 1 item 7)")
+        raise TypeError(f"graph_pool takes no layout {type(g).__name__}")
     return s if op == "sum" else s / cnt.clamp_min(1)
 
 

@@ -1,8 +1,9 @@
 """Single entry point dispatching on graph layout.
 
-The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  The :class:`DenseBatch`
-and :class:`Graph` layouts are ported; ``method`` names the same
-implementations as in the JAX package.
+The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  The :class:`DenseBatch`,
+:class:`Graph`, :class:`BucketedGraph` and :class:`BlockedBucketedGraph`
+layouts are ported; ``method`` names the same implementations as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from typing import Optional
 
 import torch
 
+from dfgnn_tpu_torch.formats import BlockedBucketedGraph, BucketedGraph
 from dfgnn_tpu_torch.graph import DenseBatch, Graph
+from dfgnn_tpu_torch.ops import bucket as _bucket
 from dfgnn_tpu_torch.ops import dense_block as _dense
 from dfgnn_tpu_torch.ops import flash_mask
 from dfgnn_tpu_torch.ops import reference as _ref
@@ -39,7 +42,9 @@ def graph_attention(
     ``dense`` and ``reference`` the dense formulation; ``return_weights=True``
     always takes the dense formulation, the one that materialises weights.
     On a :class:`Graph`, ``auto`` and ``reference`` run the unfused
-    segment-op oracle.
+    segment-op oracle.  On a :class:`BucketedGraph` or
+    :class:`BlockedBucketedGraph`, ``auto`` and ``bucket`` run the fused
+    bucket path (:mod:`dfgnn_tpu_torch.ops.bucket`).
     The ``DFGNN_TPU_FORCE_METHOD`` environment variable overrides
     ``method="auto"``.
     """
@@ -52,11 +57,16 @@ def graph_attention(
             return _ref.graph_attention_reference(g, q, k, v, **kw,
                                                   return_weights=return_weights)
         raise ValueError(f"method {method!r} invalid for Graph")
+    if isinstance(g, (BucketedGraph, BlockedBucketedGraph)):
+        if method in ("auto", "bucket"):
+            return _bucket.bucket_graph_attention(g, q, k, v, **kw,
+                                                  return_weights=return_weights)
+        raise ValueError(f"method {method!r} invalid for {type(g).__name__}")
     if not isinstance(g, DenseBatch):
         raise NotImplementedError(
-            f"graph layout {type(g).__name__} is not ported yet: DenseBatch and Graph "
-            "are. The bucketed full graph comes with ROADMAP.md queue 1 item 7, "
-            "SampledBlock with item 8 and the edge-partitioned graph with item 10.")
+            f"graph layout {type(g).__name__} is not ported yet: DenseBatch, Graph and "
+            "the bucketed full graph are. SampledBlock comes with ROADMAP.md queue 1 "
+            "item 8 and the edge-partitioned graph with item 10.")
     if method in ("auto", "flash") and not return_weights:
         return flash_mask.flash_graph_attention(g, q, k, v, **kw)
     if method in ("auto", "dense", "flash", "reference"):

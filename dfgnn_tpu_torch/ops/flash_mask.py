@@ -2,7 +2,8 @@
 
 The counterpart of :mod:`dfgnn_tpu.ops.pallas.flash_mask`.  Its six Pallas
 kernels become hand-written CUDA kernels, built with ``nvcc`` for ``sm_90a``
-into one library at first use and bound with ``ctypes``:
+into one library at first use (:mod:`dfgnn_tpu_torch.ops._cuda`) and bound
+with ``ctypes``:
 
     _fwd_kernel_dot    (#1)  csrc/flash_mask_fwd.cu   flash_mask_fwd
     _bwd_kernel_dot    (#3)  csrc/flash_mask_bwd.cu   flash_mask_bwd
@@ -25,25 +26,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from dfgnn_tpu_torch.graph import DenseBatch
-from dfgnn_tpu_torch.ops import edge_dropout
+from dfgnn_tpu_torch.ops import _cuda, edge_dropout
 from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
-
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # What the kernel takes (see csrc/flash_mask_fwd.cu): head dims it is
 # instantiated for, and the most nodes whose score rows fit shared memory.
@@ -75,55 +66,10 @@ def reset_launch_counts() -> None:
     LAYER_LAUNCHES = LAYER_ADD_LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def build() -> tuple[Path, str]:
-    """Compile every ``csrc/*.cu`` into one library in ``_build/``, unless built.
-
-    The library's name carries a hash of all sources, headers and flags, so
-    a stale build is never loaded.  The sources compile in parallel, one
-    ``nvcc`` each; the library is linked under a temporary name and renamed,
-    so a concurrent process never loads a half-written file.  Returns the
-    library's path and the compiler's messages ('' when already built).
-    """
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        digest.update(path.name.encode() + path.read_bytes())
-    lib = BUILD_DIR / f"libdfgnn_kernels-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{lib.stem}.tmp{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
-    tmp = BUILD_DIR / f"{tag}.so"
-    try:
-        for src, proc, log in zip(sources, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
-        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        for path in (*objs, tmp):
-            path.unlink(missing_ok=True)
-    return lib, "".join(logs)
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+    """The kernel library with the argument types of kernels #1 to #6."""
+    lib = _cuda.library()
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dfgnn_flash_mask_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.dfgnn_flash_mask_fwd.restype = i
@@ -139,8 +85,6 @@ def _library() -> ctypes.CDLL:
     lib.dfgnn_flash_layer_dot_fwd.restype = i
     lib.dfgnn_flash_layer_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, i, *drop, vp]
     lib.dfgnn_flash_layer_add_fwd.restype = i
-    lib.dfgnn_cuda_error_string.argtypes = [i]
-    lib.dfgnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -330,12 +274,6 @@ def _dropout_args(seed: int, rate: float) -> list:
     return [1, seed, edge_dropout.keep_threshold(rate), edge_dropout.drop_scale(rate)]
 
 
-def _raise_on(err: int, what: str, lib) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.dfgnn_cuda_error_string(err).decode())
-
-
 def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
     """Masked attention forward: ``(out [B, P, h, f], lse [h, B, P] | None)``.
 
@@ -360,7 +298,7 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
             adj.data_ptr(), None if val is None else val.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             B, P, h, f, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_mask_fwd", lib)
+    _cuda.raise_on(err, "flash_mask_fwd")
     global LAUNCHES
     LAUNCHES += 1
     return out, lse
@@ -400,7 +338,7 @@ def flash_mask_bwd(q, k, v, adj, val, out, lse, do):
             lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, P, h, f, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_mask_bwd", lib)
+    _cuda.raise_on(err, "flash_mask_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return dq, dk, dv
@@ -436,7 +374,7 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
             adj.data_ptr(), None if val is None else val.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, P, h, f, slope,
             *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_add_fwd", lib)
+    _cuda.raise_on(err, "flash_add_fwd")
     global ADD_LAUNCHES
     ADD_LAUNCHES += 1
     return out, lse
@@ -483,7 +421,7 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
             delta.data_ptr(), do.data_ptr(), der.data_ptr(), dec.data_ptr(), dv.data_ptr(),
             B, P, h, f, slope, *_dropout_args(seed, rate),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_add_bwd", lib)
+    _cuda.raise_on(err, "flash_add_bwd")
     global ADD_BWD_LAUNCHES
     ADD_BWD_LAUNCHES += 1
     return der.to(e_dtypes[0]), dec.to(e_dtypes[1]), dv
@@ -714,7 +652,7 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
             _DTYPE_CODES[x.dtype], x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(),
             bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), adj.data_ptr(), out.data_ptr(),
             B, P, h, din, f, float(scale), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_layer_dot_fwd", lib)
+    _cuda.raise_on(err, "flash_layer_dot_fwd")
     global LAYER_LAUNCHES
     LAYER_LAUNCHES += 1
     return out
@@ -748,7 +686,7 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
             _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), al.data_ptr(),
             ar.data_ptr(), adj.data_ptr(), out.data_ptr(), B, P, h, din, f, float(slope),
             *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "flash_layer_add_fwd", lib)
+    _cuda.raise_on(err, "flash_layer_add_fwd")
     global LAYER_ADD_LAUNCHES
     LAYER_ADD_LAUNCHES += 1
     return out

@@ -6,9 +6,11 @@ PATTERN-like batch of SBM graphs with noisy one-hot features: the fused
 side is ``FullGraphNet`` through ``impl="flash"`` on a :class:`DenseBatch`
 (the flash kernels on the card), or in bf16 through its auto route (the
 whole-layer kernels for GAT), the unfused side the same model in fp32
-through the segment-op oracle on the block-diagonal :class:`Graph`.  Same
-init, data and Adam (optax's defaults), so the gap isolates the kernels'
-numerics.
+through the segment-op oracle on the block-diagonal :class:`Graph`.
+:func:`run_parity_full` does so on one SBM full graph (or a real dataset),
+the fused side on its bucketed training layout (the bucket path's custom
+backward).  Same init, data and Adam (optax's defaults), so the gap
+isolates the fused path's numerics.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import functools
 import numpy as np
 import torch
 
-from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+from dfgnn_tpu_torch import formats
+from dfgnn_tpu_torch.data.synthetic import pattern_like_batch, sbm_graph
 from dfgnn_tpu_torch.device import resolve_device
-from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.graph import DenseBatch, Graph
 from dfgnn_tpu_torch.models import FullGraphNet
 from dfgnn_tpu_torch.ops import flash_mask
 from dfgnn_tpu_torch.train.loop import TrainState, evaluate_accuracy, make_loss_fn, train_step
@@ -35,12 +38,13 @@ def _noisy_onehot(rng, block, n_classes: int, noise: float = 0.3):
     return np.eye(n_classes, dtype=np.float32)[lab]
 
 
-def _train(model, g, x, y, mask, steps: int, lr: float, impl, device):
+def _train(model, g, x, y, mask, steps: int, lr: float, impl, device, n_classes: int = 2):
     """Adam steps; per step the loss and the kernel launches: the attention
     forward (#1 and #2), backward (#3 and #4) and whole-layer (#5 and #6)
     kernels, dot and add summed."""
     state = TrainState.create(model, lr=lr, device=device)
-    loss_fn = functools.partial(make_loss_fn(model, "node_classification", 2), impl=impl)
+    loss_fn = functools.partial(make_loss_fn(model, "node_classification", n_classes),
+                                impl=impl)
     seen = []
     for _ in range(steps):
         before = flash_mask.launch_counts()
@@ -110,8 +114,55 @@ def run_parity_batched(seed: int = 0, n_graphs: int = 32, hidden: int = 32, laye
             "fused_steps": fused_steps}
 
 
-def run_parity_full(*args, **kwargs) -> dict:
-    """Full-graph parity runs the bucketed layout, which is not ported yet."""
-    raise NotImplementedError(
-        "full-graph parity needs the bucketed full-graph path (BucketedGraph, "
-        "ops/bucket.py), which is not ported yet: ROADMAP.md queue 1 item 7")
+def run_parity_full(seed: int = 0, n: int = 2000, n_blocks: int = 4, avg_deg: float = 20.0,
+                    hidden: int = 32, layers: int = 2, steps: int = 120, lr: float = 1e-2,
+                    conv: str = "gt", noise: float = 0.3, dataset=None,
+                    device="cuda") -> dict:
+    """Full-graph node classification: the bucket path against the oracle.
+
+    An SBM graph of ``n`` nodes in ``n_blocks`` blocks with noisy one-hot
+    features and a random half of the nodes for training, drawn from
+    ``np.random.default_rng(seed)`` in the JAX harness's order; or a real
+    ``dataset`` (a non-synthetic :class:`FullGraphDataset`) with its
+    features and labels.  The fused side trains on
+    ``preprocess("bucketed_train", g, split_width=64)`` through ``auto``
+    (the bucket path and its custom backward), the unfused side on the
+    Graph through the oracle; the weights are drawn from
+    ``torch.Generator().manual_seed(seed)``.  Returns the accuracies on the
+    other half, their gap, the majority baseline and the fused losses.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    if dataset is not None and not dataset.synthetic:
+        rows, cols, n = dataset.rows, dataset.cols, dataset.n_nodes
+        x = np.asarray(dataset.features, dtype=np.float32)
+        y = np.asarray(dataset.labels, dtype=np.int64)
+        n_classes = int(y.max()) + 1
+        name = dataset.name
+    else:
+        rows, cols, block = sbm_graph(rng, n, n_blocks=n_blocks, avg_deg=avg_deg)
+        x = _noisy_onehot(rng, block, n_blocks, noise)
+        y = block.astype(np.int64)
+        n_classes = n_blocks
+        name = "full-SBM"
+    train_mask = (rng.random(n) < 0.5).astype(np.float32)
+    test_mask = 1.0 - train_mask
+
+    g = Graph.from_coo(rows, cols, n, device=dev)
+    bg = formats.preprocess("bucketed_train", g, split_width=64)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    train_m, test_m = torch.from_numpy(train_mask).to(dev), torch.from_numpy(test_mask).to(dev)
+    kw = dict(conv=conv, num_classes=n_classes, hidden_size=hidden, num_layers=layers,
+              in_size=x.shape[1], device=dev)
+    model = FullGraphNet(**kw, generator=torch.Generator().manual_seed(seed))
+    model_ref = FullGraphNet(**kw, generator=torch.Generator().manual_seed(seed))
+    model_ref.load_state_dict(model.state_dict())
+    fused_steps = _train(model, bg, xt, yt, train_m, steps, lr, None, dev, n_classes)
+    _train(model_ref, g, xt, yt, train_m, steps, lr, "reference", dev, n_classes)
+    acc_f = _accuracy(model, bg, xt, yt, test_m, None)
+    acc_u = _accuracy(model_ref, g, xt, yt, test_m, "reference")
+    counts = np.bincount(y[test_mask.astype(bool)], minlength=n_classes)
+    base = float(counts.max() / max(counts.sum(), 1))
+    return {"task": name, "acc_fused": acc_f, "acc_unfused": acc_u,
+            "gap": abs(acc_f - acc_u), "majority_baseline": base,
+            "fused_steps": fused_steps}

@@ -9,12 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from dfgnn_tpu_torch import DenseBatch, GTModel
+from dfgnn_tpu_torch import DenseBatch, GTModel, formats
+from dfgnn_tpu_torch.graph import Graph
 from dfgnn_tpu_torch.data.collate import collate_dense
 from dfgnn_tpu_torch.data.datasets import load_batched
 from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
 from dfgnn_tpu_torch.models import make_conv
-from dfgnn_tpu_torch.ops import dense_block, flash_mask
+from dfgnn_tpu_torch.ops import dense_block, flash_mask, gather, graph_attention
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 
 pytestmark = pytest.mark.gpu
@@ -460,3 +461,82 @@ def test_bf16_gat_auto_runs_kernel_six(cuda):
     assert out.dtype == torch.bfloat16
     err = float((out.float() - want).abs().max()) / float(want.abs().max())
     assert err < 5e-2, err
+
+
+GATHER_CASES = [  # (table rows, row shape, dtype, rows gathered, chunk, lookahead)
+    (1 << 18, (128,), torch.float32, 1 << 20, 512, 15),   # the probe's main shape
+    (5000, (256,), torch.float32, 12345, 256, 7),         # 1 KB rows, M not a chunk multiple
+    (5000, (2, 64), torch.bfloat16, 777, 1024, 31),       # bf16, fewer rows than a chunk
+    (64, (4,), torch.float32, 3, 512, 7),                  # 16-byte rows
+    (64, (1024,), torch.float32, 100, 8, 7),               # 4 KB rows: pieces past a block
+]
+
+
+@pytest.mark.parametrize("N,shape,dtype,M,chunk,la", GATHER_CASES)
+def test_gather_rows_kernel_equals_plain(cuda, N, shape, dtype, M, chunk, la):
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    tbl = torch.randn((N, *shape), device=cuda, generator=gen).to(dtype)
+    idx = torch.randint(0, N, (M,), device=cuda, generator=gen, dtype=torch.int32)
+    gather.reset_launch_counts()
+    out = gather.gather_rows(tbl, idx, chunk=chunk, lookahead=la)
+    torch.cuda.synchronize()
+    assert gather.launch_counts() == (1, 0)
+    assert torch.equal(out, gather.gather_rows_plain(tbl, idx))
+
+
+@pytest.mark.parametrize("S,f", [(512, 128), (1024, 128), (4096, 128), (300, 12), (7, 64)])
+def test_take_rows_kernel_equals_plain(cuda, S, f):
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    slab = torch.randn((S, f), device=cuda, generator=gen)
+    idx = torch.randint(-2 * S, 2 * S, (70001,), device=cuda, generator=gen, dtype=torch.int32)
+    gather.reset_launch_counts()
+    out = gather.take_rows(slab, idx)
+    torch.cuda.synchronize()
+    assert gather.launch_counts() == (0, 1)
+    assert torch.equal(out, gather.take_rows_plain(slab, idx))
+
+
+def test_gather_kernels_refuse_what_they_do_not_take(cuda):
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        gather.gather_rows(torch.zeros((8, 3), device=cuda), ids)
+    with pytest.raises(ValueError, match="lookahead"):
+        gather.gather_rows(torch.zeros((8, 4), device=cuda), ids, lookahead=3)
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_rows(torch.zeros((8, 4), device=cuda), ids.long())
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        gather.take_rows(torch.zeros((20000, 4), device=cuda), ids)
+
+
+def _bucket_case(device):
+    rng = np.random.default_rng(5)
+    n = 3000
+    rows = np.repeat(np.arange(n), rng.integers(0, 40, n))
+    rows = np.concatenate([rows, np.full(700, 11)])  # one row past the segment split
+    cols = rng.integers(0, n, rows.size)
+    g = Graph.from_coo(rows, cols, n, device=device)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+    return g, t(n, 2, 32), t(n, 2, 32), t(n, 2, 32), t(n, 2), t(n, 2), t(n, 2, 32)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_bucket_path_on_card_matches_cpu(cuda, blocked):
+    """The bucket forward and its custom backward, with dropout, on the card
+    against the same torch ops on the CPU."""
+    results = []
+    for dev in ("cpu", cuda):
+        g, q, k, v, er, ec, do = _bucket_case(dev)
+        bg = formats.build_buckets(g, with_transpose=True,
+                                   src_block_rows=1024 if blocked else None)
+        res = []
+        for score in ("dot", "add"):
+            ins = [t.clone().requires_grad_(True) for t in ((q, k, v) if score == "dot"
+                                                              else (er, ec, v))]
+            kw = dict(e_row=ins[0], e_col=ins[1]) if score == "add" else {}
+            qk = ins[:2] if score == "dot" else (None, None)
+            out = graph_attention(bg, *qk, ins[2], score=score, dropout_rate=0.3,
+                                  dropout_generator=torch.Generator().manual_seed(3), **kw)
+            res += [out, *torch.autograd.grad(out, ins, do)]
+        results.append([r.detach().cpu() for r in res])
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -137,8 +137,12 @@ def test_package_imports_no_jax():
             "dfgnn_tpu_torch.scripts.train_gtconv, dfgnn_tpu_torch.scripts.profile_train_step, "
             "dfgnn_tpu_torch.scripts.train_parity, dfgnn_tpu_torch.scripts.test_batch_graph, "
             "dfgnn_tpu_torch.ops.reference, dfgnn_tpu_torch.ops.edge_dropout, "
-            "dfgnn_tpu_torch.train.parity, dfgnn_tpu_torch.scripts.shmoo\n"
+            "dfgnn_tpu_torch.train.parity, dfgnn_tpu_torch.scripts.shmoo, "
+            "dfgnn_tpu_torch.formats, dfgnn_tpu_torch.ops.bucket, dfgnn_tpu_torch.ops.gather, "
+            "dfgnn_tpu_torch.scripts.test_full_graph, dfgnn_tpu_torch.scripts.train_gatconv, "
+            "dfgnn_tpu_torch.scripts.microbench_gather\n"
             "assert 'yaml' not in sys.modules and 'sklearn' not in sys.modules\n"
+            "assert 'scipy' not in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dfgnn_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
