@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from ``dfgnn_tpu_torch/csrc/`` and holds each
 against its plain PyTorch version on the card: the flash-attention forward
-(kernel #1) and backward (#3) of the dot score, the forward (#2) and
+(kernel #1) and backward (#3) of the dot score (also at the main path's own
+inputs, the GT step's ogbg-molhiv batch and the PATTERN serving batch, and
+with dropout, at an odd head dim and with empty graphs), the forward (#2) and
 backward (#4) of the additive (GAT) score, with and without dropout and with
 fp32 scores beside a bf16 v, and the whole-layer kernels of GT (#5) and GAT
 (#6, with and without dropout, and against the decomposed path with the
@@ -22,7 +24,8 @@ six launch counts set to 0 just before it and read just after:
   launches a step; 3 Adam steps through ``auto`` and through
   ``flash_fused`` (8 + 8 + 8 launches of #5, #1, #3 a step) held against
   ``method="dense"``; ``--checkgrad`` against the segment-op oracle; a train
-  step's time and peak memory;
+  step's time and peak memory, and its breakdown by the
+  ``profile_train_step`` twin;
 - GAT serving: the twin ``dfgnn_tpu_torch.scripts.test_batch_graph`` at the
   reference's setting (PATTERN, bs=1024, dim 128, 1 head, every format
   checked against the oracle), one kernel #2 launch per flash forward;
@@ -130,6 +133,7 @@ TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", st
 EPOCHS, STEPS_PER_EPOCH, TRAJECTORY_STEPS = 2, 8, 3
 # H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 
 
 def max_err(got, want, tol):
@@ -153,16 +157,6 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bytes(B, h, P, f, itemsize):
-    """Bytes the dot-score forward and backward must move, each input read
-    once and each output written once: the forward reads q, k, v, adj and
-    writes out, lse; the backward reads q, k, v, out (for delta), dO, adj,
-    lse and writes dq, dk, dv."""
-    feat = B * P * h * f * itemsize
-    rows = h * B * P * 4
-    return 4 * feat + B * P * P + rows, 8 * feat + B * P * P + rows
-
-
 def add_bytes(B, h, P, f, itemsize):
     """The same for the additive score: the forward reads e_row, e_col, v,
     adj and writes out, lse; the backward reads e_row, e_col, v, out (for
@@ -171,6 +165,28 @@ def add_bytes(B, h, P, f, itemsize):
     scal = B * P * h * itemsize
     rows = h * B * P * 4
     return 2 * scal + 2 * feat + B * P * P + rows, 4 * scal + 4 * feat + B * P * P + rows
+
+
+def padded_attention_bound(n_products, adj, h, f, itemsize, backward, flops=FP32_FLOPS):
+    """(bound_ms, bound_by, edges) of kernel #1 (``backward`` False: q.k^T
+    and ex.v) or #3 (s, dp, dq, dk, dv) on these inputs, counting what they
+    need: the products on the edges only; the feature rows that hold an edge
+    (q, and for #3 dO and out for delta, of rows with an edge; k, v of keys
+    with an edge), adj, and the full outputs (out and lse; dq, dk, dv, with
+    lse and delta read).  On padded batches this is the byte count of the
+    guide's rule, so no share reads over 100%."""
+    B, P, _ = adj.shape
+    edges = int(adj.sum())
+    rows = int((adj.sum(-1) > 0).sum())
+    keys = int((adj.sum(-2) > 0).sum())
+    row_b = h * f * itemsize
+    if backward:
+        nbytes = (3 * rows + 2 * keys) * row_b + B * P * P + 2 * h * B * P * 4 + 3 * B * P * row_b
+    else:
+        nbytes = (rows + 2 * keys) * row_b + B * P * P + B * P * row_b + h * B * P * 4
+    t_ops = n_products * 2 * edges * h * f / flops * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", edges) if t_ops >= t_bytes else (t_bytes, "bytes", edges)
 
 
 def attention_bound(n_products, adj, h, f, nbytes):
@@ -240,13 +256,13 @@ def main() -> int:
 
     from dfgnn_tpu_torch import DenseBatch, GTModel
     from dfgnn_tpu_torch.models import FullGraphNet, Model, make_conv
-    from dfgnn_tpu_torch.data.collate import batch_iterator
+    from dfgnn_tpu_torch.data.collate import batch_iterator, collate_dense
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import _cuda, flash_mask, gather
-    from dfgnn_tpu_torch.scripts import (microbench_gather, shmoo, test_batch_graph,
-                                         test_full_graph, train_gatconv, train_gtconv,
-                                         train_parity)
+    from dfgnn_tpu_torch.scripts import (microbench_gather, profile_train_step, shmoo,
+                                         test_batch_graph, test_full_graph, train_gatconv,
+                                         train_gtconv, train_parity)
     from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
     from dfgnn_tpu_torch import formats
     from dfgnn_tpu_torch.data.datasets import load_full_graph
@@ -282,6 +298,14 @@ def main() -> int:
                              attention_inputs(np.random.default_rng(seed), B, h, P, f))
         return q.to(dtype), k.to(dtype), v.to(dtype), adj, val if with_val else None
 
+    def kept(adj, h, rate):
+        if rate == 0.0:
+            return ""
+        B, P, _ = adj.shape
+        keep = flash_mask.dropout_factor(DROP_SEED, rate, B, h, P, adj.device) != 0
+        frac = float(keep[adj[:, None].bool().expand_as(keep)].float().mean())
+        return f"; kept {frac:.4f} of the edges (rate {rate})"
+
     fwd_rec = {"name": "flash_mask_fwd", "route": "cuda",
                "source": "dfgnn_tpu_torch/csrc/flash_mask_fwd.cu",
                "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:160"}
@@ -301,6 +325,15 @@ def main() -> int:
         print(f"  bound on these inputs ({int(adj.sum())} edges of {adj.numel()} block "
               f"entries; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): {bound_ms:.4f} ms "
               f"({bound_by}); over every entry of the dense [P, P] blocks {dense_ms:.4f} ms")
+
+    def set_dot_bound(rec, adj, h, f, backward):
+        """#1 and #3: the bound of padded_attention_bound (rows with an edge)."""
+        bound_ms, bound_by, edges = padded_attention_bound(5 if backward else 2, adj, h, f, 4,
+                                                           backward)
+        rec.update(bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  bound on these inputs ({edges} edges; the rows that hold an edge, adj and "
+              f"the full outputs; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): "
+              f"{bound_ms:.4f} ms ({bound_by})")
 
     # 3. kernel #1 against its plain version
     for i, (B, h, P, f, with_val, dtype) in enumerate(KERNEL_SHAPES):
@@ -327,7 +360,7 @@ def main() -> int:
                     qh, kh, vh, attn_mask=mask, scale=1.0))[1]
                 print(f"  library: scaled_dot_product_attention forward, boolean mask, "
                       f"{lib_ms:.4f} ms")
-                set_bound(fwd_rec, 2, adj, h, f, attention_bytes(B, h, P, f, 4)[0])
+                set_dot_bound(fwd_rec, adj, h, f, backward=False)
                 fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     phase_done("3 kernel #1")
@@ -369,10 +402,104 @@ def main() -> int:
                 lib_ms = lib_both - lib_fwd
                 print(f"  library: scaled_dot_product_attention backward, boolean mask, timed "
                       f"as (fwd+bwd) - fwd = {lib_both:.4f} - {lib_fwd:.4f} = {lib_ms:.4f} ms")
-                set_bound(bwd_rec, 5, adj, h, f, attention_bytes(B, h, P, f, 4)[1])
+                set_dot_bound(bwd_rec, adj, h, f, backward=True)
                 bwd_rec.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
     phase_done("4 kernel #3")
+
+    # 4b. kernels #1 and #3 at the main path's own inputs (the adjacency of
+    #     the GT step's ogbg-molhiv bs=1024 batch and of the PATTERN bs=1024
+    #     serving batch, seeded q, k, v at f=128), then at the table's shape
+    #     with dropout 0.4, at an odd head dim (f=75, no 16-byte rows) and on
+    #     a batch whose every fourth graph is empty: each held against its
+    #     plain version and timed in turns, SDPA beside the main inputs
+    molhiv = load_batched("ogbg-molhiv", n_graphs=BATCH, quiet=True)
+    molhiv_adj = collate_dense(molhiv, np.arange(BATCH), np_pad=NP_PAD, device="cuda")[0].adj
+    pattern_adj = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(np.random.default_rng(0), BATCH)],
+        np_pad=NP_PAD).adj
+
+    def dot_case(name, adj, f, dtype, rate=0.0, seed=0, time_it=True, sdpa=False):
+        B, P, _ = adj.shape
+        rng = np.random.default_rng(seed)
+        feats = lambda: torch.from_numpy(rng.standard_normal((B, P, 1, f))
+                                         .astype(np.float32)).cuda()
+        q, k, v, do = feats() * f ** -0.5, feats(), feats(), feats()
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        kw = dict(seed=DROP_SEED, rate=rate)
+        out, lse = flash_mask.flash_mask_fwd(q, k, v, adj, want_lse=True, **kw)
+        got = flash_mask.flash_mask_bwd(q, k, v, adj, None, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want_out, want_lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, **kw)
+        want = flash_mask.flash_mask_bwd_plain(q, k, v, adj, None, lse, do,
+                                               flash_mask.bwd_delta(do, out), **kw)
+        fp32 = dtype == torch.float32
+        e_out = max_err(out, want_out, FP32_TOL if fp32 else BF16_TOL)
+        e_lse = max_err(lse, want_lse, FP32_TOL)
+        tols = [BWD_FP32_TOL if fp32 else bwd_bf16_tol(w) for w in want]
+        errs = [max_err(g, w, t) for g, w, t in zip(got, want, tols)]
+        empty = adj.sum(-1) == 0
+        if bool(empty.any()) and not (bool((out[empty] == 0).all())
+                                      and bool((lse[0][empty] == flash_mask.NEG_BIG).all())
+                                      and bool((got[0][empty] == 0).all())):
+            raise AssertionError(f"{name}: rows without an edge must give out = 0, "
+                                 f"lse = -1e30 and dq = 0")
+        line = (f"#1/#3 {name}: B={B} P={P} f={f} {dtype} rate={rate}, {int(adj.sum())} edges, "
+                f"{int(empty.sum())} rows without an edge: max abs err out {e_out:.3e}, lse "
+                f"{e_lse:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}")
+        if fp32:  # how far the kernel and the fp32 plain version are from exact
+            d = lambda t: t.double()
+            exact = flash_mask.flash_mask_bwd_plain(
+                d(q), d(k), d(v), adj, None, d(lse), d(do),
+                flash_mask.bwd_delta(d(do), d(out)), **kw)[0]
+            line += (f"; dq against the plain version evaluated in fp64: kernel "
+                     f"{float((got[0].double() - exact).abs().max()):.3e}, fp32 plain "
+                     f"{float((want[0].double() - exact).abs().max()):.3e}")
+            del exact
+        print(line + kept(adj, 1, rate))
+        if not time_it:
+            return
+        fwd_ms, fwd_plain = in_turns(
+            benchmark, lambda: flash_mask.flash_mask_fwd_plain(q, k, v, adj, **kw),
+            lambda: flash_mask.flash_mask_fwd(q, k, v, adj, **kw))
+        bwd_ms, bwd_plain = in_turns(
+            benchmark, lambda: flash_mask.flash_mask_bwd_plain(
+                q, k, v, adj, None, lse, do, flash_mask.bwd_delta(do, out), **kw),
+            lambda: flash_mask.flash_mask_bwd(q, k, v, adj, None, out, lse, do, **kw))
+        item = 4 if fp32 else 2
+        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        bf = padded_attention_bound(2, adj, 1, f, item, False, peak)
+        bb = padded_attention_bound(5, adj, 1, f, item, True, peak)
+        msg = (f"  {name} ({smi}): #1 {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound "
+               f"{bf[0]:.4f} {bf[1]}), #3 {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound "
+               f"{bb[0]:.4f} {bb[1]}; both include delta)")
+        if sdpa:
+            mask = adj[:, None].bool()
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            run = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=1.0)
+            lib_fwd = benchmark(run)[1]
+            lib_both = benchmark(lambda: torch.autograd.grad(run(), (qg, kg, vg),
+                                                             do.transpose(1, 2)))[1]
+            msg += (f"; SDPA forward {lib_fwd:.4f} ms, backward (fwd+bwd - fwd) "
+                    f"{lib_both - lib_fwd:.4f} ms")
+        print(msg)
+
+    for name, adj in (("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj),
+                      ("PATTERN bs=1024 (the serving batch)", pattern_adj)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dot_case(name, adj, HIDDEN, dtype, seed=3, sdpa=dtype == torch.float32)
+    table_adj = inputs(0, *MAIN_SHAPE, False, torch.float32)[3]
+    dot_case("table shape, dropout", table_adj, 128, torch.float32, rate=0.4, seed=4)
+    dot_case("table shape, dropout", table_adj, 128, torch.bfloat16, rate=0.4, seed=4,
+             time_it=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        dot_case("table shape, odd head dim", table_adj, 75, dtype, seed=5,
+                 time_it=dtype == torch.float32)
+    holes = table_adj.clone()
+    holes[::4] = 0
+    dot_case("table shape, every fourth graph empty", holes, 128, torch.float32, seed=6)
+    del molhiv, molhiv_adj, pattern_adj, table_adj, holes
+    phase_done("4b kernels #1 and #3 at the main path's inputs")
 
     # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
     model = GTModel("PATTERN", out_size=2, hidden_size=HIDDEN, num_layers=LAYERS, num_heads=1,
@@ -554,6 +681,12 @@ def main() -> int:
     del model, state, steps, batches
     phase_done("9 GT train step time")
 
+    # 9b. where a GT step's device time goes: the profile_train_step twin's
+    #     breakdown by kernel group, through auto and through dense
+    for impl in ("auto", "dense"):
+        profile_train_step.main(["--impl", impl])
+    phase_done("9b GT step breakdown")
+
     # 10. kernels #2 and #4 (the additive score) against their plain versions,
     #     without and with dropout: the kernel and the plain version draw the
     #     same hash mask, so the fp32 bars hold with dropout too
@@ -570,14 +703,6 @@ def main() -> int:
         e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32))
                         .cuda().to(dtype) for _ in range(2))
         return e_row, e_col, v, adj, val
-
-    def kept(adj, h, rate):
-        if rate == 0.0:
-            return ""
-        B, P, _ = adj.shape
-        keep = flash_mask.dropout_factor(DROP_SEED, rate, B, h, P, adj.device) != 0
-        frac = float(keep[adj[:, None].bool().expand_as(keep)].float().mean())
-        return f"; kept {frac:.4f} of the edges (rate {rate})"
 
     def masked_leaky(e_row, e_col, adj):
         """The float attn_mask handed to SDPA, built outside the timed call:

@@ -1,4 +1,5 @@
-// Masked dense graph-attention backward for Hopper (sm_90a), hand-written CUDA.
+// Masked dense graph-attention backward for Hopper (sm_90a), hand-written CUDA
+// on the tensor cores.
 //
 // Replaces dfgnn_tpu/ops/pallas/flash_mask.py::_bwd_kernel_dot (:256), driven
 // there by _bwd (:317).  For every graph b and head h of a DenseBatch, from
@@ -7,372 +8,741 @@
 // the wrapper, as _bwd computes it outside its kernel):
 //   s  = q . k^T, times val[b] when edge values are given
 //   p  = adj[b] ? exp(s - lse) : 0        empty rows (lse = -1e30) give p = 0
-//   dp = dO . v^T
+//   dp = (dO . v^T) * keep, pn = p * keep  (keep: the forward's dropout factor)
 //   ds = p * (dp - delta), times val[b]   (val is a constant: no d val)
-//   dq = ds . k      dk = ds^T . q      dv = p^T . dO
-// ds and p are rounded to the input type before the three products, as the
-// Pallas kernel casts them (.astype(k.dtype) / .astype(do.dtype)).  fp32 or
-// bf16 inputs and outputs, layout [B, P, h, f] read through strides; fp32
-// arithmetic.
+//   dq = ds . k      dk = ds^T . q      dv = pn^T . dO
+// ds and pn are rounded to the input type before the three products, as the
+// Pallas kernel casts them (.astype(k.dtype) / .astype(do.dtype)).  keep is
+// regenerated from the seed with the hash of flash_common.cuh, as kernel #4
+// does.  fp32 or bf16, layout [B, P, h, f] with any f from 1 to 256 (tiles
+// zero past f up to the instantiated width FI, as in flash_mask_fwd.cu).
 //
-// What bounds it on an H100 SXM (data-sheet peaks): the function needs its 5
-// products only on the edges, 10*f operations per edge and head.  At the
-// main shape (B=1024, h=1, P=128, f=128, fp32) with a fifth of the block
-// entries edges, as chip_smoke.py's inputs have, that is 4.5 GFLOP, 0.07 ms at
-// 67 TFLOP/s of fp32 on the CUDA cores, against 554 MB of q, k, v, out (for
-// delta), dO, adj, lse read and dq, dk, dv written, 0.165 ms at 3.35 TB/s:
-// device memory bounds the function.  This kernel computes every entry of
-// the dense [P, P] blocks, 5 products of 4.3 GFLOP (0.32 ms), so the work
-// sets its pace.  fp32 parity
-// (rtol 1e-4 against the plain version) rules out TF32 tensor cores, so the
-// products are fp32 FMAs fed from shared memory, as in flash_mask_fwd.cu.
+// What bounds it on an H100 SXM (data-sheet peaks): at the table's shape
+// (B=1024, h=1, P=128, f=128, fp32) the bytes of q, k, v, out (for delta),
+// dO, adj, lse read and dq, dk, dv written take 0.165 ms at 3.35 TB/s; the
+// dense blocks' 5 products of 4.3 GFLOP take 0.13 ms as 3xTF32 on the tensor
+// cores: device memory bounds it, once the products run on the tensor cores
+// and padding is skipped.
 //
-// Design.  The Pallas kernel holds G whole graphs and twelve [P, P] fp32
-// temporaries in 16 MB of VMEM; one (graph, head) pair at P=128, f=128 needs
-// 256 KB for q, k, v and dO alone, more than a block's 227 KB.  Blocks run in
-// no order, so a sum over one axis cannot be carried from block to block.
-// Two launches, deterministic, without atomics:
-//   (a) flash_mask_bwd_rows: a block per kRows query rows of one (graph,
-//       head).  It streams K tiles to rebuild s and p for its rows (kept in
-//       shared memory as [kRows, P]), streams V tiles to rebuild dp and turn
-//       p into ds in place, then streams K again for dq = ds . K.
-//   (b) flash_mask_bwd_cols: a block per kKeys key rows.  It keeps those K
-//       and V rows, streams Q and dO tiles of kQRows rows to rebuild s, dp,
-//       p and ds for its columns, and accumulates dk = ds^T . Q and
-//       dv = p^T . dO in registers.
-// Both passes rebuild s and dp, so they do 7 products where the bound counts
-// 5.  Both sum s and dp over f in the same order, so p and ds agree bit for
-// bit between the passes.
+// Design (tile helpers and the reason for mma.sync in flash_mma.cuh):
+// - whole (P <= 128, FI <= 128: the main path), flash_mask_bwd_whole: one
+//   block of 8 warps per (graph, head) owns every row and every key, so it
+//   forms s, p, dp and ds once and writes dq, dk and dv with no sum across
+//   blocks: 5 products, deterministic, no atomics.  K and V stay resident
+//   (cp.async, rows of live key groups only); Q and dO stream in 16-row
+//   tiles through a two-stage cp.async ring.  Per tile: warp w forms s and
+//   dp for key group w (16 keys) and writes ds and pn to shared memory; the
+//   warps then split dq = ds . K by feature columns, and warp w accumulates
+//   dk and dv of its 16 keys in registers (ds^T . Q, pn^T . dO).  Shared
+//   memory in fp32 at FI = 128: K 67.6 KB, V 67.6 KB, Q and dO rings 33.8 KB,
+//   ds and pn 16.9 KB, the dq tile 8.4 KB and adj's edge bits 2 KB (196 KB,
+//   one block an SM).  Outputs leave through shared memory, 16 bytes a
+//   thread (store_tile).
+// - stream (128 < P <= 2048, or FI = 256): two launches, deterministic,
+//   without atomics.  flash_mask_bwd_rows: a block per 64 query rows walks
+//   key tiles (64 keys; 32 at FI = 256) and accumulates dq = ds . K.
+//   flash_mask_bwd_cols: a block per 64 keys walks query tiles of 32 rows,
+//   forms s^T and dp^T directly (K . Q^T, V . dO^T) and accumulates dk and dv.
+//   Both rebuild s and dp: 7 products.  At FI = 256 the column pass runs
+//   twice, once for dk and once for dv, so each keeps one [16, 256]
+//   accumulator a warp in registers.
+// - Padding skipped, exactly, from adj itself (scan_adj): a 16-row query
+//   tile with no edge writes dq = 0 and is never loaded; a 16-key group with
+//   no edge in a tile is skipped by the warp that owns it, and keys with no
+//   edge at all get dk = dv = 0.  p is exactly 0 off the edges.
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;    // (a): query rows of one (graph, head) per block
-constexpr int kCols = 64;    // (a): key / value rows per streamed tile
-constexpr int kKeys = 16;    // (b): key rows of one (graph, head) per block
-constexpr int kQRows = 64;   // (b): query / dO rows per streamed tile
-constexpr int kPS = kKeys + 1;  // (b): row stride of the p and ds tiles (no bank conflicts)
-constexpr int kMaxP = 2048;  // (a)'s [kRows, P] rows must fit shared memory
+constexpr int kMaxP = 2048;
 
-template <int F>
-size_t rows_smem_bytes(int P) {
-  return sizeof(float) * (size_t(kRows) * F + size_t(kCols) * (F + 1) + size_t(kRows) * P +
-                          2 * kRows);
+// ds and pn of one score element from the raw products s and dp.
+__device__ __forceinline__ void grad_elem(float s, float dp, bool edge, float vv, bool has_val,
+                                          float lse, float delta, float keep, float& ds,
+                                          float& pn) {
+  ds = pn = 0.f;
+  if (!edge) return;
+  const float p = expf((has_val ? s * vv : s) - lse);
+  ds = p * (dp * keep - delta);
+  if (has_val) ds *= vv;
+  pn = p * keep;
 }
 
-template <int F>
-size_t cols_smem_bytes() {
-  return sizeof(float) * (2 * kKeys * F + 2 * kQRows * (F + 1) + 2 * kQRows * kPS + 2 * kQRows);
+// ---------------------------------------------------------------------------
+// whole: P <= 128, FI <= 128
+// ---------------------------------------------------------------------------
+
+template <typename T, int FI>
+struct WholeCfg {
+  static constexpr int kThreads = 256, kKeys = 128, kRT = 16;
+  static constexpr int ld = FI + pad_rm<T>();       // K, V, Q and dO rows
+  static constexpr int ldd = kKeys + pad_rm<T>();   // ds and pn rows
+  static constexpr size_t kv_elems = size_t(kKeys) * ld;
+  static constexpr size_t ring_elems = size_t(2) * kRT * ld;
+  static constexpr size_t d_elems = size_t(kRT) * ldd;
+  static constexpr size_t dq_elems = size_t(kRT) * ld;
+  static constexpr int kBitWords = kKeys * (kKeys / kGroup);  // adj's edge bits
+  static constexpr size_t bytes =
+      sizeof(T) * (2 * kv_elems + 2 * ring_elems + 2 * d_elems + dq_elems) +
+      sizeof(uint32_t) * 8 + sizeof(uint16_t) * kBitWords;
+};
+
+template <typename T, int FI>
+__global__ void __launch_bounds__(256)
+flash_mask_bwd_whole(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const uint8_t* __restrict__ adj, const float* __restrict__ val,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, int B, int P, int H, int f, int vec, Dropout drop) {
+  using C = WholeCfg<T, FI>;
+  constexpr int NTO = FI / 8;
+  constexpr int NPW = NTO >= 8 ? NTO / 8 : 1;  // dq n-tiles a warp
+  constexpr int KS = kstep<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [128][ld]
+  T* vs = ks + C::kv_elems;                // [128][ld]
+  T* qr = vs + C::kv_elems;                // [2][16][ld]
+  T* dr = qr + C::ring_elems;              // [2][16][ld]
+  T* dss = dr + C::ring_elems;             // [16][ldd]: ds of the tile
+  T* pns = dss + C::d_elems;               // [16][ldd]: pn of the tile
+  T* dqs = pns + C::d_elems;               // [16][ld]: dq of the tile
+  uint32_t* flags = reinterpret_cast<uint32_t*>(dqs + C::dq_elems);  // [8]: 16-key groups a row tile
+  uint16_t* rbits = reinterpret_cast<uint16_t*>(flags + 8);          // [128][n_rt]: edge bits
+
+  const int hh = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long row_stride = long(H) * f;
+  const long base = (long(b) * P * H + hh) * f;
+  const uint8_t* adj_b = adj + long(b) * P * P;
+  const float* val_b = val ? val + long(b) * P * P : nullptr;
+  const long row_off = (long(hh) * B + b) * P;
+  const int n_rt = (P + C::kRT - 1) / C::kRT;
+
+  if (tid < 8) flags[tid] = 0u;
+  __syncthreads();
+  scan_adj(adj_b, P, 0, C::kKeys, 0, n_rt, tid, C::kThreads, flags,
+           [&](int r, int gk, int& w, uint32_t& bit) {
+             w = r / C::kRT;
+             bit = 1u << gk;
+           },
+           [&](int r, int gk, uint32_t bits) { rbits[r * n_rt + gk] = uint16_t(bits); });
+  __syncthreads();
+  uint32_t colmask = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) colmask |= flags[i];
+
+  // dq of row tiles without an edge is 0; so is everything when no edge
+  for (int i = tid; i < P * f; i += C::kThreads) {
+    const int r = i / f;
+    if (flags[r / C::kRT] == 0u) dq[base + long(r) * row_stride + i % f] = from_f32<T>(0.f);
+  }
+  if (colmask == 0u) {
+    for (int i = tid; i < P * f; i += C::kThreads) {
+      const long e = base + long(i / f) * row_stride + i % f;
+      dk[e] = dv[e] = from_f32<T>(0.f);
+    }
+    return;
+  }
+
+  const int kf = (f + KS - 1) / KS * KS;
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  auto next_live = [&](int i) {
+    while (i < n_rt && flags[i] == 0u) ++i;
+    return i;
+  };
+  auto stage_tile = [&](int i, int st) {
+    stage_rows<T, FI>(q, base, row_stride, i * C::kRT, C::kRT, P, f, vec, 1u,
+                      qr + size_t(st) * C::kRT * C::ld, C::ld, tid, C::kThreads);
+    stage_rows<T, FI>(dout, base, row_stride, i * C::kRT, C::kRT, P, f, vec, 1u,
+                      dr + size_t(st) * C::kRT * C::ld, C::ld, tid, C::kThreads);
+  };
+
+  stage_rows<T, FI>(k, base, row_stride, 0, C::kKeys, P, f, vec, colmask, ks, C::ld, tid,
+                    C::kThreads);
+  stage_rows<T, FI>(v, base, row_stride, 0, C::kKeys, P, f, vec, colmask, vs, C::ld, tid,
+                    C::kThreads);
+  int i = next_live(0);
+  stage_tile(i, 0);
+  cp_async_commit();
+
+  float dka[NTO][4], dva[NTO][4];
+  zero_acc(dka);
+  zero_acc(dva);
+  const int key_w = warp * kGroup;  // the warp's first key
+  int st = 0;
+  while (i < n_rt) {
+    const int in = next_live(i + 1);
+    if (in < n_rt) stage_tile(in, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t gm = flags[i];
+    const bool mine = (gm >> warp) & 1u;
+    const T* qt = qr + size_t(st) * C::kRT * C::ld;
+    const T* dt = dr + size_t(st) * C::kRT * C::ld;
+    const int row0 = i * C::kRT;
+
+    // 1. s and dp of the tile's 16 rows against the warp's 16 keys; ds, pn
+    if (mine) {
+      float s[2][4], dp[2][4];
+      zero_acc(s);
+      zero_acc(dp);
+      for (int k0 = 0; k0 < kf; k0 += KS) {
+        mma_step<2, false, true>(s, qt, C::ld, ks + size_t(key_w) * C::ld, C::ld, k0, 0);
+        mma_step<2, false, true>(dp, dt, C::ld, vs + size_t(key_w) * C::ld, C::ld, k0, 0);
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int rr = g + 8 * e2, row = row0 + rr;
+        const float lr = row < P ? lse[row_off + row] : 0.f;
+        const float dl = row < P ? delta[row_off + row] : 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int kc = key_w + jj * 8 + 2 * t + e1;
+            const int e = 2 * e2 + e1;
+            const long ei = long(row) * P + kc;
+            const bool edge = row < P && kc < P &&
+                              ((rbits[row * n_rt + kc / kGroup] >> (kc % kGroup)) & 1u);
+            const float keep = edge && drop.on ? drop.factor(b, P, row, kc, hh) : 1.f;
+            float ds, pn;
+            grad_elem(s[jj][e], dp[jj][e], edge, edge && val_b ? val_b[ei] : 1.f,
+                      val_b != nullptr, lr, dl, keep, ds, pn);
+            dss[rr * C::ldd + kc] = from_f32<T>(ds);
+            pns[rr * C::ldd + kc] = from_f32<T>(pn);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. dq of the tile's rows = ds . K, feature n-tiles split over the
+    //    warps, staged in dqs and stored coalesced
+    {
+      const int n0 = warp * NPW * 8;
+      if (n0 < FI && n0 < f) {
+        float acc[NPW][4];
+        zero_acc(acc);
+#pragma unroll 1
+        for (int gi = 0; gi < 8; ++gi) {
+          if (!((gm >> gi) & 1u)) continue;
+#pragma unroll
+          for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
+            mma_step<NPW, false, false>(acc, dss, C::ldd, ks, C::ld, k0, n0);
+        }
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+#pragma unroll
+          for (int jj = 0; jj < NPW; ++jj) {
+            const int c = n0 + jj * 8 + 2 * t;
+            dqs[(g + 8 * e2) * C::ld + c] = from_f32<T>(acc[jj][2 * e2]);
+            dqs[(g + 8 * e2) * C::ld + c + 1] = from_f32<T>(acc[jj][2 * e2 + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    store_tile<T>(dqs, C::ld, dq, base, row_stride, row0, C::kRT, P, f, vec, tid, C::kThreads);
+
+    // 3. dk += ds^T . Q and dv += pn^T . dO over the tile's rows, for the
+    //    warp's 16 keys
+    if (mine) {
+#pragma unroll
+      for (int k0 = 0; k0 < C::kRT; k0 += KS) {
+        mma_step<NTO, true, false>(dka, dss + key_w, C::ldd, qt, C::ld, k0, 0, fmask);
+        mma_step<NTO, true, false>(dva, pns + key_w, C::ldd, dt, C::ld, k0, 0, fmask);
+      }
+    }
+    __syncthreads();  // ds, pn and this ring slot are free again
+    i = in;
+    st ^= 1;
+  }
+
+  // dk, dv staged in the K and V rows (free after the last tile) and stored
+  // coalesced
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int kr = key_w + g + 8 * e2;
+#pragma unroll
+    for (int jj = 0; jj < NTO; ++jj) {
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = jj * 8 + 2 * t + e1;
+        ks[kr * C::ld + c] = from_f32<T>(dka[jj][2 * e2 + e1]);
+        vs[kr * C::ld + c] = from_f32<T>(dva[jj][2 * e2 + e1]);
+      }
+    }
+  }
+  __syncthreads();
+  store_tile<T>(ks, C::ld, dk, base, row_stride, 0, C::kKeys, P, f, vec, tid, C::kThreads);
+  store_tile<T>(vs, C::ld, dv, base, row_stride, 0, C::kKeys, P, f, vec, tid, C::kThreads);
 }
 
-// (a) dq.  Thread layout of the two score passes as in the forward: a thread
-// takes one column of the tile and kRows / kGroups1 rows, so a warp reads 32
-// neighbouring K (or V) rows and one broadcast q (or dO) row.
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// stream, row pass: dq.  4 warps, 64 query rows, key tiles of KT
+// ---------------------------------------------------------------------------
+
+template <typename T, int FI, int KT>
+struct RowsCfg {
+  static constexpr int kWarps = 4, kThreads = 128, kRows = 64;
+  static constexpr int kStages = FI == 256 ? 1 : 2;
+  static constexpr int kMaxTiles = kMaxP / KT;
+  static constexpr int ld = FI + pad_rm<T>();
+  static constexpr int ldd = KT + pad_rm<T>();
+  static constexpr size_t row_elems = size_t(kRows) * ld;
+  static constexpr size_t tile_elems = size_t(KT) * ld;
+  static constexpr size_t d_elems = size_t(kRows) * ldd;
+  static constexpr size_t bytes =
+      sizeof(T) * (2 * row_elems + 2 * kStages * tile_elems + d_elems) +
+      sizeof(uint32_t) * (size_t(kWarps) * kMaxTiles + kMaxTiles + kWarps);
+};
+
+template <typename T, int FI, int KT>
+__global__ void __launch_bounds__(128)
 flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const uint8_t* __restrict__ adj, const float* __restrict__ val,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const T* __restrict__ dout, T* __restrict__ dq, int B, int P, int H) {
-  extern __shared__ float smem[];
-  float* rows = smem;                  // [kRows][F]: q rows, then dO rows
-  float* tile = rows + kRows * F;      // [kCols][F + 1]: K, V, then K tiles
-  float* ss = tile + kCols * (F + 1);  // [kRows][P]: p, then ds
-  float* lse_s = ss + kRows * P;       // [kRows]
-  float* delta_s = lse_s + kRows;      // [kRows]
+                    const T* __restrict__ dout, T* __restrict__ dq, int B, int P, int H, int f,
+                    int vec, Dropout drop) {
+  using C = RowsCfg<T, FI, KT>;
+  constexpr int NTS = KT / 8, NTO = FI / 8, KS = kstep<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);            // [64][ld]
+  T* dos = qs + C::row_elems;                        // [64][ld]
+  T* ks = dos + C::row_elems;                        // [stages][KT][ld]
+  T* vs = ks + C::kStages * C::tile_elems;           // [stages][KT][ld]
+  T* dss = vs + C::kStages * C::tile_elems;          // [64][ldd]
+  uint32_t* flags = reinterpret_cast<uint32_t*>(dss + C::d_elems);  // [4][n_tiles]
+  uint32_t* tmask = flags + C::kWarps * C::kMaxTiles;
+  uint32_t* wlive = tmask + C::kMaxTiles;
 
-  const int n_row_blocks = (P + kRows - 1) / kRows;
+  const int n_row_blocks = (P + C::kRows - 1) / C::kRows;
   const int rb = blockIdx.x % n_row_blocks;
   const int hh = (blockIdx.x / n_row_blocks) % H;
   const int b = blockIdx.x / (n_row_blocks * H);
-  const int r0 = rb * kRows;
-  const int tid = threadIdx.x;
-  const long row_stride = long(H) * F;
-  const long base = (long(b) * P * H + hh) * F;
+  const int r0 = rb * C::kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long row_stride = long(H) * f;
+  const long base = (long(b) * P * H + hh) * f;
   const uint8_t* adj_b = adj + long(b) * P * P;
   const float* val_b = val ? val + long(b) * P * P : nullptr;
-  const long row_off = (long(hh) * B + b) * P;  // element (hh, b, 0) of [H, B, P]
+  const long row_off = (long(hh) * B + b) * P;
+  const int n_tiles = (P + KT - 1) / KT;
 
-  for (int i = tid; i < kRows * F; i += kThreads) {
-    const int r = i / F, d = i - r * F;
-    rows[i] = r0 + r < P ? to_f32(q[base + (r0 + r) * row_stride + d]) : 0.f;
+  for (int i = tid; i < C::kWarps * n_tiles; i += C::kThreads) flags[i] = 0u;
+  __syncthreads();
+  scan_adj(adj_b, P, r0, C::kRows, 0, (P + kGroup - 1) / kGroup, tid, C::kThreads, flags,
+           [&](int r, int gk, int& w, uint32_t& bit) {
+             w = ((r - r0) / 16) * n_tiles + gk * kGroup / KT;
+             bit = 1u << (gk % (KT / kGroup));
+           },
+           [](int, int, uint32_t) {});
+  __syncthreads();
+  bool any = false;
+  for (int j = tid; j < n_tiles; j += C::kThreads) {
+    uint32_t m = 0;
+    for (int w = 0; w < C::kWarps; ++w) m |= flags[w * n_tiles + j];
+    tmask[j] = m;
+    any |= m != 0u;
   }
-  if (tid < kRows) {
-    lse_s[tid] = r0 + tid < P ? lse[row_off + r0 + tid] : 0.f;
-    delta_s[tid] = r0 + tid < P ? delta[row_off + r0 + tid] : 0.f;
+  if (tid < C::kWarps) {
+    uint32_t m = 0;
+    for (int j = 0; j < n_tiles; ++j) m |= flags[tid * n_tiles + j];
+    wlive[tid] = m != 0u;
   }
-
-  constexpr int kGroups1 = kThreads / kCols;
-  constexpr int kRpt1 = kRows / kGroups1;
-  const int col_in_tile = tid % kCols;
-  const int rg1 = tid / kCols;
-
-  // p = adj ? exp(s - lse) : 0 into ss
-  for (int c0 = 0; c0 < P; c0 += kCols) {
-    __syncthreads();  // q, lse are loaded and the previous tile is consumed
-    load_tile<T, F, kCols, kThreads>(k, base, row_stride, c0, P, tile);
-    __syncthreads();
-    float acc[kRpt1];
-#pragma unroll
-    for (int i = 0; i < kRpt1; ++i) acc[i] = 0.f;
-    const float* krow = tile + col_in_tile * (F + 1);
-#pragma unroll 16
-    for (int d = 0; d < F; ++d) {
-      const float kd = krow[d];
-#pragma unroll
-      for (int i = 0; i < kRpt1; ++i) acc[i] = fmaf(rows[(rg1 + i * kGroups1) * F + d], kd, acc[i]);
+  if (!__syncthreads_or(any)) {
+    for (int i = tid; i < C::kRows * f; i += C::kThreads) {
+      const int r = r0 + i / f;
+      if (r < P) dq[base + long(r) * row_stride + i % f] = from_f32<T>(0.f);
     }
-    const int col = c0 + col_in_tile;
-    if (col < P) {
+    return;
+  }
+  uint32_t qlive = 0;
+  for (int w = 0; w < C::kWarps; ++w) qlive |= wlive[w] << w;
+  auto next_live = [&](int j) {
+    while (j < n_tiles && tmask[j] == 0u) ++j;
+    return j;
+  };
+  auto stage_kv = [&](int j, int st) {
+    stage_rows<T, FI>(k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+                      ks + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
+    stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+                      vs + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
+  };
+
+  stage_rows<T, FI>(q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ld, tid,
+                    C::kThreads);
+  stage_rows<T, FI>(dout, base, row_stride, r0, C::kRows, P, f, vec, qlive, dos, C::ld, tid,
+                    C::kThreads);
+  int j = next_live(0);
+  if (C::kStages == 2) stage_kv(j, 0);
+  cp_async_commit();
+
+  const int kf = (f + KS - 1) / KS * KS;
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  const bool live_w = wlive[warp] != 0u;
+  const int row_w = r0 + warp * 16;
+  float lr[2], dl[2];
 #pragma unroll
-      for (int i = 0; i < kRpt1; ++i) {
-        const int r = rg1 + i * kGroups1;
-        float p = 0.f;
-        if (r0 + r < P) {
-          const long e = long(r0 + r) * P + col;
-          if (adj_b[e]) p = expf((val_b ? acc[i] * val_b[e] : acc[i]) - lse_s[r]);
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = row_w + g + 8 * e2;
+    lr[e2] = row < P ? lse[row_off + row] : 0.f;
+    dl[e2] = row < P ? delta[row_off + row] : 0.f;
+  }
+  float acc[NTO][4];
+  zero_acc(acc);
+  int st = 0;
+  while (j < n_tiles) {
+    const int jn = next_live(j + 1);
+    if (C::kStages == 2) {
+      if (jn < n_tiles) stage_kv(jn, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      stage_kv(j, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t gm = live_w ? flags[warp * n_tiles + j] : 0u;
+    if (gm != 0u) {
+      const T* kt = ks + size_t(st) * C::tile_elems;
+      const T* vt = vs + size_t(st) * C::tile_elems;
+      const T* qw = qs + size_t(warp) * 16 * C::ld;
+      const T* dw = dos + size_t(warp) * 16 * C::ld;
+      T* dsw = dss + size_t(warp) * 16 * C::ldd;
+      const uint32_t nm = ntile_mask(gm);
+      float s[NTS][4], dp[NTS][4];
+      zero_acc(s);
+      zero_acc(dp);
+      for (int k0 = 0; k0 < kf; k0 += KS) {
+        mma_step<NTS, false, true>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
+        mma_step<NTS, false, true>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NTS; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = g + 8 * (e >> 1), row = row_w + rr;
+          const int kc = jj * 8 + 2 * t + (e & 1), key = j * KT + kc;
+          const long ei = long(row) * P + key;
+          const bool edge = ((nm >> jj) & 1u) && row < P && key < P && adj_b[ei] != 0;
+          const float keep = edge && drop.on ? drop.factor(b, P, row, key, hh) : 1.f;
+          float ds, pn;
+          grad_elem(s[jj][e], dp[jj][e], edge, edge && val_b ? val_b[ei] : 1.f,
+                    val_b != nullptr, lr[e >> 1], dl[e >> 1], keep, ds, pn);
+          dsw[rr * C::ldd + kc] = from_f32<T>(ds);
         }
-        ss[r * P + col] = p;
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int gi = 0; gi < KT / kGroup; ++gi) {
+        if (!((gm >> gi) & 1u)) continue;
+#pragma unroll
+        for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
+          mma_step<NTO, false, false>(acc, dsw, C::ldd, kt, C::ld, k0, 0, fmask);
       }
     }
-  }
-  __syncthreads();  // every thread is done with the q rows
-
-  for (int i = tid; i < kRows * F; i += kThreads) {
-    const int r = i / F, d = i - r * F;
-    rows[i] = r0 + r < P ? to_f32(dout[base + (r0 + r) * row_stride + d]) : 0.f;
-  }
-
-  // ds = p * (dO . v - delta) (* val), rounded to T, in place of p
-  for (int c0 = 0; c0 < P; c0 += kCols) {
-    __syncthreads();  // dO is loaded and the previous tile is consumed
-    load_tile<T, F, kCols, kThreads>(v, base, row_stride, c0, P, tile);
     __syncthreads();
-    float acc[kRpt1];
+    j = jn;
+    if (C::kStages == 2) st ^= 1;
+  }
+  // dq staged in the warp's Q rows (free after the last tile), stored coalesced
+  T* qw = qs + size_t(warp) * 16 * C::ld;
 #pragma unroll
-    for (int i = 0; i < kRpt1; ++i) acc[i] = 0.f;
-    const float* vrow = tile + col_in_tile * (F + 1);
-#pragma unroll 16
-    for (int d = 0; d < F; ++d) {
-      const float vd = vrow[d];
+  for (int e2 = 0; e2 < 2; ++e2) {
 #pragma unroll
-      for (int i = 0; i < kRpt1; ++i) acc[i] = fmaf(rows[(rg1 + i * kGroups1) * F + d], vd, acc[i]);
-    }
-    const int col = c0 + col_in_tile;
-    if (col < P) {
-#pragma unroll
-      for (int i = 0; i < kRpt1; ++i) {
-        const int r = rg1 + i * kGroups1;
-        float ds = 0.f;
-        if (r0 + r < P) {
-          const long e = long(r0 + r) * P + col;
-          ds = ss[r * P + col] * (acc[i] - delta_s[r]);
-          if (val_b) ds *= val_b[e];
-        }
-        ss[r * P + col] = round_to<T>(ds);
-      }
+    for (int jj = 0; jj < NTO; ++jj) {
+      const int c = jj * 8 + 2 * t;
+      qw[(g + 8 * e2) * C::ld + c] = from_f32<T>(acc[jj][2 * e2]);
+      qw[(g + 8 * e2) * C::ld + c + 1] = from_f32<T>(acc[jj][2 * e2 + 1]);
     }
   }
-
-  // dq = ds . K.  Thread -> one feature column d and every kGroups3-th row.
-  constexpr int kGroups3 = kThreads / F;
-  constexpr int kRpt3 = (kRows + kGroups3 - 1) / kGroups3;
-  const int d = tid % F;
-  const int rg3 = tid / F;
-  float o[kRpt3];
-#pragma unroll
-  for (int i = 0; i < kRpt3; ++i) o[i] = 0.f;
-  for (int c0 = 0; c0 < P; c0 += kCols) {
-    __syncthreads();  // ds is written and the previous tile is consumed
-    load_tile<T, F, kCols, kThreads>(k, base, row_stride, c0, P, tile);
-    __syncthreads();
-    const int nc = min(kCols, P - c0);
-    for (int c = 0; c < nc; ++c) {
-      const float kd = tile[c * (F + 1) + d];
-#pragma unroll
-      for (int i = 0; i < kRpt3; ++i) {
-        const int r = rg3 + i * kGroups3;
-        if (r < kRows) o[i] = fmaf(ss[r * P + c0 + c], kd, o[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRpt3; ++i) {
-    const int r = rg3 + i * kGroups3;
-    if (r < kRows && r0 + r < P) dq[base + (r0 + r) * row_stride + d] = from_f32<T>(o[i]);
-  }
+  __syncwarp();
+  store_tile<T>(qw, C::ld, dq, base, row_stride, row_w, 16, P, f, vec, lane, 32);
 }
 
-// (b) dk and dv.
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// stream, column pass: dk (DK) and dv (DV).  4 warps, 64 keys, query tiles
+// of 32 rows
+// ---------------------------------------------------------------------------
+
+template <typename T, int FI>
+struct ColsCfg {
+  static constexpr int kThreads = 128, kKeys = 64, kQT = 32;
+  static constexpr int kStages = FI == 256 ? 1 : 2;
+  static constexpr int kMaxGroups = kMaxP / kGroup;  // 16-row groups of P
+  static constexpr int ld = FI + pad_rm<T>();
+  static constexpr int ldd = kQT + pad_rm<T>();
+  static constexpr size_t key_elems = size_t(kKeys) * ld;
+  static constexpr size_t tile_elems = size_t(kQT) * ld;
+  static constexpr size_t d_elems = size_t(kKeys) * ldd;
+  static constexpr size_t bytes =
+      sizeof(T) * (2 * key_elems + 2 * kStages * tile_elems + 2 * d_elems) +
+      sizeof(uint32_t) * kMaxGroups;
+};
+
+template <typename T, int FI, bool DK, bool DV>
+__global__ void __launch_bounds__(128)
 flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const uint8_t* __restrict__ adj, const float* __restrict__ val,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv, int B,
-                    int P, int H) {
-  extern __shared__ float smem[];
-  float* ks = smem;                       // [kKeys][F]: this block's K rows
-  float* vs = ks + kKeys * F;             // [kKeys][F]: its V rows
-  float* qt = vs + kKeys * F;             // [kQRows][F + 1]: a Q tile
-  float* dt = qt + kQRows * (F + 1);      // [kQRows][F + 1]: a dO tile
-  float* pt = dt + kQRows * (F + 1);      // [kQRows][kPS]: p, rounded to T
-  float* dst = pt + kQRows * kPS;         // [kQRows][kPS]: ds, rounded to T
-  float* lse_t = dst + kQRows * kPS;      // [kQRows]
-  float* delta_t = lse_t + kQRows;        // [kQRows]
+                    int P, int H, int f, int vec, Dropout drop) {
+  using C = ColsCfg<T, FI>;
+  constexpr int NTQ = C::kQT / 8, NTO = FI / 8, KS = kstep<T>();
+  constexpr int NA = DK ? NTO : 1, NB = DV ? NTO : 1;  // accumulator n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);            // [64][ld]
+  T* vs = ks + C::key_elems;                         // [64][ld]
+  T* qr = vs + C::key_elems;                         // [stages][32][ld]
+  T* dr = qr + C::kStages * C::tile_elems;           // [stages][32][ld]
+  T* dss = dr + C::kStages * C::tile_elems;          // [64][ldd]: ds^T, a warp's 16 keys
+  T* pns = dss + C::d_elems;                         // [64][ldd]: pn^T
+  uint32_t* flags = reinterpret_cast<uint32_t*>(pns + C::d_elems);  // [16-row group]: key groups
 
-  const int n_col_blocks = (P + kKeys - 1) / kKeys;
+  const int n_col_blocks = (P + C::kKeys - 1) / C::kKeys;
   const int cb = blockIdx.x % n_col_blocks;
   const int hh = (blockIdx.x / n_col_blocks) % H;
   const int b = blockIdx.x / (n_col_blocks * H);
-  const int c0 = cb * kKeys;
-  const int tid = threadIdx.x;
-  const long row_stride = long(H) * F;
-  const long base = (long(b) * P * H + hh) * F;
+  const int c0 = cb * C::kKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long row_stride = long(H) * f;
+  const long base = (long(b) * P * H + hh) * f;
   const uint8_t* adj_b = adj + long(b) * P * P;
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const long row_off = (long(hh) * B + b) * P;
+  const int n_rg = (P + kGroup - 1) / kGroup;
+  const int n_qt = (P + C::kQT - 1) / C::kQT;
 
-  for (int i = tid; i < kKeys * F; i += kThreads) {
-    const int c = i / F, d = i - c * F;
-    const bool live = c0 + c < P;
-    ks[i] = live ? to_f32(k[base + (c0 + c) * row_stride + d]) : 0.f;
-    vs[i] = live ? to_f32(v[base + (c0 + c) * row_stride + d]) : 0.f;
-  }
-
-  // Scores: thread -> one query row r of the tile and every kGroups1-th key,
-  // so a warp reads 32 neighbouring Q (dO) rows and one broadcast K (V) row.
-  constexpr int kGroups1 = kThreads / kQRows;
-  constexpr int kCpt1 = kKeys / kGroups1;
-  const int r = tid % kQRows;
-  const int kg = tid / kQRows;
-  // Sums: thread -> one feature column d and every kGroups3-th key.
-  constexpr int kGroups3 = kThreads / F;
-  constexpr int kCpt3 = (kKeys + kGroups3 - 1) / kGroups3;
-  const int d3 = tid % F;
-  const int cg = tid / F;
-  float dk_acc[kCpt3], dv_acc[kCpt3];
+  for (int i = tid; i < n_rg; i += C::kThreads) flags[i] = 0u;
+  __syncthreads();
+  scan_adj(adj_b, P, 0, P, c0, C::kKeys / kGroup, tid, C::kThreads, flags,
+           [&](int r, int gk, int& w, uint32_t& bit) {
+             w = r / kGroup;
+             bit = 1u << gk;
+           },
+           [](int, int, uint32_t) {});
+  __syncthreads();
+  uint32_t colmask = 0;  // the block's key groups with an edge
+  for (int i = tid; i < n_rg; i += C::kThreads) colmask |= flags[i];
 #pragma unroll
-  for (int j = 0; j < kCpt3; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  for (int o = 16; o > 0; o >>= 1) colmask |= __shfl_xor_sync(0xffffffffu, colmask, o);
+  __shared__ uint32_t warp_cols[4];
+  if (lane == 0) warp_cols[warp] = colmask;
+  __syncthreads();
+  colmask = warp_cols[0] | warp_cols[1] | warp_cols[2] | warp_cols[3];
+  if (colmask == 0u) {
+    for (int i = tid; i < C::kKeys * f; i += C::kThreads) {
+      const int key = c0 + i / f;
+      if (key >= P) continue;
+      const long e = base + long(key) * row_stride + i % f;
+      if (DK) dk[e] = from_f32<T>(0.f);
+      if (DV) dv[e] = from_f32<T>(0.f);
+    }
+    return;
+  }
+  // query tile i is live when one of its two 16-row groups has an edge
+  auto tile_flags = [&](int i) {
+    const int rg = 2 * i;
+    return flags[rg] | (rg + 1 < n_rg ? flags[rg + 1] : 0u);
+  };
+  auto next_live = [&](int i) {
+    while (i < n_qt && tile_flags(i) == 0u) ++i;
+    return i;
+  };
+  auto stage_tile = [&](int i, int st) {
+    const uint32_t rows_live = (flags[2 * i] ? 1u : 0u) |
+                               (2 * i + 1 < n_rg && flags[2 * i + 1] ? 2u : 0u);
+    stage_rows<T, FI>(q, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
+                      qr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
+    stage_rows<T, FI>(dout, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
+                      dr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
+  };
 
-  for (int r0 = 0; r0 < P; r0 += kQRows) {
-    __syncthreads();  // K, V are loaded and the previous tile is consumed
-    load_tile<T, F, kQRows, kThreads>(q, base, row_stride, r0, P, qt);
-    load_tile<T, F, kQRows, kThreads>(dout, base, row_stride, r0, P, dt);
-    if (tid < kQRows) {
-      lse_t[tid] = r0 + tid < P ? lse[row_off + r0 + tid] : 0.f;
-      delta_t[tid] = r0 + tid < P ? delta[row_off + r0 + tid] : 0.f;
+  stage_rows<T, FI>(k, base, row_stride, c0, C::kKeys, P, f, vec, colmask, ks, C::ld, tid,
+                    C::kThreads);
+  if (DK)
+    stage_rows<T, FI>(v, base, row_stride, c0, C::kKeys, P, f, vec, colmask, vs, C::ld, tid,
+                      C::kThreads);
+  int i = next_live(0);
+  if (C::kStages == 2) stage_tile(i, 0);
+  cp_async_commit();
+
+  const int kf = (f + KS - 1) / KS * KS;
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  const int key_w = warp * kGroup;  // the warp's first key, within the block
+  float dka[NA][4], dva[NB][4];
+  zero_acc(dka);
+  zero_acc(dva);
+  int st = 0;
+  while (i < n_qt) {
+    const int in = next_live(i + 1);
+    if (C::kStages == 2) {
+      if (in < n_qt) stage_tile(in, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      stage_tile(i, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float sacc[kCpt1], dpacc[kCpt1];
-#pragma unroll
-    for (int j = 0; j < kCpt1; ++j) sacc[j] = dpacc[j] = 0.f;
-    const float* qrow = qt + r * (F + 1);
-    const float* drow = dt + r * (F + 1);
-#pragma unroll 8
-    for (int d = 0; d < F; ++d) {
-      const float qd = qrow[d], od = drow[d];
-#pragma unroll
-      for (int j = 0; j < kCpt1; ++j) {
-        const int c = kg + j * kGroups1;
-        sacc[j] = fmaf(qd, ks[c * F + d], sacc[j]);
-        dpacc[j] = fmaf(od, vs[c * F + d], dpacc[j]);
+    // the tile's 16-row groups in which the warp's keys have an edge
+    const int rg = 2 * i;
+    const uint32_t rmask = ((flags[rg] >> warp) & 1u) |
+                           (rg + 1 < n_rg ? ((flags[rg + 1] >> warp) & 1u) << 1 : 0u);
+    if (rmask != 0u) {
+      const T* qt = qr + size_t(st) * C::tile_elems;
+      const T* dt = dr + size_t(st) * C::tile_elems;
+      T* dsw = dss + size_t(warp) * 16 * C::ldd;
+      T* pnw = pns + size_t(warp) * 16 * C::ldd;
+      const uint32_t nm = ntile_mask(rmask);
+      // s^T = K_w . Q^T and dp^T = V_w . dO^T: rows are keys, columns queries
+      float s[NTQ][4], dp[NTQ][4];
+      zero_acc(s);
+      zero_acc(dp);
+      for (int k0 = 0; k0 < kf; k0 += KS) {
+        mma_step<NTQ, false, true>(s, ks + size_t(key_w) * C::ld, C::ld, qt, C::ld, k0, 0,
+                                         nm);
+        if (DK)
+          mma_step<NTQ, false, true>(dp, vs + size_t(key_w) * C::ld, C::ld, dt, C::ld, k0,
+                                           0, nm);
       }
-    }
 #pragma unroll
-    for (int j = 0; j < kCpt1; ++j) {
-      const int c = kg + j * kGroups1;
-      float p = 0.f, ds = 0.f;
-      if (r0 + r < P && c0 + c < P) {
-        const long e = long(r0 + r) * P + c0 + c;
-        if (adj_b[e]) {
-          const float vv = val_b ? val_b[e] : 1.f;
-          p = expf((val_b ? sacc[j] * vv : sacc[j]) - lse_t[r]);
-          ds = p * (dpacc[j] - delta_t[r]);
-          if (val_b) ds *= vv;
+      for (int jj = 0; jj < NTQ; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = g + 8 * (e >> 1), key = c0 + key_w + kr;
+          const int rc = jj * 8 + 2 * t + (e & 1), row = i * C::kQT + rc;
+          const long ei = long(row) * P + key;
+          const bool edge = ((nm >> jj) & 1u) && row < P && key < P && adj_b[ei] != 0;
+          const float keep = edge && drop.on ? drop.factor(b, P, row, key, hh) : 1.f;
+          float ds, pn;
+          grad_elem(s[jj][e], dp[jj][e], edge, edge && val_b ? val_b[ei] : 1.f,
+                    val_b != nullptr, edge ? lse[row_off + row] : 0.f,
+                    edge ? delta[row_off + row] : 0.f, keep, ds, pn);
+          if (DK) dsw[kr * C::ldd + rc] = from_f32<T>(ds);
+          if (DV) pnw[kr * C::ldd + rc] = from_f32<T>(pn);
         }
       }
-      pt[r * kPS + c] = round_to<T>(p);
-      dst[r * kPS + c] = round_to<T>(ds);
+      __syncwarp();
+#pragma unroll
+      for (int gi = 0; gi < 2; ++gi) {
+        if (!((rmask >> gi) & 1u)) continue;
+#pragma unroll
+        for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS) {
+          if (DK) mma_step<NA, false, false>(dka, dsw, C::ldd, qt, C::ld, k0, 0, fmask);
+          if (DV) mma_step<NB, false, false>(dva, pnw, C::ldd, dt, C::ld, k0, 0, fmask);
+        }
+      }
     }
     __syncthreads();
-
-    const int nr = min(kQRows, P - r0);
-    for (int rr = 0; rr < nr; ++rr) {
-      const float qd = qt[rr * (F + 1) + d3], od = dt[rr * (F + 1) + d3];
+    i = in;
+    if (C::kStages == 2) st ^= 1;
+  }
+  // dk, dv staged in the K and V rows (free after the last tile), stored
+  // coalesced
 #pragma unroll
-      for (int j = 0; j < kCpt3; ++j) {
-        const int c = cg + j * kGroups3;
-        if (c < kKeys) {
-          dk_acc[j] = fmaf(dst[rr * kPS + c], qd, dk_acc[j]);
-          dv_acc[j] = fmaf(pt[rr * kPS + c], od, dv_acc[j]);
-        }
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int kr = key_w + g + 8 * e2;
+#pragma unroll
+    for (int jj = 0; jj < NTO; ++jj) {
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = jj * 8 + 2 * t + e1;
+        if (DK) ks[kr * C::ld + c] = from_f32<T>(dka[DK ? jj : 0][2 * e2 + e1]);
+        if (DV) vs[kr * C::ld + c] = from_f32<T>(dva[DV ? jj : 0][2 * e2 + e1]);
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < kCpt3; ++j) {
-    const int c = cg + j * kGroups3;
-    if (c < kKeys && c0 + c < P) {
-      dk[base + (c0 + c) * row_stride + d3] = from_f32<T>(dk_acc[j]);
-      dv[base + (c0 + c) * row_stride + d3] = from_f32<T>(dv_acc[j]);
-    }
-  }
+  __syncthreads();
+  if (DK) store_tile<T>(ks, C::ld, dk, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
+  if (DV) store_tile<T>(vs, C::ld, dv, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
 }
 
-template <typename T, int F>
-cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* adj,
-                   const float* val, const float* lse, const float* delta, const void* dout,
-                   void* dq, void* dk, void* dv, int B, int P, int H, cudaStream_t stream) {
-  static_assert(kThreads % F == 0, "a feature column per thread needs F | kThreads");
-  static_assert(kRows % (kThreads / kCols) == 0 && kKeys % (kThreads / kQRows) == 0,
-                "score rows and keys split evenly over the thread groups");
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
 
-  const size_t smem_a = rows_smem_bytes<F>(P);
-  cudaError_t err = cudaFuncSetAttribute(flash_mask_bwd_rows<T, F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_a));
+struct Args {
+  const void *q, *k, *v, *dout;
+  const uint8_t* adj;
+  const float *val, *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, P, H, f;
+  Dropout drop;
+  cudaStream_t stream;
+};
+
+template <typename KernelT>
+cudaError_t prepare(KernelT kernel, size_t bytes) {
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+template <typename T, int FI>
+cudaError_t launch_fi(const Args& a) {
+  const int vec = fill_bytes<T>(a.f);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  T* dq = static_cast<T*>(a.dq);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  if constexpr (FI <= 128) {
+    if (a.P <= 128) {
+      using C = WholeCfg<T, FI>;
+      auto kernel = flash_mask_bwd_whole<T, FI>;
+      cudaError_t err = prepare(kernel, C::bytes);
+      if (err != cudaSuccess) return err;
+      const long n_blocks = long(a.B) * a.H;
+      if (n_blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+      kernel<<<unsigned(n_blocks), C::kThreads, C::bytes, a.stream>>>(
+          q, k, v, a.adj, a.val, a.lse, a.delta, dout, dq, dk, dv, a.B, a.P, a.H, a.f, vec,
+          a.drop);
+      return cudaGetLastError();
+    }
+  }
+  constexpr int KT = FI == 256 ? 32 : 64;
+  using R = RowsCfg<T, FI, KT>;
+  using CC = ColsCfg<T, FI>;
+  const long blocks_r = long(a.B) * a.H * ((a.P + R::kRows - 1) / R::kRows);
+  const long blocks_c = long(a.B) * a.H * ((a.P + CC::kKeys - 1) / CC::kKeys);
+  if (blocks_r > 0x7fffffffL || blocks_c > 0x7fffffffL) return cudaErrorInvalidValue;
+  auto rows = flash_mask_bwd_rows<T, FI, KT>;
+  cudaError_t err = prepare(rows, R::bytes);
   if (err != cudaSuccess) return err;
-  const long blocks_a = long(B) * H * ((P + kRows - 1) / kRows);
-  const long blocks_b = long(B) * H * ((P + kKeys - 1) / kKeys);
-  if (blocks_a > 0x7fffffffL || blocks_b > 0x7fffffffL) return cudaErrorInvalidValue;
-  flash_mask_bwd_rows<T, F><<<unsigned(blocks_a), kThreads, smem_a, stream>>>(
-      qt, kt, vt, adj, val, lse, delta, dot, static_cast<T*>(dq), B, P, H);
+  rows<<<unsigned(blocks_r), R::kThreads, R::bytes, a.stream>>>(
+      q, k, v, a.adj, a.val, a.lse, a.delta, dout, dq, a.B, a.P, a.H, a.f, vec, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const size_t smem_b = cols_smem_bytes<F>();
-  err = cudaFuncSetAttribute(flash_mask_bwd_cols<T, F>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_b));
-  if (err != cudaSuccess) return err;
-  flash_mask_bwd_cols<T, F><<<unsigned(blocks_b), kThreads, smem_b, stream>>>(
-      qt, kt, vt, adj, val, lse, delta, dot, static_cast<T*>(dk), static_cast<T*>(dv), B, P, H);
-  return cudaGetLastError();
+  auto run_cols = [&](auto kernel) {
+    cudaError_t e = prepare(kernel, CC::bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<unsigned(blocks_c), CC::kThreads, CC::bytes, a.stream>>>(
+        q, k, v, a.adj, a.val, a.lse, a.delta, dout, dk, dv, a.B, a.P, a.H, a.f, vec, a.drop);
+    return cudaGetLastError();
+  };
+  if constexpr (FI == 256) {
+    err = run_cols(flash_mask_bwd_cols<T, FI, true, false>);
+    if (err != cudaSuccess) return err;
+    return run_cols(flash_mask_bwd_cols<T, FI, false, true>);
+  } else {
+    return run_cols(flash_mask_bwd_cols<T, FI, true, true>);
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_f(const void* q, const void* k, const void* v, const uint8_t* adj,
-                       const float* val, const float* lse, const float* delta, const void* dout,
-                       void* dq, void* dk, void* dv, int B, int P, int H, int F,
-                       cudaStream_t stream) {
-  switch (F) {
-#define DFGNN_BWD_CASE(FF) \
-    case FF: return launch<T, FF>(q, k, v, adj, val, lse, delta, dout, dq, dk, dv, B, P, H, stream);
-    DFGNN_BWD_CASE(8)
-    DFGNN_BWD_CASE(16)
-    DFGNN_BWD_CASE(32)
-    DFGNN_BWD_CASE(64)
-    DFGNN_BWD_CASE(128)
-    DFGNN_BWD_CASE(256)
-#undef DFGNN_BWD_CASE
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_f(const Args& a) {
+  if (a.f <= 32) return launch_fi<T, 32>(a);
+  if (a.f <= 64) return launch_fi<T, 64>(a);
+  if (a.f <= 128) return launch_fi<T, 128>(a);
+  return launch_fi<T, 256>(a);
 }
 
 }  // namespace
@@ -380,23 +750,23 @@ cudaError_t dispatch_f(const void* q, const void* k, const void* v, const uint8_
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16.  q, k, v, dout, dq, dk, dv: [B, P, H, F]
-// contiguous; adj: [B, P, P] uint8; val: [B, P, P] fp32 or null; lse, delta:
-// [H, B, P] fp32.  Launches two kernels on `stream`, allocates nothing, and
-// returns the first CUDA error (0 when both launched).
+// contiguous, 1 <= F <= 256; adj: [B, P, P] uint8; val: [B, P, P] fp32 or
+// null; lse, delta: [H, B, P] fp32.  drop, seed, threshold, scale: the
+// forward's dropout.  Launches one kernel (P <= 128, F <= 128) or two (three
+// at F > 128) on `stream`, allocates nothing, and returns the first CUDA
+// error (0 when all launched).
 int dfgnn_flash_mask_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* adj, const void* val, const void* lse, const void* delta,
                          const void* dout, void* dq, void* dk, void* dv, int B, int P, int H,
-                         int F, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP) return int(cudaErrorInvalidValue);
-  const auto* a = static_cast<const uint8_t*>(adj);
-  const auto* ev = static_cast<const float*>(val);
-  const auto* l = static_cast<const float*>(lse);
-  const auto* dl = static_cast<const float*>(delta);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return int(dispatch_f<float>(q, k, v, a, ev, l, dl, dout, dq, dk, dv, B, P, H, F, s));
-  if (dtype == 1)
-    return int(dispatch_f<__nv_bfloat16>(q, k, v, a, ev, l, dl, dout, dq, dk, dv, B, P, H, F, s));
+                         int F, int drop, uint32_t seed, uint32_t threshold, float scale,
+                         void* stream) {
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1 || F > 256) return int(cudaErrorInvalidValue);
+  const Args a{q, k, v, dout, static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
+               static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
+               B, P, H, F, Dropout{drop != 0, seed, threshold, scale},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return int(dispatch_f<float>(a));
+  if (dtype == 1) return int(dispatch_f<__nv_bfloat16>(a));
   return int(cudaErrorInvalidValue);
 }
 

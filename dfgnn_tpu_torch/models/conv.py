@@ -34,7 +34,8 @@ from torch import nn
 from dfgnn_tpu_torch.device import resolve_device
 from dfgnn_tpu_torch.graph import DenseBatch
 from dfgnn_tpu_torch.ops import graph_attention
-from dfgnn_tpu_torch.ops.flash_mask import flash_layer_attention, flash_layer_attention_gat
+from dfgnn_tpu_torch.ops.flash_mask import (flash_layer_attention, flash_layer_attention_gat,
+                                            flash_takes, layer_fits)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -113,7 +114,8 @@ AGNN_DENSE_TOKENS = 98_304  # flash won bs=512 in 3 runs of 4, dense bs >= 1024 
 AGNN_DENSE_WIDTH = 192      # dense won dim 256 in 3 runs of 4, flash dims <= 128 in all
 
 
-def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int) -> str:
+def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
+                           head_dim: Optional[int] = None) -> str:
     """The measured winner for bf16 ``method="auto"`` on a DenseBatch.
 
     The JAX rule's three outcomes on its two observables (token count and
@@ -128,20 +130,41 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int) -> str:
     edge values; else ``flash``.  AGNN (no whole-layer kernel: the l2 norm
     sits between projection and attention): ``dense`` at or above
     ``AGNN_DENSE_TOKENS`` tokens or ``AGNN_DENSE_WIDTH``, else ``flash``.
-    GAT's bf16 auto is always ``flash_fused`` (:class:`GATConv`), which won
+    GAT's bf16 auto is ``flash_fused`` (:func:`_auto_bf16_gat`), which won
     every grid point but one (dim 16, in one run of four).  The grid's
     table is in PERF.md (section 6), from ``scripts/shmoo.py``.
+
+    Both are shape rules on what the kernels take as well: ``flash_fused``
+    only where kernel #5's block fits (:func:`layer_fits` at the head dim,
+    ``out_size`` by default), else ``flash``; ``flash`` only where kernels
+    #1 and #3 take the head dim (:func:`flash_takes`), else ``dense``.
     """
+    f = out_size if head_dim is None else head_dim
     n_tokens = g.n_graphs * g.np_pad
     if conv == "gt":
         if n_tokens >= GT_DENSE_TOKENS or out_size >= GT_DENSE_WIDTH:
             return "dense"
-        if g.val is None and (n_tokens < GT_FUSED_TOKENS or out_size < GT_FUSED_WIDTH):
+        if (g.val is None and (n_tokens < GT_FUSED_TOKENS or out_size < GT_FUSED_WIDTH)
+                and layer_fits("dot", g.np_pad, f, torch.bfloat16)):
             return "flash_fused"
-        return "flash"
+        return "flash" if flash_takes("dot", g.np_pad, f) else "dense"
     if n_tokens >= AGNN_DENSE_TOKENS or out_size >= AGNN_DENSE_WIDTH:
         return "dense"
-    return "flash"
+    return "flash" if flash_takes("dot", g.np_pad, f) else "dense"
+
+
+def _auto_bf16_gat(g: DenseBatch, head_dim: int) -> str:
+    """GAT's bf16 ``method="auto"`` on a DenseBatch.  With edge values it
+    stays ``auto`` (the decomposed layer, where the dispatcher's shape rule
+    picks flash or dense).  Without, the whole-layer kernel #6 where its
+    block fits (:func:`layer_fits`), else ``flash`` where kernels #2 and #4
+    take the head dim, else ``dense``: a rule on the shape, as
+    :func:`_auto_bf16_dense_batch`."""
+    if g.val is not None:
+        return "auto"
+    if layer_fits("add", g.np_pad, head_dim, torch.bfloat16):
+        return "flash_fused"
+    return "flash" if flash_takes("add", g.np_pad, head_dim) else "dense"
 
 
 class GTConv(nn.Module):
@@ -174,7 +197,7 @@ class GTConv(nn.Module):
             x = x.to(self.dtype)
         method = _resolve(impl or self.method)
         if method == "auto" and self.dtype == torch.bfloat16 and isinstance(g, DenseBatch):
-            method = _auto_bf16_dense_batch("gt", g, self.out_size)
+            method = _auto_bf16_dense_batch("gt", g, self.out_size, head_dim)
         if method == "flash_fused":
             return flash_layer_attention(
                 g, x, self.q_proj.weight.T, self.q_proj.bias, self.k_proj.weight.T,
@@ -205,7 +228,7 @@ class GATConv(nn.Module):
     edge hash's seed), any generator for the dense path and the oracle.
     On a :class:`DenseBatch` without edge values, ``impl="flash_fused"`` runs
     the whole layer as kernel #6, and so does ``method="auto"`` with
-    ``dtype=torch.bfloat16``.  In bf16, z is bf16 and e_l, e_r are fp32 (JAX
+    ``dtype=torch.bfloat16`` where #6's block fits (:func:`_auto_bf16_gat`).  In bf16, z is bf16 and e_l, e_r are fp32 (JAX
     promotes the bf16 z against the fp32 a_l, a_r).
     """
 
@@ -235,8 +258,9 @@ class GATConv(nn.Module):
             x = x.to(self.dtype)
         method = _resolve(impl or self.method)
         rate = 0.0 if deterministic else self.dropout
-        if method == "flash_fused" or (method == "auto" and self.dtype == torch.bfloat16
-                                       and isinstance(g, DenseBatch) and g.val is None):
+        if method == "auto" and self.dtype == torch.bfloat16 and isinstance(g, DenseBatch):
+            method = _auto_bf16_gat(g, self.out_size)
+        if method == "flash_fused":
             return flash_layer_attention_gat(
                 g, x, self.W.weight.T, self.W.bias, self.a_l, self.a_r,
                 num_heads=self.num_heads, negative_slope=self.negative_slope,
@@ -282,7 +306,8 @@ class AGNNConv(nn.Module):
         hn = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True).clamp_min(1e-12)
         method = _resolve(impl or self.method)
         if method == "auto" and self.dtype == torch.bfloat16 and isinstance(g, DenseBatch):
-            method = _auto_bf16_dense_batch("agnn", g, self.out_size)
+            method = _auto_bf16_dense_batch("agnn", g, self.out_size,
+                                            self.out_size // self.num_heads)
         qk = _split_heads(hn, g, self.num_heads)
         out = graph_attention(g, qk, qk, _split_heads(h, g, self.num_heads), score="dot",
                               method=method)

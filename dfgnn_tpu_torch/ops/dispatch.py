@@ -38,8 +38,11 @@ def graph_attention(
 ):
     """Fused (or oracle) SDDMM -> edge-softmax -> SpMM attention convolution.
 
-    On a :class:`DenseBatch`, ``auto`` and ``flash`` run the flash kernels and
-    ``dense`` and ``reference`` the dense formulation; ``return_weights=True``
+    On a :class:`DenseBatch`, ``flash`` runs the flash kernels, ``dense`` and
+    ``reference`` the dense formulation, and ``auto`` the flash kernels where
+    they take the shape (:func:`flash_mask.flash_takes`: any head dim up to
+    256 on the dot score, the instantiated ones on the additive score, P up
+    to 2048) and the dense formulation elsewhere; ``return_weights=True``
     always takes the dense formulation, the one that materialises weights.
     On a :class:`Graph`, ``auto`` and ``reference`` run the unfused
     segment-op oracle.  On a :class:`BucketedGraph` or
@@ -67,9 +70,11 @@ def graph_attention(
             f"graph layout {type(g).__name__} is not ported yet: DenseBatch, Graph and "
             "the bucketed full graph are. SampledBlock comes with ROADMAP.md queue 1 "
             "item 8 and the edge-partitioned graph with item 10.")
-    if method in ("auto", "flash") and not return_weights:
+    if method == "auto":
+        method = "flash" if flash_mask.flash_takes(score, g.np_pad, v.shape[-1]) else "dense"
+    if method == "flash" and not return_weights:
         return flash_mask.flash_graph_attention(g, q, k, v, **kw)
-    if method in ("auto", "dense", "flash", "reference"):
+    if method in ("dense", "flash", "reference"):
         return _dense.dense_graph_attention(g, q, k, v, **kw,
                                             return_weights=return_weights)
     raise ValueError(f"method {method!r} invalid for DenseBatch")

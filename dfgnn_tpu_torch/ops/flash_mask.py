@@ -17,9 +17,9 @@ function in plain PyTorch; for CUDA tensors it launches its kernel or
 raises.  It never falls back.  :class:`_FlashDot` and :class:`_FlashAdd` tie
 #1/#3 and #2/#4 into autograd on every device; :class:`_FlashLayerDot` and
 :class:`_FlashLayerAdd` run the whole-layer kernels forward and recompute
-their backward as torch ops around #1 and #3, or #2 and #4.  The additive
-(GAT) kernels take the per-edge dropout of
-:mod:`dfgnn_tpu_torch.ops.edge_dropout`; the dot kernels do not yet.
+their backward as torch ops around #1 and #3, or #2 and #4.  Kernels #1 to
+#4 and #6 take the per-edge dropout of
+:mod:`dfgnn_tpu_torch.ops.edge_dropout`.
 """
 
 from __future__ import annotations
@@ -36,9 +36,11 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernel takes (see csrc/flash_mask_fwd.cu): head dims it is
-# instantiated for, and the most nodes whose score rows fit shared memory.
+# What the kernels take: the head dims #2, #4, #5 and #6 are instantiated
+# for, the widest head dim of the tensor-core kernels #1 and #3 (any f from 1
+# up to it: csrc/flash_mask_fwd.cu), and the most nodes of #1 to #4.
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+DOT_KERNEL_MAX_F = 256
 KERNEL_MAX_P = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,12 +73,13 @@ def _library() -> ctypes.CDLL:
     """The kernel library with the argument types of kernels #1 to #6."""
     lib = _cuda.library()
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dfgnn_flash_mask_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
-    lib.dfgnn_flash_mask_fwd.restype = i
-    lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, vp]
-    lib.dfgnn_flash_mask_bwd.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
-    drop = [f, i, u, u, f]  # slope, drop, seed, threshold, scale
+    dot_drop = [i, u, u, f]  # drop, seed, threshold, scale
+    lib.dfgnn_flash_mask_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *dot_drop, vp]
+    lib.dfgnn_flash_mask_fwd.restype = i
+    lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *dot_drop, vp]
+    lib.dfgnn_flash_mask_bwd.restype = i
+    drop = [f, *dot_drop]  # slope, drop, seed, threshold, scale
     lib.dfgnn_flash_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *drop, vp]
     lib.dfgnn_flash_add_fwd.restype = i
     lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *drop, vp]
@@ -88,6 +91,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _acc(t):
+    """``t`` in the plain versions' arithmetic type: fp64 stays fp64 (an
+    exact evaluation to hold the kernels against), everything else is fp32."""
+    return t.to(torch.float64 if t.dtype == torch.float64 else torch.float32)
+
+
 def _softmax_matmul_plain(s, adj, v, val, drop):
     """``_softmax_matmul`` of the Pallas kernels on fp32 scores ``[B, h, P, P]``.
 
@@ -97,7 +106,7 @@ def _softmax_matmul_plain(s, adj, v, val, drop):
     its row sum; ``ex`` is rounded to v's dtype before the product.
     """
     if val is not None:
-        s = s * val[:, None].float()
+        s = s * _acc(val[:, None])
     s = torch.where(adj[:, None].bool(), s, NEG_BIG)
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEAD)
     ex = torch.exp(s - m)
@@ -106,22 +115,27 @@ def _softmax_matmul_plain(s, adj, v, val, drop):
     inv = torch.where(has, 1.0 / torch.where(has, l, 1.0), 0.0)
     if drop is not None:
         ex = ex * drop
-    out = torch.einsum("bhrc,bchf->brhf", ex.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhrc,bchf->brhf", _acc(ex.to(v.dtype)), _acc(v))
     out = (out * inv.transpose(1, 2)).to(v.dtype)
     lse = torch.where(has, m + torch.log(torch.where(has, l, 1.0)), NEG_BIG)
     return out, lse[..., 0].permute(1, 0, 2)
 
 
-def flash_mask_fwd_plain(q, k, v, adj, val=None):
+def flash_mask_fwd_plain(q, k, v, adj, val=None, *, seed: int = 0, rate: float = 0.0):
     """Kernel #1's function in plain PyTorch, on any device.
 
     ``q, k, v``: ``[B, P, h, f]`` (q pre-scaled); ``adj``: ``[B, P, P]``;
     ``val``: ``[B, P, P]`` or None.  Returns ``out`` ``[B, P, h, f]`` in v's
     dtype and ``lse`` ``[h, B, P]`` fp32.  Scores and sums are fp32; ``ex``
     is rounded to v's dtype before the product, as in the Pallas kernel.
+    ``rate > 0`` drops the numerator weights with the edge hash of ``seed``;
+    ``lse`` does not see dropout.  fp64 inputs evaluate in fp64 throughout,
+    the exact reference the card tests hold the kernel to.
     """
-    s = torch.einsum("brhf,bchf->bhrc", q.float(), k.float())
-    return _softmax_matmul_plain(s, adj, v, val, None)
+    s = torch.einsum("brhf,bchf->bhrc", _acc(q), _acc(k))
+    B, P, h, _ = v.shape
+    drop = dropout_factor(seed, rate, B, h, P, v.device) if rate > 0.0 else None
+    return _softmax_matmul_plain(s, adj, v, val, drop)
 
 
 def dropout_factor(seed: int, rate: float, B: int, h: int, P: int, device) -> torch.Tensor:
@@ -162,32 +176,40 @@ def flash_add_fwd_plain(e_row, e_col, v, adj, val=None, *, slope: float = 0.2,
 def bwd_delta(do, out):
     """``delta = rowsum(dO * out)`` ``[h, B, P]`` fp32: the backward's input
     that stays outside its kernel, as in the JAX package's ``_bwd``."""
-    return torch.einsum("bphf,bphf->hbp", do.float(), out.float()).contiguous()
+    return (_acc(do) * _acc(out)).sum(dim=-1).permute(2, 0, 1).contiguous()
 
 
-def flash_mask_bwd_plain(q, k, v, adj, val, lse, do, delta):
+def flash_mask_bwd_plain(q, k, v, adj, val, lse, do, delta, *, seed: int = 0,
+                         rate: float = 0.0):
     """The backward kernel's function in plain PyTorch, on any device.
 
     ``q, k, v, do``: ``[B, P, h, f]``; ``adj``, ``val``: as the forward's;
-    ``lse``, ``delta``: ``[h, B, P]`` fp32.  Returns ``(dq, dk, dv)`` in the
-    dtypes of q, k and v.  Scores, ``p`` and ``ds`` are fp32; ``ds`` and
-    ``p`` are rounded to the input dtype before the products, as in the
-    Pallas kernel.  Empty rows (lse = -1e30, no edges) give p = 0.
+    ``lse``, ``delta``: ``[h, B, P]`` fp32; ``seed`` and ``rate``: the
+    forward's dropout, whose factor multiplies ``dp`` and ``p`` for dv.
+    Returns ``(dq, dk, dv)`` in the dtypes of q, k and v.  Scores, ``p`` and
+    ``ds`` are fp32; ``ds`` and ``p * keep`` are rounded to the input dtype
+    before the products, as in the Pallas kernel.  Empty rows (lse = -1e30,
+    no edges) give p = 0.  fp64 inputs evaluate in fp64 throughout.
     """
-    s = torch.einsum("brhf,bchf->bhrc", q.float(), k.float())
+    s = torch.einsum("brhf,bchf->bhrc", _acc(q), _acc(k))
     if val is not None:
-        s = s * val[:, None].float()
+        s = s * _acc(val[:, None])
     edge = adj[:, None].bool()
     lse_b = lse.permute(1, 0, 2)[..., None]      # [B, h, P, 1]
     delta_b = delta.permute(1, 0, 2)[..., None]
     p = torch.where(edge, torch.exp(torch.where(edge, s - lse_b, 0.0)), 0.0)
-    dp = torch.einsum("brhf,bchf->bhrc", do.float(), v.float())
+    dp = torch.einsum("brhf,bchf->bhrc", _acc(do), _acc(v))
+    pn = p
+    if rate > 0.0:
+        B, P, h, _ = v.shape
+        keep = dropout_factor(seed, rate, B, h, P, v.device)
+        dp, pn = dp * keep, p * keep
     ds = p * (dp - delta_b)
     if val is not None:
-        ds = ds * val[:, None].float()
-    dq = torch.einsum("bhrc,bchf->brhf", ds.to(k.dtype).float(), k.float())
-    dk = torch.einsum("bhrc,brhf->bchf", ds.to(q.dtype).float(), q.float())
-    dv = torch.einsum("bhrc,brhf->bchf", p.to(do.dtype).float(), do.float())
+        ds = ds * _acc(val[:, None])
+    dq = torch.einsum("bhrc,bchf->brhf", _acc(ds.to(k.dtype)), _acc(k))
+    dk = torch.einsum("bhrc,brhf->bchf", _acc(ds.to(q.dtype)), _acc(q))
+    dv = torch.einsum("bhrc,brhf->bchf", _acc(pn.to(do.dtype)), _acc(do))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -224,18 +246,30 @@ def flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do, delta, *, slope: flo
     return der.to(e_row.dtype), dec.to(e_col.dtype), dv.to(v.dtype)
 
 
-def _check_block_args(v, adj, val, **named):
-    """What every kernel takes: fp32 or bf16 ``v`` ``[B, P, h, f]`` with f in
-    KERNEL_HEAD_DIMS and P <= KERNEL_MAX_P, uint8 ``adj`` and fp32 ``val``
-    ``[B, P, P]``, all on v's device; ``v``, ``adj``, ``val`` and the
-    ``named`` tensors contiguous."""
+def takes_head_dim(score: str, f: int) -> bool:
+    """Whether the flash kernels of ``score`` take head dim ``f``: any f from
+    1 to DOT_KERNEL_MAX_F for the dot score (#1, #3), KERNEL_HEAD_DIMS for the
+    additive one (#2, #4)."""
+    if score == "dot":
+        return 1 <= f <= DOT_KERNEL_MAX_F
+    return f in KERNEL_HEAD_DIMS
+
+
+def _check_block_args(v, adj, val, score: str = "add", **named):
+    """What every kernel takes: fp32 or bf16 ``v`` ``[B, P, h, f]`` with f
+    taken (:func:`takes_head_dim`) and P <= KERNEL_MAX_P, uint8 ``adj`` and
+    fp32 ``val`` ``[B, P, P]``, all on v's device; ``v``, ``adj``, ``val`` and
+    the ``named`` tensors contiguous."""
     if v.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes fp32 or bf16, not {v.dtype}")
     if v.dim() != 4:
         raise ValueError(f"v must be [B, P, h, f], got {tuple(v.shape)}")
     B, P, h, f = v.shape
-    if f not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, not {f}")
+    if not takes_head_dim(score, f):
+        dims = (f"1 to {DOT_KERNEL_MAX_F}" if score == "dot"
+                else str(KERNEL_HEAD_DIMS))
+        raise ValueError(f"the kernel takes head dims {dims}, not {f}; other head dims are "
+                         "ROADMAP.md section 2 item c, and method='auto' runs them densely")
     if not 1 <= P <= KERNEL_MAX_P or B < 1 or h < 1:
         raise ValueError(f"the kernel takes 1 <= P <= {KERNEL_MAX_P} and B, h >= 1, "
                          f"got B={B} P={P} h={h}")
@@ -249,11 +283,17 @@ def _check_block_args(v, adj, val, **named):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_kernel_args(q, k, v, adj, val):
+def _check_dropout(seed, rate):
+    if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
+        raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
+
+
+def _check_kernel_args(q, k, v, adj, val, seed, rate):
     for name, t in (("q", q), ("k", k)):
         if t.dtype != v.dtype or t.shape != v.shape or t.device != v.device:
             raise ValueError(f"{name} must match v in dtype, shape and device")
-    _check_block_args(v, adj, val, q=q, k=k)
+    _check_block_args(v, adj, val, score="dot", q=q, k=k)
+    _check_dropout(seed, rate)
 
 
 def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
@@ -263,8 +303,7 @@ def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
                     or t.device != v.device):
                 raise ValueError(f"{name} must be [B, P, h] of fp32 or v's dtype on v's device")
     _check_block_args(v, adj, val, e_row=e_row, e_col=e_col)
-    if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
-        raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
+    _check_dropout(seed, rate)
 
 
 def _dropout_args(seed: int, rate: float) -> list:
@@ -274,19 +313,21 @@ def _dropout_args(seed: int, rate: float) -> list:
     return [1, seed, edge_dropout.keep_threshold(rate), edge_dropout.drop_scale(rate)]
 
 
-def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
+def flash_mask_fwd(q, k, v, adj, val=None, *, seed: int = 0, rate: float = 0.0,
+                   want_lse: bool = False):
     """Masked attention forward: ``(out [B, P, h, f], lse [h, B, P] | None)``.
 
     CPU tensors run :func:`flash_mask_fwd_plain`.  CUDA tensors launch the
     kernel on the current stream: fp32 or bf16 ``q, k, v`` of one shape,
-    contiguous; uint8 ``adj``; fp32 ``val`` or None.  Anything else raises.
+    contiguous, 1 <= f <= 256; uint8 ``adj``; fp32 ``val`` or None;
+    ``0 <= rate < 1`` and a uint32 ``seed``.  Anything else raises.
     """
     if q.device.type == "cpu":
-        out, lse = flash_mask_fwd_plain(q, k, v, adj, val)
+        out, lse = flash_mask_fwd_plain(q, k, v, adj, val, seed=seed, rate=rate)
         return out, (lse if want_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_mask_fwd kernel for device {q.device}")
-    _check_kernel_args(q, k, v, adj, val)
+    _check_kernel_args(q, k, v, adj, val, seed, rate)
     B, P, h, f = q.shape
     out = torch.empty_like(v)
     lse = (torch.empty((h, B, P), dtype=torch.float32, device=q.device)
@@ -297,28 +338,30 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, want_lse: bool = False):
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             adj.data_ptr(), None if val is None else val.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
-            B, P, h, f, torch.cuda.current_stream().cuda_stream)
+            B, P, h, f, *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_mask_fwd")
     global LAUNCHES
     LAUNCHES += 1
     return out, lse
 
 
-def flash_mask_bwd(q, k, v, adj, val, out, lse, do):
+def flash_mask_bwd(q, k, v, adj, val, out, lse, do, *, seed: int = 0, rate: float = 0.0):
     """Masked attention backward: ``(dq, dk, dv)`` ``[B, P, h, f]``.
 
-    ``out`` and ``lse`` are the forward's; ``do`` is the output's gradient.
-    Computes ``delta`` (:func:`bwd_delta`), then on CPU tensors runs
-    :func:`flash_mask_bwd_plain` and on CUDA tensors launches the kernel
-    (two passes, one C call) on the current stream.  The kernel takes what
+    ``out`` and ``lse`` are the forward's (``out`` with dropout applied, for
+    ``delta``); ``do`` is the output's gradient; ``seed`` and ``rate`` the
+    forward's dropout.  Computes ``delta`` (:func:`bwd_delta`), then on CPU
+    tensors runs :func:`flash_mask_bwd_plain` and on CUDA tensors launches
+    the kernel (one C call) on the current stream.  The kernel takes what
     the forward kernel takes, with ``out`` and ``do`` of q's dtype and shape,
     ``do`` contiguous, and ``lse`` fp32 ``[h, B, P]``; anything else raises.
     """
     if q.device.type == "cpu":
-        return flash_mask_bwd_plain(q, k, v, adj, val, lse, do, bwd_delta(do, out))
+        return flash_mask_bwd_plain(q, k, v, adj, val, lse, do, bwd_delta(do, out), seed=seed,
+                                    rate=rate)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_mask_bwd kernel for device {q.device}")
-    _check_kernel_args(q, k, v, adj, val)
+    _check_kernel_args(q, k, v, adj, val, seed, rate)
     for name, t in (("out", out), ("do", do)):
         if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{name} must match q in dtype, shape and device")
@@ -337,7 +380,7 @@ def flash_mask_bwd(q, k, v, adj, val, out, lse, do):
             adj.data_ptr(), None if val is None else val.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, P, h, f, torch.cuda.current_stream().cuda_stream)
+            B, P, h, f, *_dropout_args(seed, rate), torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_mask_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
@@ -428,20 +471,23 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
 
 
 class _FlashDot(torch.autograd.Function):
-    """The flash kernels in autograd, on every device.
+    """Kernels #1 and #3 in autograd, on every device.
 
     The forward saves q, k, v, out and lse; the backward runs
     :func:`flash_mask_bwd` (the plain versions on CPU tensors, the kernels
-    on CUDA tensors).  ``adj`` and ``val`` get no gradient: edge values are
-    constants on this path, as in the JAX package's ``_flash_dot_bwd``.
+    on CUDA tensors).  ``seed`` and ``rate`` are constants; the backward
+    regenerates the forward's dropout mask from the seed.  ``adj`` and
+    ``val`` get no gradient: edge values are constants on this path, as in
+    the JAX package's ``_flash_dot_bwd``.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, adj, val):
+    def forward(ctx, q, k, v, adj, val, seed=0, rate=0.0):
         need = any(ctx.needs_input_grad)
-        out, lse = flash_mask_fwd(q, k, v, adj, val, want_lse=need)
+        out, lse = flash_mask_fwd(q, k, v, adj, val, seed=seed, rate=rate, want_lse=need)
         if need:
             ctx.save_for_backward(q, k, v, adj, val, out, lse)
+            ctx.kw = dict(seed=seed, rate=rate)
         return out
 
     @staticmethod
@@ -449,8 +495,9 @@ class _FlashDot(torch.autograd.Function):
         q, k, v, adj, val, out, lse = ctx.saved_tensors
         # grad_out may come expanded or strided (e.g. from .sum()); the kernel
         # reads [B, P, h, f] contiguous
-        dq, dk, dv = flash_mask_bwd(q, k, v, adj, val, out, lse, grad_out.contiguous())
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_mask_bwd(q, k, v, adj, val, out, lse, grad_out.contiguous(),
+                                    **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 class _FlashAdd(torch.autograd.Function):
@@ -495,31 +542,27 @@ def flash_graph_attention(
     """Fused masked attention over a :class:`DenseBatch`, ``[B, P, h, f]``.
 
     Numerics match :func:`dfgnn_tpu_torch.ops.dense_block.dense_graph_attention`.
-    ``score="add"`` takes node-major ``e_row``/``e_col`` ``[B, P, h]``, and
-    ``dropout_rate > 0`` drops its attention weights in the kernels with the
-    edge hash of a seed drawn from ``dropout_generator`` (a CPU generator).
+    ``score="add"`` takes node-major ``e_row``/``e_col`` ``[B, P, h]``.  On
+    either score, ``dropout_rate > 0`` drops the attention weights in the
+    kernels with the edge hash of a seed drawn from ``dropout_generator`` (a
+    CPU generator).
     Edge values (``batch.val``) scale the raw scores and get no gradient.
     Differentiable through :class:`_FlashDot` and :class:`_FlashAdd`: the
     kernels on CUDA tensors, their plain versions on CPU tensors.
     """
+    if score not in ("dot", "add"):
+        raise ValueError(f"unknown score mode {score!r}")
     rate = float(dropout_rate)
     val = None if batch.val is None else batch.val.float()
+    seed = 0
+    if rate > 0.0:
+        if dropout_generator is None:
+            raise ValueError("dropout_rate > 0 requires dropout_generator")
+        seed = edge_dropout.seed_from_generator(dropout_generator)
     if score == "add":
-        seed = 0
-        if rate > 0.0:
-            if dropout_generator is None:
-                raise ValueError("dropout_rate > 0 requires dropout_generator")
-            seed = edge_dropout.seed_from_generator(dropout_generator)
         return _FlashAdd.apply(e_row.contiguous(), e_col.contiguous(), v, batch.adj, val,
                                float(negative_slope), seed, rate)
-    if score != "dot":
-        raise ValueError(f"unknown score mode {score!r}")
-    if rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout on the dot score (the edge hash in kernels #1 and #3, "
-            "_fwd_kernel_dot and _bwd_kernel_dot) is not ported yet: ROADMAP.md queue 2. "
-            "method='dense' takes dropout")
-    return _FlashDot.apply(q, k, v, batch.adj, val)
+    return _FlashDot.apply(q, k, v, batch.adj, val, seed, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +590,21 @@ def layer_smem_bytes(score: str, P: int, f: int, dtype: torch.dtype) -> int:
     if score == "dot":
         return 4 * floats + item * (2 * P + _LAYER_Q) * row
     return 4 * (floats + 2 * P) + item * P * row
+
+
+def layer_fits(score: str, P: int, f: int, dtype: torch.dtype) -> bool:
+    """Whether kernel #5 (``score="dot"``) or #6 (``"add"``) takes a layer of
+    head dim ``f`` over ``P`` nodes in ``dtype``: f in KERNEL_HEAD_DIMS, P <=
+    KERNEL_MAX_P and a block within one H100 block's shared memory."""
+    return (f in KERNEL_HEAD_DIMS and 1 <= P <= KERNEL_MAX_P
+            and layer_smem_bytes(score, P, f, dtype) <= MAX_SMEM_BYTES)
+
+
+def flash_takes(score: str, P: int, f: int) -> bool:
+    """Whether the flash kernels of ``score`` (#1 and #3, or #2 and #4) take
+    a DenseBatch of ``P`` nodes and head dim ``f``: the shape rule of
+    ``method="auto"``, which runs anything else densely."""
+    return takes_head_dim(score, f) and 1 <= P <= KERNEL_MAX_P
 
 
 def _layer_project(x, w, b, scale: float = 1.0):

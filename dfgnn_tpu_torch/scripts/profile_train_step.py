@@ -1,6 +1,6 @@
 """Where a GTModel train step's device time goes, on the card.
 
-    python -m dfgnn_tpu_torch.scripts.profile_train_step [--impl auto|dense]
+    python -m dfgnn_tpu_torch.scripts.profile_train_step [--impl auto|dense|flash_fused]
 
 Builds the main path's GTModel (ogbg-molhiv, hidden 128, 8 layers, 1 head)
 with random weights from a seed, collates one bs=1024 batch, and reports
@@ -34,7 +34,9 @@ from dfgnn_tpu_torch.utils.benchmark import benchmark
 DATASET, DIM, LAYERS, BATCH, PROFILED_STEPS = "ogbg-molhiv", 128, 8, 1024, 5
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("attention forward kernel #1", ("flash_mask_fwd_kernel",)),
-    ("attention backward kernel #3", ("flash_mask_bwd_rows", "flash_mask_bwd_cols")),
+    ("attention backward kernel #3", ("flash_mask_bwd_whole", "flash_mask_bwd_rows",
+                                      "flash_mask_bwd_cols")),
+    ("whole-layer kernel #5", ("flash_layer_dot",)),
     ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "splitK", "dot_kernel")),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
     ("embedding", ("embedding", "Embedding", "indexSelect", "index_select")),
@@ -63,7 +65,7 @@ def _busy_us(intervals) -> float:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--impl", default="auto", choices=["auto", "dense"])
+    p.add_argument("--impl", default="auto", choices=["auto", "dense", "flash_fused"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("this script profiles a CUDA card, and none is available")

@@ -30,7 +30,7 @@ import torch
 from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
 from dfgnn_tpu_torch.graph import DenseBatch
 from dfgnn_tpu_torch.models import make_conv
-from dfgnn_tpu_torch.models.conv import _auto_bf16_dense_batch
+from dfgnn_tpu_torch.models.conv import _auto_bf16_dense_batch, _auto_bf16_gat
 from dfgnn_tpu_torch.utils.benchmark import benchmark
 from dfgnn_tpu_torch.utils.config import build_parser, parse_args
 
@@ -63,8 +63,9 @@ def run_point(conv: str, batch: DenseBatch, dim: int, heads: int, rng) -> dict:
         row["fp32_flash"] = benchmark(lambda: layer32(batch, x, impl="flash"), iters=ITERS)[1]
     bf16 = {impl: row[impl] for impl in IMPLS[conv]}
     row["winner"] = min(bf16, key=bf16.get)
-    # the impl the port's bf16 method="auto" takes here (GAT's is always flash_fused)
-    row["auto"] = "flash_fused" if conv == "gat" else _auto_bf16_dense_batch(conv, batch, dim)
+    # the impl the port's bf16 method="auto" takes here
+    row["auto"] = (_auto_bf16_gat(batch, dim) if conv == "gat"
+                   else _auto_bf16_dense_batch(conv, batch, dim))
     row["default_ok"] = bool(bf16[row["auto"]] <= min(bf16.values()) * DEFAULT_SLACK)
     row["n_edges"] = batch.n_edges
     return row

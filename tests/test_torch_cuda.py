@@ -82,9 +82,100 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_mask.flash_mask_fwd(q.double(), k.double(), v.double(), adj)
     with pytest.raises(ValueError, match="uint8"):
         flash_mask.flash_mask_fwd(q, k, v, adj.bool())
-    q48 = torch.zeros(2, 64, 1, 48, device=cuda)
+    # any head dim up to 256 runs (f = 48 is no power of two); 300 is refused
+    q48 = torch.randn(2, 64, 1, 48, device=cuda)
+    out, lse = flash_mask.flash_mask_fwd(q48, q48, q48, adj, want_lse=True)
+    want_out, want_lse = flash_mask.flash_mask_fwd_plain(q48, q48, q48, adj)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    q300 = torch.zeros(2, 64, 1, 300, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
-        flash_mask.flash_mask_fwd(q48, q48, q48, adj)
+        flash_mask.flash_mask_fwd(q300, q300, q300, adj)
+
+
+# The tensor-core kernels #1 and #3 at head dims off the powers of two, at
+# the single-block P (26, 128) and the streaming P (300, 2048), in both
+# dtypes; edge values at f = 12 and 96, dropout at P = 26 and 300.
+# (B, h) keep each case small.
+NEW_F, NEW_P = (12, 48, 96, 128), (26, 128, 300, 2048)
+_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 2048: (1, 1)}
+
+
+def _kernel_case(seed, P, f, dtype):
+    B, h = _BH[P]
+    q, k, v, adj, val = _inputs(seed, B, h, P, f, with_val=f in (12, 96), dtype=dtype)
+    kw = dict(seed=0x5EED, rate=0.4 if P in (26, 300) else 0.0)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(q.shape)
+                          .astype(np.float32)).cuda().to(dtype)
+    return (q, k, v, adj, val), do, kw
+
+
+def _f64(*ts):
+    return [None if t is None or t.dtype == torch.uint8 else t.double() for t in ts]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", NEW_P)
+@pytest.mark.parametrize("f", NEW_F)
+def test_tensor_core_kernels_match_plain(cuda, f, P, dtype):
+    """The forward against the plain version; in fp32 the backward against
+    the plain version evaluated in fp64 on the same inputs (with edge values
+    and unit-scale dO, the fp32 plain version's own rounding of dq reaches
+    1e-4 at P = 300; the kernel lies nearer the fp64 value than it)."""
+    args, do, kw = _kernel_case(30, P, f, dtype)
+    out, lse = flash_mask.flash_mask_fwd(*args, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_mask_fwd_plain(*args, **kw)
+    got = flash_mask.flash_mask_bwd(*args, want_out, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+        q, k, v, adj, val = args
+        want = flash_mask.flash_mask_bwd_plain(
+            *_f64(q, k, v), adj, *_f64(val, want_lse, do),
+            flash_mask.bwd_delta(*_f64(do, want_out)), **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.double(), w, **BWD_FP32_TOL)
+    else:
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=3e-2)
+        want = flash_mask.flash_mask_bwd_plain(*args, want_lse, do,
+                                               flash_mask.bwd_delta(do, want_out), **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            scale = float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+@pytest.mark.parametrize("P", [128, 300])
+def test_tensor_core_kernels_are_deterministic(cuda, P):
+    """Two launches give bitwise equal results: no atomics, a fixed order of
+    sums, the same dropout bits."""
+    args, do, kw = _kernel_case(31, P, 96, torch.float32)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_mask.flash_mask_fwd(*args, want_lse=True, **kw)
+        runs.append((out, lse, *flash_mask.flash_mask_bwd(*args, out, lse, do, **kw)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [32, 200])
+def test_dot_dropout_mask_is_dropout_factor(cuda, P):
+    """With q = k = 0 every edge weighs 1 / degree, and v = one-hot of the key
+    reads each weight out: the kernel's kept edges are exactly those of
+    dropout_factor (the edge hash), and the kept weights carry its scale."""
+    B, h, rate, seed = 2, 2, 0.4, 0x5EED
+    _, _, _, adj, _ = _inputs(32, B, h, P, 8)
+    zeros = torch.zeros(B, P, h, P, device=cuda)
+    onehot = torch.eye(P, device=cuda)[None, :, None, :].expand(B, P, h, P).contiguous()
+    out, lse = flash_mask.flash_mask_fwd(zeros, zeros, onehot, adj, want_lse=True, seed=seed,
+                                         rate=rate)
+    keep = flash_mask.dropout_factor(seed, rate, B, h, P, cuda)        # [B, h, P, P]
+    edges = adj[:, None].bool()
+    got = out.permute(0, 2, 1, 3)                                     # [B, h, P(row), P(key)]
+    assert torch.equal(got != 0, edges & (keep != 0))
+    deg = edges.sum(-1, keepdim=True).clamp_min(1).float()
+    torch.testing.assert_close(got * deg, torch.where(edges, keep, 0.0), rtol=1e-6, atol=0)
 
 
 # (B, h, P, f, with_val): the training path's shape, chip_smoke.py's shapes,

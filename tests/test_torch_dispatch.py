@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from dfgnn_tpu_torch import DenseBatch, GTConv, graph_attention
-from dfgnn_tpu_torch.ops import dense_block, flash_mask
+from dfgnn_tpu_torch.ops import dense_block, edge_dropout, flash_mask
 from dfgnn_tpu_torch.utils.benchmark import benchmark
 
 
@@ -67,12 +67,17 @@ def test_layouts_not_ported_raise(layout):
 
 
 def test_flash_refuses_what_is_not_ported():
-    """Dot-score dropout (kernels #1 and #3) still raises; the add score,
+    """Dot-score dropout (kernels #1 and #3) runs and applies the edge-hash
+    mask of the generator's seed to the normalised weights; the add score,
     ported with kernels #2 and #4, runs and matches the dense oracle."""
     batch, q, k, v = _small()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="kernels #1 and #3"):
-        graph_attention(batch, q, k, v, dropout_rate=0.1, dropout_generator=gen)
+    seed = edge_dropout.seed_from_generator(torch.Generator().manual_seed(0))
+    got = graph_attention(batch, q, k, v, dropout_rate=0.1, dropout_generator=gen)
+    w = dense_block.dense_graph_attention(batch, q, k, v, return_weights=True)[1]
+    keep = flash_mask.dropout_factor(seed, 0.1, 2, 1, 16, "cpu")  # [B, h, P, P]
+    want = torch.einsum("bhrc,bchf->brhf", w * keep, v)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     rng = np.random.default_rng(1)
     e_row, e_col = (torch.from_numpy(rng.standard_normal((2, 16, 1)).astype(np.float32))
                     for _ in range(2))
