@@ -12,7 +12,10 @@ backward (#4) of the additive (GAT) score, with and without dropout and with
 fp32 scores beside a bf16 v, and the whole-layer kernels of GT (#5) and GAT
 (#6, with and without dropout, and against the decomposed path with the
 same seed); each is timed beside its bound and beside PyTorch's nearest call
-(``scaled_dot_product_attention``, after ``F.linear`` for #5 and #6).  Then
+(``scaled_dot_product_attention``, after ``F.linear`` for #5 and #6); #2,
+on the body it shares with #1, also at the GAT training shape, on
+the ogbg-molhiv batch, on a batch with every fourth graph empty and at
+P = 300, each with and without dropout.  Then
 it drives the slice's paths with random weights from a seed, each with the
 six launch counts set to 0 just before it and read just after:
 - GTModel serving: the 8-layer, hidden-128, 1-head model over three bs=1024
@@ -40,7 +43,9 @@ six launch counts set to 0 just before it and read just after:
   ``FullGraphNet(gat)`` Adam step with its peak memory;
 - the shmoo twin at dim 256 (bs=256) and bs 1024 and 2048 (dim 128);
 - the gather kernels #7 (``gather_rows``) and #8 (``take_rows``) against
-  their plain versions, exactly, and timed beside ``torch.index_select``;
+  their plain versions, exactly, and timed beside ``torch.index_select``
+  (#8 also at a 20,000-row slab, past what a block's shared memory holds),
+  with each slab's ``take_plan``;
 - full-graph serving: the twin ``dfgnn_tpu_torch.scripts.test_full_graph``
   on the reddit stand-in (14.6M edges) at dim 128 with GT and GAT, the bucket
   path against the oracle on a 4M-edge subsample;
@@ -48,7 +53,8 @@ six launch counts set to 0 just before it and read just after:
   (GATNet, arxiv stand-in), the bucket path's custom backward against
   autograd through the oracle at dropout 0 and 0.4, and ``run_parity_full``;
 - the gather probe twin ``dfgnn_tpu_torch.scripts.microbench_gather``, the
-  path that launches #7 and #8, with its table sweep.
+  path that launches #7 and #8, with its table sweep and its rows of the
+  cluster probe (#8's function with the slab in a cluster's shared memory).
 The bucket path is torch ops, so the full-graph phases launch none of the
 hand-written kernels, and they assert that.  Prints progress and each
 phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -97,8 +103,10 @@ ADD_SHAPES = [  # (B, h, P, f, with_val, dtype): kernels #2 and #4
     (1024, 1, 128, 64, False, torch.float32),   # the GAT training step's shape
     (3, 2, 64, 16, True, torch.float32),
     (2, 4, 512, 32, False, torch.float32),
+    (3, 2, 300, 64, True, torch.float32),       # #2's streaming block
     (1024, 1, 128, 128, False, torch.bfloat16),
 ]
+ADD_TRAIN = (1024, 1, 128, 64)  # the GAT training step's shape, timed too
 ADD_BWD_SHAPES = ADD_SHAPES + [(2, 2, 100, 64, True, torch.float32)]
 LAYER_SHAPES = [  # (B, h, P, din, f, dtype): kernels #5 and #6
     (1024, 1, 128, 128, 128, torch.float32),   # GT and GAT serving at full width
@@ -121,7 +129,7 @@ GATHER_SHAPES = [  # (table rows, row shape, dtype, rows gathered, chunk, lookah
     (1 << 18, (128,), torch.float32, (1 << 20) + 77, 512, 15), # M not a multiple of chunk
     (1 << 18, (128,), torch.bfloat16, 1 << 20, 256, 7),        # a bf16 table
 ]
-TAKE_SLABS, TAKE_MAIN = (512, 1024, 4096), 4096  # #8's slabs of 128 fp32, 2**20 ids
+TAKE_SLABS, TAKE_MAIN = (512, 1024, 4096, 20000), 4096  # #8's slabs of 128 fp32, 2**20 ids
 FULL_SERVE_ARGS = ["--dataset", "reddit", "--dim", "128", "--heads", "1", "--format", "all_fg"]
 FULL_TRAIN_ARGS = ["--dataset", "arxiv", "--dim", "64", "--heads", "4", "--n-layers", "2",
                    "--epochs", "5", "--lr", "1e-2"]
@@ -498,7 +506,7 @@ def main() -> int:
     holes = table_adj.clone()
     holes[::4] = 0
     dot_case("table shape, every fourth graph empty", holes, 128, torch.float32, seed=6)
-    del molhiv, molhiv_adj, pattern_adj, table_adj, holes
+    del molhiv, pattern_adj  # molhiv_adj, table_adj and holes serve phase 10 too
     phase_done("4b kernels #1 and #3 at the main path's inputs")
 
     # 5. serving: GTModel forward over bs=1024 PATTERN-like requests
@@ -725,19 +733,21 @@ def main() -> int:
             print(f"add fwd kernel vs plain B={B} h={h} P={P} f={f} val={with_val} {dtype} "
                   f"rate={rate}: max abs err out {e_out:.3e} (tol {tol}), lse {e_lse:.3e}"
                   + kept(adj, h, rate))
-            if (B, h, P, f) != MAIN_SHAPE:
+            if (B, h, P, f) not in (MAIN_SHAPE, ADD_TRAIN):
                 continue
+            where = "the main shape" if (B, h, P, f) == MAIN_SHAPE else "the training shape"
             if rate > 0.0:
                 drop_ms = benchmark(lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj, **kw))[1]
-                print(f"  {dtype} with dropout rate {rate}: kernel {drop_ms:.4f} ms")
+                print(f"  {dtype} at {where} with dropout rate {rate}: kernel {drop_ms:.4f} ms")
                 continue
             ms, plain_ms = in_turns(
                 benchmark,
                 lambda: flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj),
                 lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj))
-            print(f"  {dtype} at the main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"({smi})")
-            if dtype == torch.float32:
+            bound_ms, bound_by, _ = attention_bound(1, adj, h, f, add_bytes(B, h, P, f, 4)[0])
+            print(f"  {dtype} at {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+            if dtype == torch.float32 and (B, h, P, f) == MAIN_SHAPE:
                 mask_f = masked_leaky(e_row, e_col, adj)
                 zq = torch.zeros(B, h, P, 8, device="cuda")
                 vh = v.transpose(1, 2)
@@ -748,6 +758,51 @@ def main() -> int:
                 set_bound(add_fwd_rec, 1, adj, h, f, add_bytes(B, h, P, f, 4)[0])
                 add_fwd_rec.update(max_abs_err=e_out, ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms)
+
+    def add_case(name, adj, f, dtype, rate=0.0, seed=0, time_it=True):
+        """#2 on one adjacency against its plain version (rows without an
+        edge exactly 0 and -1e30), timed in turns; the bound counts the
+        feature rows of keys with an edge, as #1's does."""
+        B, P, _ = adj.shape
+        rng = np.random.default_rng(seed)
+        t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+        e_row, e_col, v = t(B, P, 1), t(B, P, 1), t(B, P, 1, f).to(dtype)
+        kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+        out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
+        torch.cuda.synchronize()
+        want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+        fp32 = dtype == torch.float32
+        e_out = max_err(out, want_out, FP32_TOL if fp32 else BF16_TOL)
+        e_lse = max_err(lse, want_lse, FP32_TOL)
+        empty = adj.sum(-1) == 0
+        if not (bool((out[empty] == 0).all())
+                and bool((lse[0][empty] == flash_mask.NEG_BIG).all())):
+            raise AssertionError(f"#2 {name}: rows without an edge must give out = 0 and "
+                                 f"lse = -1e30")
+        print(f"#2 {name}: B={B} P={P} f={f} {dtype} rate={rate}, {int(adj.sum())} edges, "
+              f"{int(empty.sum())} rows without an edge: max abs err out {e_out:.3e}, lse "
+              f"{e_lse:.3e}" + kept(adj, 1, rate))
+        if not time_it:
+            return
+        ms, plain_ms = in_turns(
+            benchmark, lambda: flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw),
+            lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj, **kw))
+        item = 4 if fp32 else 2
+        keys = int((adj.sum(-2) > 0).sum())
+        nbytes = keys * f * item + B * P * P + B * P * f * item + 3 * B * P * 4
+        bound_ms, bound_by = bound(2 * int(adj.sum()) * f, nbytes)
+        print(f"  #2 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} "
+              f"{bound_by})")
+
+    for rate in DROP_RATES:
+        for dtype in (torch.float32, torch.bfloat16):
+            add_case("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj, HIDDEN, dtype,
+                     rate=rate, seed=30)
+        add_case("table shape, every fourth graph empty", holes, HIDDEN, torch.float32,
+                 rate=rate, seed=31)
+        add_case("table adjacency at f=64 (the training shape)", table_adj, 64,
+                 torch.bfloat16, rate=rate, seed=32, time_it=rate == 0.0)
+    del molhiv_adj, table_adj, holes
 
     for i, (B, h, P, f, with_val, dtype) in enumerate(ADD_BWD_SHAPES):
         e_row, e_col, v, adj, val = add_inputs(40 + i, B, h, P, f, with_val, dtype)
@@ -1177,8 +1232,9 @@ def main() -> int:
         lib_ms = benchmark(lambda: torch.index_select(slab, 0, clipped))[1]
         nbytes = idx.numel() * (4 + 512) + S * 512  # ids and the slab read, rows written
         bound_ms, bound_by = bound(0, nbytes)
+        lanes, rows = gather.take_plan(S, 512)
         print(f"#8 take_rows vs plain: slab {S} x 128 fp32, 2**20 ids in [-100, {S + 100}): "
-              f"equal; {gather.take_smem_bytes(S, 512)} B of shared memory a block; kernel "
+              f"equal; plan: {rows} row(s) of {lanes} lanes a warp instruction; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.index_select of the clipped ids "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
         if S == TAKE_MAIN:
@@ -1320,8 +1376,11 @@ def main() -> int:
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]
+    for rec in records:  # redesigned for this card since the first port (PERF.md section 6)
+        rec["redesigned"] = rec["name"] in ("flash_mask_fwd", "flash_mask_bwd", "flash_add_fwd",
+                                            "take_rows")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "redesigned")
     for rec in records:
         if set(rec) != set(keys):
             raise AssertionError(f"kernel record {rec['name']} lacks {set(keys) - set(rec)}")

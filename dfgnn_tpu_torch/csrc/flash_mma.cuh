@@ -1,10 +1,10 @@
-// Tensor-core building blocks of the redesigned dot-score kernels #1
-// (flash_mask_fwd.cu) and #3 (flash_mask_bwd.cu): warp-level mma.sync
-// products over shared-memory tiles, 3xTF32 for fp32 and bf16 with fp32
-// accumulators, cp.async staging of [rows, F] tiles with zero fill, and the
-// adjacency scan that finds the tiles with no edge.
+// Tensor-core building blocks of the redesigned kernels #1 and #2 (their
+// shared forward body, flash_fwd.cuh) and #3 (flash_mask_bwd.cu): warp-level
+// mma.sync products over shared-memory tiles, 3xTF32 for fp32 and bf16 with
+// fp32 accumulators, cp.async staging of [rows, F] tiles with zero fill, and
+// the adjacency scan that finds the tiles with no edge.
 //
-// Why mma.sync and not wgmma.  Every product of #1 and #3 has one operand
+// Why mma.sync and not wgmma.  Every product of #1 to #3 has one operand
 // that is produced in the kernel (p, ds, pn) and lives in a per-warp
 // shared-memory tile, and three of them (p.V, ds^T.Q, pn^T.dO) read an
 // operand along its rows.  wgmma's .tf32 form takes both operands K-major
@@ -84,6 +84,17 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// Two consecutive elements (p[0], p[1]) = (a, b) rounded to T, one store; p
+// 8-byte (fp32) or 4-byte (bf16) aligned.
+template <typename T> __device__ __forceinline__ void store_pair(T* p, float a, float b);
+template <> __device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2(__float2bfloat16(a), __float2bfloat16(b));
+}
+
 template <bool TRANS>
 __device__ __forceinline__ float at(const float* p, int ld, int r, int c) {
   return TRANS ? p[c * ld + r] : p[r * ld + c];
@@ -150,6 +161,73 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const __nv_bfloat1
     const uint32_t b0 = pair<!B_NM>(Bm, ldb, n, k0 + 2 * t);
     const uint32_t b1 = pair<!B_NM>(Bm, ldb, n, k0 + 2 * t + 8);
     mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
+  }
+}
+
+// acc[mt][j] += A_mt(rows 0..15, k0..k0+kstep) . B(k0.., n0 + 8j ..) for the
+// two m-tiles mt whose bit in `mts` is set (A_mt at A + 16 mt rows, stored
+// A[m][k]) and j < NT with bit j of `nmask` set; B stored B[k][n].  Each B
+// fragment is loaded (and, fp32, split) once for both m-tiles; the products
+// are mma_step's.
+template <int NT>
+__device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A, int lda,
+                                          const float* Bm, int ldb, int k0, int n0,
+                                          uint32_t nmask, uint32_t mts) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (!((mts >> mt) & 1u)) continue;
+    const float* Am = A + mt * 16 * lda;
+    split_tf32(Am[g * lda + k0 + t], ah[mt][0], al[mt][0]);
+    split_tf32(Am[(g + 8) * lda + k0 + t], ah[mt][1], al[mt][1]);
+    split_tf32(Am[g * lda + k0 + t + 4], ah[mt][2], al[mt][2]);
+    split_tf32(Am[(g + 8) * lda + k0 + t + 4], ah[mt][3], al[mt][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (!((nmask >> j) & 1u)) continue;
+    const int n = n0 + 8 * j + g;
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(Bm[(k0 + t) * ldb + n], bh0, bl0);
+    split_tf32(Bm[(k0 + t + 4) * ldb + n], bh1, bl1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (!((mts >> mt) & 1u)) continue;
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_tf32(part, al[mt][0], al[mt][1], al[mt][2], al[mt][3], bh0, bh1);
+      mma_tf32(part, ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3], bl0, bl1);
+      mma_tf32(part, ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3], bh0, bh1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[e];
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const __nv_bfloat16* A,
+                                          int lda, const __nv_bfloat16* Bm, int ldb, int k0,
+                                          int n0, uint32_t nmask, uint32_t mts) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (!((mts >> mt) & 1u)) continue;
+    const __nv_bfloat16* Am = A + mt * 16 * lda;
+    a[mt][0] = pair<false>(Am, lda, g, k0 + 2 * t);
+    a[mt][1] = pair<false>(Am, lda, g + 8, k0 + 2 * t);
+    a[mt][2] = pair<false>(Am, lda, g, k0 + 2 * t + 8);
+    a[mt][3] = pair<false>(Am, lda, g + 8, k0 + 2 * t + 8);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (!((nmask >> j) & 1u)) continue;
+    const int n = n0 + 8 * j + g;
+    const uint32_t b0 = pair<true>(Bm, ldb, n, k0 + 2 * t);
+    const uint32_t b1 = pair<true>(Bm, ldb, n, k0 + 2 * t + 8);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if ((mts >> mt) & 1u) mma_bf16(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
   }
 }
 

@@ -17,24 +17,43 @@
 //    width is a multiple of 16 bytes); indices must lie in [0, N), the DMA
 //    kernel's contract: they are not clamped.  The last block takes the
 //    remainder of M, which the Pallas grid never had to.
-// #8 take_rows: out[i] = slab[clip(idx[i] < 0 ? idx[i] + S : idx[i], 0, S-1)],
-//    replacing _take_kernel (take_along_axis(mode="clip") from a slab held in
-//    VMEM; a negative id counts from the end, as numpy's take_along_axis).  Shared memory
-//    is the H100's fast memory, and a block has at most 227 KB of it, which a
-//    4096 x 128 fp32 slab (2 MB) does not fit.  So each block clips its
-//    `chunk` ids into shared memory once, then stages the slab one column
-//    tile at a time (S rows of `tile` 16-byte pieces) and gathers its rows'
-//    tile from shared memory.
+//    What bounds it (H100 SXM data-sheet peaks): bytes only.  At the probe's
+//    shape (2**20 rows of 512 B from a 2**18-row table) it must read M*512 B
+//    of rows and M*4 B of ids and write M*512 B: 1.078 GB, 0.32 ms at 3.35
+//    TB/s.  A random 512 B row is four 128-byte lines, so the gather can run
+//    at the memory's rate if enough copies are in flight; the ring keeps LA
+//    rows in flight per block.
 //
-// What bounds them on an H100 SXM (data-sheet peaks): no arithmetic, only
-// bytes.  #7 at the probe's shape (2**20 rows of 512 B from a 2**18-row
-// table) must read M*512 B of rows and M*4 B of ids and write M*512 B: 1.078
-// GB, 0.32 ms at 3.35 TB/s.  #8 reads the slab once and writes M rows: about
-// half that.  A random 512 B row is four 128-byte lines, so the gather can
-// run at the memory's rate if enough copies are in flight; #7's ring keeps
-// LA rows in flight per warp-sized block.  #8's staged slab is re-read from
-// L2 by every block and its writes are `tile` pieces wide (16 B at S=4096),
-// which halves the use of each 32-byte sector written.
+// #8 take_rows: out[i] = slab[clip(idx[i] < 0 ? idx[i] + S : idx[i], 0, S-1)],
+//    replacing _take_kernel (scripts/microbench_gather.py:107,
+//    take_along_axis(mode="clip") from a slab held in VMEM; a negative id
+//    counts from the end, as numpy's take_along_axis).
+//    What bounds it: bytes only.  It must read the ids (M*4 B) and the slab
+//    once and write M rows: at 2**20 ids of 512 B rows and S = 4096, 2**20 x
+//    516 B + 2 MB = 0.543 GB, 0.1621 ms at 3.35 TB/s.  The writes are 97% of
+//    that, so the kernel is as fast as its stores are whole.
+//    The kernel it replaces staged the slab one 16-byte column sliver at a
+//    time (a 2 MB slab does not fit a block's 227 KB), re-read it from L2 in
+//    every block, and wrote each output row in 32 slivers of 16 bytes, half
+//    a 32-byte sector each, which left L2 before their neighbours came:
+//    2.63 ms at S = 4096.  This design:
+//    - Each output row is written once, whole: a warp reads a row as 16-byte
+//      pieces, neighbouring lanes on neighbouring pieces, and stores it the
+//      same way (512 contiguous bytes per warp instruction at 128 fp32),
+//      with the streaming hint (st.global.cs): the output is not read again
+//      here.  Eight rows are in flight per warp, so the loads overlap.
+//      Narrower rows put several rows in one warp instruction (the lanes
+//      split by a shift and a mask that take_plan sets on the host); wider
+//      rows are walked 32 pieces at a time.  No per-element division.
+//    - The rows are read straight from the slab, with no staging: a slab the
+//      probe's sizes reach (2 MB at S = 4096) stays in the 50 MB L2, and the
+//      ids, read 32 at a time by a warp and passed round by shuffles, are the
+//      only other reads.  Any S an int32 id reaches runs.  Holding the slab
+//      on chip instead, split over a thread-block cluster's shared memory
+//      and read through distributed shared memory, was slower at every slab
+//      size (dfgnn_tpu_torch/scripts/probe_take_slab.py times the two side
+//      by side; PERF.md section 6).
+//    - Persistent blocks, four an SM, walk 32-id batches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,33 +111,6 @@ gather_rows_kernel(const uint4* __restrict__ tbl, const int* __restrict__ idx,
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-take_rows_kernel(const uint4* __restrict__ slab, const int* __restrict__ idx,
-                 uint4* __restrict__ out, long M, int S, int pieces, int tile, int chunk) {
-  extern __shared__ uint4 buf[];  // [S * tile] slab tile, then [chunk] int ids
-  int* ids = reinterpret_cast<int*>(buf + long(S) * tile);
-  const long start = long(blockIdx.x) * chunk;
-  const int n = int(M - start < chunk ? M - start : chunk);
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    int id = idx[start + r];
-    if (id < 0) id += S;
-    ids[r] = id < 0 ? 0 : (id >= S ? S - 1 : id);
-  }
-  const int staged = S * tile;
-  for (int c0 = 0; c0 < pieces; c0 += tile) {
-    __syncthreads();  // the ids are written and the last tile is read
-    for (int e = threadIdx.x; e < staged; e += blockDim.x) {
-      const int s = e / tile;
-      buf[e] = slab[long(s) * pieces + c0 + (e - s * tile)];
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < n * tile; e += blockDim.x) {
-      const int r = e / tile, p = e - r * tile;
-      out[(start + r) * pieces + c0 + p] = buf[ids[r] * tile + p];
-    }
-  }
-}
-
 int threads_for(int pieces) {
   const int t = (pieces + 31) / 32 * 32;
   return t < kMaxThreads ? t : kMaxThreads;
@@ -137,6 +129,60 @@ cudaError_t launch_gather(const uint4* tbl, const int* idx, uint4* out, long M, 
   gather_rows_kernel<LA><<<unsigned(n_blocks), threads_for(pieces), smem, stream>>>(
       tbl, idx, out, M, pieces, chunk);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// #8
+// ---------------------------------------------------------------------------
+
+constexpr int kTakeThreads = 512;  // 16 warps
+constexpr int kTakeWarps = kTakeThreads / 32;
+constexpr int kTakeBlocksPerSm = 4;
+constexpr int kTakeUnroll = 8;  // rows in flight per warp
+
+__device__ __forceinline__ void store_streaming(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// A warp takes 32 ids at a time; a warp instruction moves 32 >> sh rows of
+// (1 << sh) lanes each (sh = 5 for rows of 32 pieces or more, which the warp
+// then walks 32 pieces at a time).
+__global__ void __launch_bounds__(kTakeThreads)
+take_rows_kernel(const uint4* __restrict__ slab, const int* __restrict__ idx,
+                 uint4* __restrict__ out, long M, int S, int pieces, int sh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long first = (long(blockIdx.x) * kTakeWarps + warp) * 32;
+  const long step = long(gridDim.x) * kTakeWarps * 32;
+  const int rows_per_op = 32 >> sh;
+  const int sub = lane >> sh, pl = lane & ((1 << sh) - 1);
+  for (long base = first; base < M; base += step) {
+    int id = 0;
+    if (base + lane < M) {
+      id = idx[base + lane];
+      if (id < 0) id += S;
+      id = id < 0 ? 0 : (id >= S ? S - 1 : id);
+    }
+    const int n = M - base < 32 ? int(M - base) : 32;
+    for (int pp = 0; pp < pieces; pp += 32) {
+      const int p = pp + pl;
+      for (int r0 = 0; r0 < n; r0 += rows_per_op * kTakeUnroll) {
+        uint4 v[kTakeUnroll];
+#pragma unroll
+        for (int u = 0; u < kTakeUnroll; ++u) {
+          const int r = r0 + u * rows_per_op + sub;
+          const int s = __shfl_sync(0xffffffffu, id, r & 31);
+          if (r < n && p < pieces) v[u] = __ldg(slab + long(s) * pieces + p);
+        }
+#pragma unroll
+        for (int u = 0; u < kTakeUnroll; ++u) {
+          const int r = r0 + u * rows_per_op + sub;
+          if (r < n && p < pieces) store_streaming(out + (base + r) * pieces + p, v[u]);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -164,26 +210,28 @@ int dfgnn_gather_rows(const void* tbl, const void* idx, void* out, long long M, 
 }
 
 // #8.  slab: [S, row_bytes] bytes, 16-byte aligned; idx: [M] int32, a
-// negative id counted from the end, then clipped to [0, S-1]; out: [M, row_bytes].  `tile` 16-byte pieces a column tile
-// (dividing row_bytes / 16); the block's shared memory is S*tile*16 +
-// chunk*4 bytes, at most 227 KB.  Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
+// negative id counted from the end, then clipped to [0, S-1]; out:
+// [M, row_bytes].  A warp instruction takes rows of `lanes` lanes (a power
+// of two up to 32; take_plan in dfgnn_tpu_torch/ops/gather.py chooses it).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
 int dfgnn_take_rows(const void* slab, const void* idx, void* out, long long M, int S,
-                    int row_bytes, int chunk, int tile, void* stream) {
-  if (M < 1 || S < 1 || chunk < 1 || tile < 1 || row_bytes < 16 || row_bytes % 16 != 0)
+                    int row_bytes, int lanes, void* stream) {
+  int sh = 0;
+  while (sh < 5 && (1 << sh) < lanes) ++sh;
+  if (M < 1 || S < 1 || lanes < 1 || (1 << sh) != lanes || row_bytes < 16 ||
+      row_bytes % 16 != 0)
     return int(cudaErrorInvalidValue);
-  const int pieces = row_bytes / 16;
-  if (pieces % tile != 0) return int(cudaErrorInvalidValue);
-  const long smem = long(S) * tile * 16 + long(chunk) * 4;
-  if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(take_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return int(err);
-  const long n_blocks = (M + chunk - 1) / chunk;
-  if (n_blocks > 0x7fffffffL) return int(cudaErrorInvalidValue);
-  take_rows_kernel<<<unsigned(n_blocks), kMaxThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const long wanted = (M + kTakeWarps * 32 - 1) / (kTakeWarps * 32);  // blocks with work
+  const long n_blocks = wanted < long(sms) * kTakeBlocksPerSm ? wanted
+                                                               : long(sms) * kTakeBlocksPerSm;
+  auto st = static_cast<cudaStream_t>(stream);
+  take_rows_kernel<<<unsigned(n_blocks), kTakeThreads, 0, st>>>(
       static_cast<const uint4*>(slab), static_cast<const int*>(idx), static_cast<uint4*>(out),
-      M, S, pieces, tile, chunk);
+      M, S, row_bytes / 16, sh);
   return int(cudaGetLastError());
 }
 

@@ -36,9 +36,9 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernels take: the head dims #2, #4, #5 and #6 are instantiated
-# for, the widest head dim of the tensor-core kernels #1 and #3 (any f from 1
-# up to it: csrc/flash_mask_fwd.cu), and the most nodes of #1 to #4.
+# What the kernels take: the head dims #4, #5 and #6 are instantiated for,
+# the widest head dim of the tensor-core kernels #1, #2 and #3 (any f from 1
+# up to it: csrc/flash_fwd.cuh), and the most nodes of #1 to #4.
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DOT_KERNEL_MAX_F = 256
 KERNEL_MAX_P = 2048
@@ -255,18 +255,19 @@ def takes_head_dim(score: str, f: int) -> bool:
     return f in KERNEL_HEAD_DIMS
 
 
-def _check_block_args(v, adj, val, score: str = "add", **named):
+def _check_block_args(v, adj, val, score: str = "add", any_f: bool = False, **named):
     """What every kernel takes: fp32 or bf16 ``v`` ``[B, P, h, f]`` with f
-    taken (:func:`takes_head_dim`) and P <= KERNEL_MAX_P, uint8 ``adj`` and
-    fp32 ``val`` ``[B, P, P]``, all on v's device; ``v``, ``adj``, ``val`` and
-    the ``named`` tensors contiguous."""
+    taken (:func:`takes_head_dim`, or any f from 1 to DOT_KERNEL_MAX_F with
+    ``any_f``, as the additive forward #2 takes it) and P <= KERNEL_MAX_P,
+    uint8 ``adj`` and fp32 ``val`` ``[B, P, P]``, all on v's device; ``v``,
+    ``adj``, ``val`` and the ``named`` tensors contiguous."""
     if v.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes fp32 or bf16, not {v.dtype}")
     if v.dim() != 4:
         raise ValueError(f"v must be [B, P, h, f], got {tuple(v.shape)}")
     B, P, h, f = v.shape
-    if not takes_head_dim(score, f):
-        dims = (f"1 to {DOT_KERNEL_MAX_F}" if score == "dot"
+    if not takes_head_dim("dot" if any_f else score, f):
+        dims = (f"1 to {DOT_KERNEL_MAX_F}" if any_f or score == "dot"
                 else str(KERNEL_HEAD_DIMS))
         raise ValueError(f"the kernel takes head dims {dims}, not {f}; other head dims are "
                          "ROADMAP.md section 2 item c, and method='auto' runs them densely")
@@ -296,13 +297,13 @@ def _check_kernel_args(q, k, v, adj, val, seed, rate):
     _check_dropout(seed, rate)
 
 
-def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
+def _check_add_args(e_row, e_col, v, adj, val, seed, rate, any_f: bool = False):
     if v.dim() == 4:
         for name, t in (("e_row", e_row), ("e_col", e_col)):
             if (t.dtype not in (torch.float32, v.dtype) or t.shape != v.shape[:3]
                     or t.device != v.device):
                 raise ValueError(f"{name} must be [B, P, h] of fp32 or v's dtype on v's device")
-    _check_block_args(v, adj, val, e_row=e_row, e_col=e_col)
+    _check_block_args(v, adj, val, any_f=any_f, e_row=e_row, e_col=e_col)
     _check_dropout(seed, rate)
 
 
@@ -392,7 +393,9 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
     """Additive-score attention forward: ``(out [B, P, h, f], lse [h, B, P] | None)``.
 
     CPU tensors run :func:`flash_add_fwd_plain`.  CUDA tensors launch kernel
-    #2 on the current stream: fp32 or bf16 ``v``, contiguous; ``e_row,
+    #2 on the current stream: fp32 or bf16 ``v``, contiguous, any head dim
+    from 1 to DOT_KERNEL_MAX_F (the backward #4, and so ``method="auto"``,
+    takes KERNEL_HEAD_DIMS); ``e_row,
     e_col`` ``[B, P, h]`` contiguous, fp32 or v's dtype (the kernel reads
     fp32, as the Pallas kernel does, so bf16 scalars are widened exactly);
     ``adj``, ``val`` as :func:`flash_mask_fwd` takes them; ``0 <= rate < 1``
@@ -404,7 +407,7 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
         return out, (lse if want_lse else None)
     if v.device.type != "cuda":
         raise ValueError(f"no flash_add_fwd kernel for device {v.device}")
-    _check_add_args(e_row, e_col, v, adj, val, seed, rate)
+    _check_add_args(e_row, e_col, v, adj, val, seed, rate, any_f=True)
     e_row, e_col = e_row.float(), e_col.float()
     B, P, h, f = v.shape
     out = torch.empty_like(v)

@@ -18,18 +18,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from dfgnn_tpu_torch.ops import _cuda
 
 # What the kernels take (csrc/gather_rows.cu): the lookaheads #7 is
-# instantiated for (the probe's), the shared memory a block may use, #8's
-# budget for two blocks an SM and its ids a block (the probe's chunk).
+# instantiated for (the probe's), the shared memory a block may use, and the
+# most rows #8's int32 ids reach.
 GATHER_LOOKAHEADS = (7, 15, 31)
 MAX_SMEM_BYTES = 232448
-TAKE_SMEM_BUDGET = 115712
-TAKE_CHUNK = 2048
+TAKE_MAX_ROWS = 2 ** 31 - 1
 
 # Launches per wrapper call, one each; callers may reset them to 0.
 GATHER_LAUNCHES = 0  # kernel #7, by gather_rows
@@ -53,7 +53,7 @@ def _library() -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dfgnn_gather_rows.argtypes = [vp, vp, vp, ll, i, i, i, vp]
     lib.dfgnn_gather_rows.restype = i
-    lib.dfgnn_take_rows.argtypes = [vp, vp, vp, ll, i, i, i, i, vp]
+    lib.dfgnn_take_rows.argtypes = [vp, vp, vp, ll, i, i, i, vp]
     lib.dfgnn_take_rows.restype = i
     return lib
 
@@ -131,25 +131,20 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor, *, chunk: int = 512,
     return out
 
 
-def take_tile(S: int, row_bytes: int) -> int:
-    """16-byte pieces per column tile that kernel #8 stages: the widest
-    power of two dividing the row whose ``S``-row tile and ``TAKE_CHUNK`` ids
-    fit ``TAKE_SMEM_BUDGET`` (two blocks an SM), else one piece if that fits
-    a block's ``MAX_SMEM_BYTES``; 0 when nothing fits."""
+def take_plan(S: int, row_bytes: int) -> Optional[tuple[int, int]]:
+    """Kernel #8's plan for an ``S``-row slab of ``row_bytes``-byte rows:
+    ``(lanes, rows)``, a warp instruction moving ``rows`` output rows of
+    ``lanes`` 16-byte pieces each (the fewest lanes, a power of two, that
+    cover a row; a row wider than 32 pieces is walked 32 at a time), or None
+    outside the supported set (ROADMAP.md section 2, kernels #7 and #8):
+    rows that are not a multiple of 16 bytes, or more rows than an int32 id
+    reaches.  The kernel reads whole rows of the slab where it lies, so its
+    size is no limit."""
     pieces = row_bytes // 16
-    tile = 1
-    while (pieces % (2 * tile) == 0
-           and S * 2 * tile * 16 + TAKE_CHUNK * 4 <= TAKE_SMEM_BUDGET):
-        tile *= 2
-    return tile if S * tile * 16 + TAKE_CHUNK * 4 <= MAX_SMEM_BYTES else 0
-
-
-def take_smem_bytes(S: int, row_bytes: int) -> int:
-    """Shared memory a block of kernel #8 takes for an ``S``-row slab of
-    ``row_bytes`` rows; 0 when the slab is outside the supported set
-    (ROADMAP.md section 2, kernels #7 and #8)."""
-    tile = take_tile(S, row_bytes)
-    return S * tile * 16 + TAKE_CHUNK * 4 if tile else 0
+    if not 1 <= S <= TAKE_MAX_ROWS or pieces < 1 or row_bytes % 16:
+        return None
+    lanes = 1 << min(5, (pieces - 1).bit_length())
+    return lanes, 32 // lanes
 
 
 def take_rows(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -158,11 +153,10 @@ def take_rows(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     ``slab``: ``[S, ...]`` of any dtype whose row is a multiple of 16 bytes,
     contiguous; ``idx``: int32 ``[M]``, any values (a negative id counts from
-    the end, then ids are clipped to ``[0, S-1]``).  A block stages the
-    slab one column tile at a time in shared memory and gathers
-    ``TAKE_CHUNK`` rows from it; a slab whose one-piece tile and ids exceed
-    a block's shared memory (:func:`take_smem_bytes` gives 0) raises.  CPU tensors run
-    :func:`take_rows_plain`.
+    the end, then ids are clipped to ``[0, S-1]``).  Warps read whole rows of
+    the slab (L2-resident at the probe's sizes) and write whole output rows,
+    as :func:`take_plan` splits a warp's lanes; a slab without a plan raises.
+    CPU tensors run :func:`take_rows_plain`.
     """
     if slab.device.type == "cpu":
         return take_rows_plain(slab, idx)
@@ -171,17 +165,16 @@ def take_rows(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     row_bytes = _row_bytes(slab, "slab")
     _check_idx(idx, slab.device)
     S = slab.shape[0]
-    if not take_smem_bytes(S, row_bytes):
+    plan = take_plan(S, row_bytes)
+    if plan is None:
         raise ValueError(
-            f"take_rows: a slab of {S} rows and {TAKE_CHUNK} ids a block exceed its "
-            f"{MAX_SMEM_BYTES} bytes of shared memory (the supported set is in ROADMAP.md "
-            "section 2, kernels #7 and #8)")
+            f"take_rows: a slab of {S} rows is past what an int32 id reaches (the supported "
+            "set is in ROADMAP.md section 2, kernels #7 and #8)")
     out = torch.empty((idx.numel(), *slab.shape[1:]), dtype=slab.dtype, device=slab.device)
     lib = _library()
     with torch.cuda.device(slab.device):
         err = lib.dfgnn_take_rows(slab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                  idx.numel(), S, row_bytes, TAKE_CHUNK,
-                                  take_tile(S, row_bytes),
+                                  idx.numel(), S, row_bytes, plan[0],
                                   torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "take_rows")
     global TAKE_LAUNCHES

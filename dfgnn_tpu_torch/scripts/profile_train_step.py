@@ -1,10 +1,14 @@
-"""Where a GTModel train step's device time goes, on the card.
+"""Where a train step's device time goes, on the card.
 
-    python -m dfgnn_tpu_torch.scripts.profile_train_step [--impl auto|dense|flash_fused]
+    python -m dfgnn_tpu_torch.scripts.profile_train_step [--model gt|gat]
+        [--impl auto|dense|flash_fused]
 
-Builds the main path's GTModel (ogbg-molhiv, hidden 128, 8 layers, 1 head)
-with random weights from a seed, collates one bs=1024 batch, and reports
-for a train step (forward, backward, Adam update):
+Builds, with random weights from a seed, the main path's GTModel
+(``--model gt``: ogbg-molhiv, hidden 128, 8 layers, 1 head, one collated
+bs=1024 batch) or the GAT step's ``FullGraphNet("gat")`` (``--model gat``:
+hidden 64, 2 layers, a bs=1024 PATTERN-like batch with noisy one-hot
+features, as ``chip_smoke.py`` times it), and reports for a train step
+(forward, backward, Adam update):
 - phase times from CUDA events (3 warmups, mean of 10 runs): the forward
   with its loss, the backward (forward + backward less the forward) and the
   optimizer's step alone;
@@ -27,13 +31,19 @@ import torch
 
 from dfgnn_tpu_torch.data.collate import collate_dense
 from dfgnn_tpu_torch.data.datasets import load_batched
-from dfgnn_tpu_torch.models import GTModel
+from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.models import FullGraphNet, GTModel
+from dfgnn_tpu_torch.train.parity import _noisy_onehot
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 from dfgnn_tpu_torch.utils.benchmark import benchmark
 
 DATASET, DIM, LAYERS, BATCH, PROFILED_STEPS = "ogbg-molhiv", 128, 8, 1024, 5
+GAT_HIDDEN, GAT_LAYERS, NP_PAD = 64, 2, 128
 GROUPS = (  # (group, substrings of kernel names), first match wins
-    ("attention forward kernel #1", ("flash_mask_fwd_kernel",)),
+    ("attention forward kernel #1", ("DotScore",)),  # flash_fwd_kernel<DotScore<...>, ...>
+    ("attention forward kernel #2", ("AddScore",)),
+    ("attention backward kernel #4", ("flash_add_bwd",)),
     ("attention backward kernel #3", ("flash_mask_bwd_whole", "flash_mask_bwd_rows",
                                       "flash_mask_bwd_cols")),
     ("whole-layer kernel #5", ("flash_layer_dot",)),
@@ -65,6 +75,7 @@ def _busy_us(intervals) -> float:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default="gt", choices=["gt", "gat"])
     p.add_argument("--impl", default="auto", choices=["auto", "dense", "flash_fused"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -74,13 +85,32 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
 
-    ds = load_batched(DATASET, n_graphs=BATCH, quiet=True)
-    batch, x, y, m = collate_dense(ds, np.arange(BATCH), np_pad=128)
-    model = GTModel(DATASET, out_size=ds.num_classes, hidden_size=DIM, num_layers=LAYERS,
-                    in_size=ds.in_dim,
-                    generator=torch.Generator().manual_seed(0))
-    state = TrainState.create(model, lr=1e-3, step_lr_every=20)
-    base = make_loss_fn(model, ds.task, ds.num_classes)
+    if args.model == "gt":
+        ds = load_batched(DATASET, n_graphs=BATCH, quiet=True)
+        batch, x, y, m = collate_dense(ds, np.arange(BATCH), np_pad=NP_PAD)
+        model = GTModel(DATASET, out_size=ds.num_classes, hidden_size=DIM, num_layers=LAYERS,
+                        in_size=ds.in_dim, generator=torch.Generator().manual_seed(0))
+        state = TrainState.create(model, lr=1e-3, step_lr_every=20)
+        base = make_loss_fn(model, ds.task, ds.num_classes)
+        what = f"{DATASET} bs={BATCH}, GTModel dim {DIM}, {LAYERS} layers"
+    else:
+        rng = np.random.default_rng(7)
+        graphs = pattern_like_batch(rng, BATCH)
+        batch = DenseBatch.from_graph_list([(r, c, n) for r, c, n, _ in graphs], np_pad=NP_PAD)
+        xn = np.zeros((BATCH * NP_PAD, 2), dtype=np.float32)
+        yn = np.zeros(BATCH * NP_PAD, dtype=np.int64)
+        for b, (_, _, n, block) in enumerate(graphs):
+            xn[b * NP_PAD: b * NP_PAD + n] = _noisy_onehot(rng, block, 2)
+            yn[b * NP_PAD: b * NP_PAD + n] = block
+        x, y = torch.from_numpy(xn).cuda(), torch.from_numpy(yn).cuda()
+        m = batch.node_mask.reshape(-1).float()
+        model = FullGraphNet("gat", num_classes=2, hidden_size=GAT_HIDDEN,
+                             num_layers=GAT_LAYERS, in_size=2,
+                             generator=torch.Generator().manual_seed(5))
+        state = TrainState.create(model, lr=1e-2)
+        base = make_loss_fn(model, "node_classification", 2)
+        what = (f"PATTERN-like bs={BATCH}, FullGraphNet(gat) hidden {GAT_HIDDEN}, "
+                f"{GAT_LAYERS} layers")
     loss_fn = lambda *a: base(*a, impl=args.impl)  # noqa: E731
 
     def fwd_bwd():
@@ -111,8 +141,7 @@ def main(argv=None):
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
 
     n = PROFILED_STEPS
-    print(f"train step, {DATASET} bs={BATCH}, dim {DIM}, {LAYERS} layers, impl={args.impl}, "
-          f"fp32 ({smi})")
+    print(f"train step, {what}, impl={args.impl}, fp32 ({smi})")
     print(f"  CUDA events: forward + loss {fwd_ms:.4f} ms, backward {fb_ms - fwd_ms:.4f} ms, "
           f"Adam step {opt_ms:.4f} ms")
     print(f"  profiler over {n} steps, per step: device busy {busy / n / 1e3:.4f} ms of "
@@ -122,7 +151,7 @@ def main(argv=None):
     print("  top kernels, per step:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / n / 1e3:.4f} ms  {name[:110]}")
-    result = {"impl": args.impl, "device": smi, "forward_ms": fwd_ms,
+    result = {"model": args.model, "impl": args.impl, "device": smi, "forward_ms": fwd_ms,
               "backward_ms": fb_ms - fwd_ms, "optimizer_ms": opt_ms,
               "idle_share_profiled": 1 - busy / span,
               "groups_ms": {g: us / n / 1e3 for g, us in by_group.items()}}

@@ -304,28 +304,50 @@ ADD_SHAPES = [
     (3, 2, 40, 8, False),
     (1, 1, 2048, 256, False),
 ]
+# The cases every #2 test runs beside its own: (B, h, P, f, with_val, holes),
+# a padded batch with every fourth graph empty, P = 300 (the streaming block)
+# and f = 64 (the GAT training step's head dim).
+ADD_CASES = {
+    "holes": (64, 1, 128, 128, False, True),
+    "P300": (3, 2, 300, 64, True, False),
+    "f64": (1024, 1, 128, 64, False, False),
+}
 
 
-def _add_inputs(seed, B, h, P, f, *, with_val=False, dtype=torch.float32):
-    """Seeded e_row, e_col [B, P, h], v, adj (padded nodes, empty rows), val."""
+def _add_inputs(seed, B, h, P, f, *, with_val=False, dtype=torch.float32, holes=False):
+    """Seeded e_row, e_col [B, P, h], v, adj (padded nodes, empty rows; every
+    fourth graph empty with ``holes``), val."""
     _, _, v, adj, val = _inputs(seed, B, h, P, f, with_val=with_val, dtype=dtype)
+    if holes:
+        adj[::4] = 0
+        if val is not None:
+            val[::4] = 0
     rng = np.random.default_rng(seed + 500)
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32))
                     .cuda().to(dtype) for _ in range(2))
     return e_row, e_col, v, adj, val
 
 
+def _assert_empty_rows(adj, out, lse):
+    """Rows without an edge give out = 0 and lse = -1e30 exactly."""
+    empty = adj.sum(-1) == 0  # [B, P]
+    assert bool(empty.any())
+    assert bool((out[empty] == 0).all())
+    assert bool((lse.permute(1, 2, 0)[empty] == flash_mask.NEG_BIG).all())
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-@pytest.mark.parametrize("B,h,P,f,with_val", ADD_SHAPES)
-def test_add_kernels_match_plain_fp32(cuda, B, h, P, f, with_val, rate):
-    e_row, e_col, v, adj, val = _add_inputs(20, B, h, P, f, with_val=with_val)
+@pytest.mark.parametrize("B,h,P,f,with_val,holes",
+                         [(*shape, False) for shape in ADD_SHAPES] + list(ADD_CASES.values()))
+def test_add_kernels_match_plain_fp32(cuda, B, h, P, f, with_val, holes, rate):
+    e_row, e_col, v, adj, val = _add_inputs(20, B, h, P, f, with_val=with_val, holes=holes)
     kw = dict(slope=0.2, seed=12345, rate=rate)
     out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
     torch.cuda.synchronize()
     want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
     torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
-    assert (lse == flash_mask.NEG_BIG).any()  # empty rows were covered
+    _assert_empty_rows(adj, out, lse)  # empty rows were covered, and are exact
     do = torch.from_numpy(np.random.default_rng(21).standard_normal(v.shape)
                           .astype(np.float32)).cuda()
     got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, want_out, want_lse, do, **kw)
@@ -339,18 +361,22 @@ def test_add_kernels_match_plain_fp32(cuda, B, h, P, f, with_val, rate):
         torch.testing.assert_close(g, w, **BWD_FP32_TOL)
 
 
-def test_add_kernels_match_plain_bf16(cuda):
-    e_row, e_col, v, adj, _ = _add_inputs(22, 64, 2, 128, 64, dtype=torch.bfloat16)
+@pytest.mark.parametrize("case", [None, *ADD_CASES])
+def test_add_kernels_match_plain_bf16(cuda, case):
+    B, h, P, f, with_val, holes = ADD_CASES.get(case, (64, 2, 128, 64, False, False))
+    e_row, e_col, v, adj, val = _add_inputs(22, B, h, P, f, with_val=with_val,
+                                            dtype=torch.bfloat16, holes=holes)
     kw = dict(slope=0.2, seed=7, rate=0.4)
-    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
-    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=3e-2)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    _assert_empty_rows(adj, out, lse)
     do = torch.from_numpy(np.random.default_rng(23).standard_normal(v.shape)
                           .astype(np.float32)).cuda().bfloat16()
-    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, want_out, want_lse, do, **kw)
-    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, want_lse, do,
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, want_out, want_lse, do, **kw)
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, want_lse, do,
                                           flash_mask.bwd_delta(do, want_out), **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
@@ -360,19 +386,27 @@ def test_add_kernels_match_plain_bf16(cuda):
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
 
 
-def test_add_dropout_keeps_the_hash_mask(cuda):
+@pytest.mark.parametrize("B,h,P,f,holes", [
+    (2, 2, 64, 64, False),
+    (8, 2, 64, 64, True),      # every fourth graph empty
+    (2, 1, 300, 256, False),   # the streaming block: the first 256 keys' columns
+    (2, 2, 128, 64, False),    # f = 64 < P: the first 64 keys' columns
+])
+def test_add_dropout_keeps_the_hash_mask(cuda, B, h, P, f, holes):
     """With v = one-hot columns, out[r, c] = ex[r, c] * keep / l: the kept
     entries are exactly the hash's, on the card as on the CPU."""
-    B, h, P, rate = 2, 2, 64, 0.4
-    e_row, e_col, _, adj, _ = _add_inputs(24, B, h, P, 64)
-    v = torch.eye(P, device=cuda).reshape(1, P, 1, P).expand(B, P, h, P).contiguous()
+    rate = 0.4
+    e_row, e_col, _, adj, _ = _add_inputs(24, B, h, P, 64, holes=holes)
+    v = torch.eye(P, device=cuda)[:, :f].reshape(1, P, 1, f).expand(B, P, h, f).contiguous()
     out, _ = flash_mask.flash_add_fwd(e_row, e_col, v, adj, seed=99, rate=rate)
     clean, _ = flash_mask.flash_add_fwd(e_row, e_col, v, adj)
-    keep = flash_mask.dropout_factor(99, rate, B, h, P, cuda).permute(0, 2, 1, 3)
+    keep = flash_mask.dropout_factor(99, rate, B, h, P, cuda).permute(0, 2, 1, 3)[..., :f]
     live = clean > 0
     assert torch.equal(out[live] != 0, keep[live] != 0)
     frac = float((keep[live] != 0).float().mean())
     assert abs(frac - (1 - rate)) < 0.05, frac
+    if holes:
+        assert bool((out[::4] == 0).all())
 
 
 def test_add_launch_counters_count_kernel_calls_only(cuda):
@@ -406,26 +440,45 @@ def test_gat_autograd_on_card_matches_dense(cuda):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
-def test_add_kernels_take_fp32_scores_with_bf16_v(cuda):
+@pytest.mark.parametrize("case", [None, *ADD_CASES])
+def test_add_kernels_take_fp32_scores_with_bf16_v(cuda, case):
     """The bf16 GAT path hands kernels #2 and #4 fp32 scores with a bf16 v, as
     the JAX package's bf16 layer does; d e_row and d e_col come back fp32."""
-    e_row, e_col, v, adj, _ = _add_inputs(27, 64, 2, 128, 64, dtype=torch.bfloat16)
+    B, h, P, f, with_val, holes = ADD_CASES.get(case, (64, 2, 128, 64, False, False))
+    e_row, e_col, v, adj, val = _add_inputs(27, B, h, P, f, with_val=with_val,
+                                            dtype=torch.bfloat16, holes=holes)
     e_row, e_col = (t.float() + 0.01 for t in (e_row, e_col))  # not bf16-exact
     kw = dict(slope=0.2, seed=7, rate=0.4)
-    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, **kw)
-    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=3e-2)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    _assert_empty_rows(adj, out, lse)
     do = torch.from_numpy(np.random.default_rng(28).standard_normal(v.shape)
                           .astype(np.float32)).cuda().bfloat16()
-    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, want_out, want_lse, do, **kw)
-    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, want_lse, do,
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, want_out, want_lse, do, **kw)
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, want_lse, do,
                                           flash_mask.bwd_delta(do, want_out), **kw)
     assert [g.dtype for g in got] == [torch.float32, torch.float32, torch.bfloat16]
     for g, w in zip(got, want):
         scale = float(w.float().abs().max())
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+@pytest.mark.parametrize("P,f", [(128, 12), (128, 75), (300, 200), (64, 1)])
+def test_add_forward_takes_any_head_dim(cuda, P, f):
+    """Kernel #2 takes any f from 1 to 256, as #1 does; #4, and so the
+    routing, keep KERNEL_HEAD_DIMS."""
+    e_row, e_col, v, adj, val = _add_inputs(29, 3, 2, P, f, with_val=True)
+    kw = dict(slope=0.2, seed=5, rate=0.4)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    assert not flash_mask.flash_takes("add", P, f)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, out, lse, out)
 
 
 # Kernels #5 and #6, the whole layers.  (B, h, P, din, f, dtype): the GT and
@@ -575,7 +628,8 @@ def test_gather_rows_kernel_equals_plain(cuda, N, shape, dtype, M, chunk, la):
     assert torch.equal(out, gather.gather_rows_plain(tbl, idx))
 
 
-@pytest.mark.parametrize("S,f", [(512, 128), (1024, 128), (4096, 128), (300, 12), (7, 64)])
+@pytest.mark.parametrize("S,f", [(512, 128), (1024, 128), (4096, 128), (300, 12), (7, 64),
+                                 (20000, 128), (3000, 12), (33, 256)])
 def test_take_rows_kernel_equals_plain(cuda, S, f):
     gen = torch.Generator(device="cuda").manual_seed(S)
     slab = torch.randn((S, f), device=cuda, generator=gen)
@@ -587,7 +641,7 @@ def test_take_rows_kernel_equals_plain(cuda, S, f):
     assert torch.equal(out, gather.take_rows_plain(slab, idx))
 
 
-def test_gather_kernels_refuse_what_they_do_not_take(cuda):
+def test_gather_kernels_refuse_what_they_do_not_take(cuda, monkeypatch):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16 bytes"):
         gather.gather_rows(torch.zeros((8, 3), device=cuda), ids)
@@ -595,8 +649,14 @@ def test_gather_kernels_refuse_what_they_do_not_take(cuda):
         gather.gather_rows(torch.zeros((8, 4), device=cuda), ids, lookahead=3)
     with pytest.raises(ValueError, match="int32"):
         gather.gather_rows(torch.zeros((8, 4), device=cuda), ids.long())
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        gather.take_rows(torch.zeros((8, 3), device=cuda), ids)
+    # a slab past what int32 ids reach would take 32 GB here: a lower limit
+    # shows the refusal
+    monkeypatch.setattr(gather, "TAKE_MAX_ROWS", 100)
+    gather.take_rows(torch.zeros((100, 4), device=cuda), ids)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        gather.take_rows(torch.zeros((20000, 4), device=cuda), ids)
+        gather.take_rows(torch.zeros((101, 4), device=cuda), ids)
 
 
 def _bucket_case(device):

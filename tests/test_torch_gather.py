@@ -39,7 +39,7 @@ def test_gather_rows_plain_is_jnp_take(N, shape, dtype, M):
         gather.gather_rows_plain(t, torch.tensor([N], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("S", [512, 1024, 4096])
+@pytest.mark.parametrize("S", [512, 1024, 4096, 20000])
 def test_take_rows_plain_is_take_along_axis_clip(S):
     rng = np.random.default_rng(S)
     slab = rng.standard_normal((S, 128)).astype(np.float32)
@@ -53,16 +53,20 @@ def test_take_rows_plain_is_take_along_axis_clip(S):
 
 
 def test_take_rows_supported_set():
-    """Column tiles of the widest power-of-two piece count whose slab and ids
-    fit two blocks an SM, one piece when only one block fits, none beyond."""
-    assert gather.take_tile(512, 512) == 8
-    assert gather.take_tile(1024, 512) == 4
-    assert gather.take_tile(4096, 512) == 1
-    assert gather.take_tile(64, 48) == 1          # 3 pieces: no even split
-    assert gather.take_smem_bytes(4096, 512) == 4096 * 16 + gather.TAKE_CHUNK * 4
-    big = (gather.MAX_SMEM_BYTES - gather.TAKE_CHUNK * 4) // 16
-    assert gather.take_smem_bytes(big, 512) > gather.TAKE_SMEM_BUDGET
-    assert gather.take_smem_bytes(big + 1, 512) == 0
+    """Kernel #8 reads whole rows of the slab where it lies: every slab size an
+    int32 id reaches has a plan (a warp instruction's rows and lanes), the
+    slabs past the old shared-memory kernel's ~14,000 rows of 512 B too; no
+    plan past int32 ids or for rows that are not whole 16-byte pieces."""
+    for S in (512, 1024, 4096, 20000, 10 ** 6, gather.TAKE_MAX_ROWS):
+        assert gather.take_plan(S, 512) == (32, 1)  # one 512 B row a warp instruction
+    assert gather.take_plan(3000, 48) == (4, 8)     # 3 pieces: 8 rows of 4 lanes
+    assert gather.take_plan(7, 256) == (16, 2)
+    assert gather.take_plan(64, 16) == (1, 32)
+    assert gather.take_plan(64, 1024) == (32, 1)    # 64 pieces, walked 32 at a time
+    assert gather.take_plan(gather.TAKE_MAX_ROWS + 1, 512) is None
+    assert gather.take_plan(0, 512) is None
+    assert gather.take_plan(64, 24) is None
+    assert gather.take_plan(64, 8) is None
 
 
 def test_wrappers_refuse_other_devices_and_the_probe_needs_a_card(monkeypatch):
