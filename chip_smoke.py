@@ -15,7 +15,14 @@ same seed); each is timed beside its bound and beside PyTorch's nearest call
 (``scaled_dot_product_attention``, after ``F.linear`` for #5 and #6); #2,
 on the body it shares with #1, also at the GAT training shape, on
 the ogbg-molhiv batch, on a batch with every fourth graph empty and at
-P = 300, each with and without dropout.  Then
+P = 300, each with and without dropout; #4 also at f = 48 and 75, at P =
+300, on the ogbg-molhiv batch and with empty graphs, with and without
+dropout, its keep mask held bitwise to the hash's; #5 also at P = 512 (fp32
+and bf16), at P = 2048 and f = 256 (bf16), at f = 75, with an odd din, on
+the ogbg-molhiv batch and with empty graphs.  Each bound counts the
+products at the peak of the units the kernel runs them on (printed beside
+it: fp32 as 3xTF32 on the tensor cores for #1 to #5, the CUDA cores for
+#6).  Then
 it drives the slice's paths with random weights from a seed, each with the
 six launch counts set to 0 just before it and read just after:
 - GTModel serving: the 8-layer, hidden-128, 1-head model over three bs=1024
@@ -142,6 +149,9 @@ EPOCHS, STEPS_PER_EPOCH, TRAJECTORY_STEPS = 2, 8, 3
 # H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
+# fp32 products run as 3xTF32 on the tensor cores (#1 to #5): three TF32
+# products each, so a third of the 495 TFLOP/s TF32 peak
+TF32X3_FLOPS = 495e12 / 3
 
 
 def max_err(got, want, tol):
@@ -158,11 +168,18 @@ def bwd_bf16_tol(want):
     return dict(rtol=0.0, atol=BF16_BWD_SCALE * float(want.float().abs().max()))
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the work over the fp32 peak and
-    the bytes over the memory rate."""
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(flops, nbytes, peak=FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the work over ``peak`` (the rate
+    of the units the kernel runs its products on: FP32_FLOPS on the CUDA
+    cores, TF32X3_FLOPS for fp32 as 3xTF32 on the tensor cores, BF16_FLOPS)
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def peak_name(peak):
+    return {FP32_FLOPS: "fp32 CUDA cores", TF32X3_FLOPS: "fp32 as 3xTF32 on the tensor cores",
+            BF16_FLOPS: "bf16 tensor cores"}[peak] + f" {peak / 1e12:.4g} TFLOP/s"
 
 
 def add_bytes(B, h, P, f, itemsize):
@@ -197,16 +214,15 @@ def padded_attention_bound(n_products, adj, h, f, itemsize, backward, flops=FP32
     return (t_ops, "operations", edges) if t_ops >= t_bytes else (t_bytes, "bytes", edges)
 
 
-def attention_bound(n_products, adj, h, f, nbytes):
+def attention_bound(n_products, adj, h, f, nbytes, peak):
     """(bound_ms, bound_by, dense_ms) of a kernel doing ``n_products``
     products of 2*f operations per edge and head (#1: q.k^T and p.v; #3: s,
     dp, dq, dk, dv; #2: ex.v; #4: dp and dv) and moving ``nbytes``.  The
     function needs each product only on the edges, so the bound counts adj's
-    edges; dense_ms counts every entry of the [P, P] blocks instead, as the
-    kernels compute them."""
+    edges; dense_ms counts every entry of the [P, P] blocks instead."""
     B, P, _ = adj.shape
-    bound_ms, bound_by = bound(n_products * 2 * int(adj.sum()) * h * f, nbytes)
-    return bound_ms, bound_by, bound(n_products * 2 * B * P * P * h * f, nbytes)[0]
+    bound_ms, bound_by = bound(n_products * 2 * int(adj.sum()) * h * f, nbytes, peak)
+    return bound_ms, bound_by, bound(n_products * 2 * B * P * P * h * f, nbytes, peak)[0]
 
 
 def step_peak_mib(fn):
@@ -327,20 +343,20 @@ def main() -> int:
                      "source": "dfgnn_tpu_torch/csrc/flash_layer_add.cu",
                      "replaces": "dfgnn_tpu/ops/pallas/flash_mask.py:649"}
 
-    def set_bound(rec, n_products, adj, h, f, nbytes):
-        bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, nbytes)
+    def set_bound(rec, n_products, adj, h, f, nbytes, peak=TF32X3_FLOPS):
+        bound_ms, bound_by, dense_ms = attention_bound(n_products, adj, h, f, nbytes, peak)
         rec.update(bound_ms=bound_ms, bound_by=bound_by)
         print(f"  bound on these inputs ({int(adj.sum())} edges of {adj.numel()} block "
-              f"entries; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): {bound_ms:.4f} ms "
+              f"entries; peak {peak_name(peak)}, {HBM_BYTES_PER_S:.3g} B/s): {bound_ms:.4f} ms "
               f"({bound_by}); over every entry of the dense [P, P] blocks {dense_ms:.4f} ms")
 
     def set_dot_bound(rec, adj, h, f, backward):
         """#1 and #3: the bound of padded_attention_bound (rows with an edge)."""
         bound_ms, bound_by, edges = padded_attention_bound(5 if backward else 2, adj, h, f, 4,
-                                                           backward)
+                                                           backward, TF32X3_FLOPS)
         rec.update(bound_ms=bound_ms, bound_by=bound_by)
         print(f"  bound on these inputs ({edges} edges; the rows that hold an edge, adj and "
-              f"the full outputs; {FP32_FLOPS:.3g} FLOP/s, {HBM_BYTES_PER_S:.3g} B/s): "
+              f"the full outputs; peak {peak_name(TF32X3_FLOPS)}, {HBM_BYTES_PER_S:.3g} B/s): "
               f"{bound_ms:.4f} ms ({bound_by})")
 
     # 3. kernel #1 against its plain version
@@ -475,12 +491,12 @@ def main() -> int:
                 q, k, v, adj, None, lse, do, flash_mask.bwd_delta(do, out), **kw),
             lambda: flash_mask.flash_mask_bwd(q, k, v, adj, None, out, lse, do, **kw))
         item = 4 if fp32 else 2
-        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        peak = TF32X3_FLOPS if fp32 else BF16_FLOPS
         bf = padded_attention_bound(2, adj, 1, f, item, False, peak)
         bb = padded_attention_bound(5, adj, 1, f, item, True, peak)
         msg = (f"  {name} ({smi}): #1 {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound "
                f"{bf[0]:.4f} {bf[1]}), #3 {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound "
-               f"{bb[0]:.4f} {bb[1]}; both include delta)")
+               f"{bb[0]:.4f} {bb[1]}; both include delta; peak {peak_name(peak)})")
         if sdpa:
             mask = adj[:, None].bool()
             qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
@@ -744,9 +760,11 @@ def main() -> int:
                 benchmark,
                 lambda: flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj),
                 lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj))
-            bound_ms, bound_by, _ = attention_bound(1, adj, h, f, add_bytes(B, h, P, f, 4)[0])
+            item, peak = (4, TF32X3_FLOPS) if dtype == torch.float32 else (2, BF16_FLOPS)
+            bound_ms, bound_by, _ = attention_bound(1, adj, h, f, add_bytes(B, h, P, f, item)[0],
+                                                    peak)
             print(f"  {dtype} at {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+                  f"{bound_ms:.4f} ms ({bound_by}; peak {peak_name(peak)}) ({smi})")
             if dtype == torch.float32 and (B, h, P, f) == MAIN_SHAPE:
                 mask_f = masked_leaky(e_row, e_col, adj)
                 zq = torch.zeros(B, h, P, 8, device="cuda")
@@ -787,12 +805,12 @@ def main() -> int:
         ms, plain_ms = in_turns(
             benchmark, lambda: flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw),
             lambda: flash_mask.flash_add_fwd(e_row, e_col, v, adj, **kw))
-        item = 4 if fp32 else 2
+        item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
         keys = int((adj.sum(-2) > 0).sum())
         nbytes = keys * f * item + B * P * P + B * P * f * item + 3 * B * P * 4
-        bound_ms, bound_by = bound(2 * int(adj.sum()) * f, nbytes)
+        bound_ms, bound_by = bound(2 * int(adj.sum()) * f, nbytes, peak)
         print(f"  #2 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} "
-              f"{bound_by})")
+              f"{bound_by}; peak {peak_name(peak)})")
 
     for rate in DROP_RATES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -802,7 +820,6 @@ def main() -> int:
                  rate=rate, seed=31)
         add_case("table adjacency at f=64 (the training shape)", table_adj, 64,
                  torch.bfloat16, rate=rate, seed=32, time_it=rate == 0.0)
-    del molhiv_adj, table_adj, holes
 
     for i, (B, h, P, f, with_val, dtype) in enumerate(ADD_BWD_SHAPES):
         e_row, e_col, v, adj, val = add_inputs(40 + i, B, h, P, f, with_val, dtype)
@@ -877,6 +894,71 @@ def main() -> int:
         print(f"add kernels with fp32 e_row, e_col and bf16 v, B={B} h={h} P={P} f={f} "
               f"rate={rate}: max abs err out {e_out:.3e}, lse {e_lse:.3e}, d e_row {errs[0]:.3e}, "
               f"d e_col {errs[1]:.3e}, dv {errs[2]:.3e}")
+
+    def add_bwd_case(name, adj, f, dtype, rate=0.0, seed=0, time_it=False):
+        """#4 on one adjacency against its plain version (keys without an
+        edge give dv = 0 and d e_col = 0 exactly); with dropout, its keep
+        mask against the hash's, bitwise: with dO the one-hot rows j < f,
+        dv[c, j] = round_to<T>(p * keep)[j, c], nonzero exactly where the
+        edge is kept.  Timed in turns when asked."""
+        B, P, _ = adj.shape
+        rng = np.random.default_rng(seed)
+        t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+        e_row, e_col, v, do = t(B, P, 1), t(B, P, 1), t(B, P, 1, f).to(dtype), t(B, P, 1, f)
+        do = do.to(dtype)
+        kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+        out, lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, **kw)
+        got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, lse, do,
+                                              flash_mask.bwd_delta(do, out), **kw)
+        fp32 = dtype == torch.float32
+        tols = [BWD_FP32_TOL if fp32 else bwd_bf16_tol(w) for w in want]
+        errs = [max_err(g, w, tol) for g, w, tol in zip(got, want, tols)]
+        keyless = adj.sum(-2) == 0  # [B, P]
+        if not (bool((got[1][..., 0][keyless] == 0).all())
+                and bool((got[2][keyless] == 0).all())):
+            raise AssertionError(f"#4 {name}: keys without an edge must give d e_col = dv = 0")
+        line = (f"#4 {name}: B={B} P={P} f={f} {dtype} rate={rate}, {int(adj.sum())} edges, "
+                f"{int(keyless.sum())} keys without an edge: max abs err d e_row {errs[0]:.3e}, "
+                f"d e_col {errs[1]:.3e}, dv {errs[2]:.3e}" + kept(adj, 1, rate))
+        if rate > 0.0:
+            J = min(f, P)
+            onehot = torch.eye(P, f, device="cuda").reshape(1, P, 1, f).expand(B, P, 1, f)
+            dv1 = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, out, lse,
+                                           onehot.to(dtype).contiguous(), **kw)[2]
+            keep = flash_mask.dropout_factor(DROP_SEED, rate, B, 1, P, adj.device)[:, 0, :J] != 0
+            mask = (keep & adj[:, :J].bool()).transpose(1, 2)  # [B, key, row j]
+            if not torch.equal(dv1[:, :, 0, :J] != 0, mask):
+                raise AssertionError(f"#4 {name}: the kept entries differ from the hash's")
+            line += f"; keep mask of rows < {J} bitwise the hash's"
+        print(line)
+        if not time_it:
+            return
+        ms, plain_ms = in_turns(
+            benchmark, lambda: flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, lse, do,
+                                                              flash_mask.bwd_delta(do, out), **kw),
+            lambda: flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, out, lse, do, **kw))
+        item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
+        bound_ms, bound_by, _ = attention_bound(2, adj, 1, f, add_bytes(B, 1, P, f, item)[1], peak)
+        print(f"  #4 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} "
+              f"{bound_by}; peak {peak_name(peak)}; both include delta)")
+
+    p300_adj = inputs(61, 16, 1, 300, 8, False, torch.float32)[3]
+    for rate in DROP_RATES:
+        for dtype in (torch.float32, torch.bfloat16):
+            add_bwd_case("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj, HIDDEN, dtype,
+                         rate=rate, seed=33, time_it=rate == 0.0)
+        add_bwd_case("table adjacency at f=64 (the GAT training shape)", table_adj, 64,
+                     torch.float32, rate=rate, seed=34, time_it=rate == 0.0)
+        for f in (48, 75):
+            add_bwd_case("table adjacency, off-grid head dim", table_adj, f, torch.float32,
+                         rate=rate, seed=35)
+        add_bwd_case("table adjacency, off-grid head dim", table_adj, 75, torch.bfloat16,
+                     rate=rate, seed=36)
+        add_bwd_case("P=300 (three key blocks)", p300_adj, 64, torch.float32, rate=rate, seed=37)
+        add_bwd_case("table shape, every fourth graph empty", holes, HIDDEN, torch.float32,
+                     rate=rate, seed=38)
     phase_done("10 kernels #2 and #4")
 
     # 10b. kernels #5 and #6 (the whole layers) against their plain versions;
@@ -956,13 +1038,15 @@ def main() -> int:
                   f"{plain_ms:.4f} ms, library composition {lib_ms:.4f} ms")
             if dtype == torch.float32:
                 score = "dot" if name == "#5" else "add"
+                # #5 runs its products as 3xTF32 on the tensor cores, #6 as fp32 FMAs
+                peak = TF32X3_FLOPS if name == "#5" else FP32_FLOPS
                 flops, nbytes = layer_work(score, B, P, din, h, f, int(adj.sum()), 4)
-                bound_ms, bound_by = bound(flops, nbytes)
+                bound_ms, bound_by = bound(flops, nbytes, peak)
                 rec.update(bound_ms=bound_ms, bound_by=bound_by, ms=ms, plain_ms=plain_ms,
                            max_abs_err=e_dot if name == "#5" else e_add[0.0], library_ms=lib_ms)
                 print(f"  {name} bound on these inputs ({int(adj.sum())} edges; {flops / 1e9:.2f} "
-                      f"GFLOP, {nbytes / 1e6:.1f} MB): {rec['bound_ms']:.4f} ms "
-                      f"({rec['bound_by']})")
+                      f"GFLOP, {nbytes / 1e6:.1f} MB; peak {peak_name(peak)}): "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         if dtype == torch.float32:
             drop_ms = benchmark(lambda: flash_mask.flash_layer_add_fwd(
                 x, w, b, al, ar, adj, slope=0.2, seed=DROP_SEED, rate=0.4))[1]
@@ -972,6 +1056,60 @@ def main() -> int:
           "weights, then scaled_dot_product_attention with the boolean mask; #6 = F.linear, "
           "the two score contractions, the masked leaky scores as a float attn_mask (built "
           "inside the timed call) and scaled_dot_product_attention with q = k = 0 of width 8")
+
+    def layer_dot_case(name, adj, din, f, dtype, seed, time_it=False):
+        """#5 on one adjacency against its plain version: rows without an
+        edge exactly 0; timed in turns beside its bound and the F.linear +
+        SDPA composition when asked."""
+        B, P, _ = adj.shape
+        x, (wq, wk, wv), (bq, bk, bv), _ = layer_inputs(seed, B, 1, P, din, f, dtype)
+        args = (x, wq, bq, wk, bk, wv, bv, adj)
+        out = flash_mask.flash_layer_dot_fwd(*args, scale=f ** -0.5)
+        torch.cuda.synchronize()
+        want = flash_mask.flash_layer_dot_fwd_plain(*args, scale=f ** -0.5)
+        fp32 = dtype == torch.float32
+        err = max_err(out, want, FP32_TOL if fp32 else BF16_TOL)
+        empty = adj.sum(-1) == 0
+        if out.shape != (B, P, 1, f) or not bool((out[empty] == 0).all()):
+            raise AssertionError(f"#5 {name}: shape {tuple(out.shape)}, or a row without an "
+                                 f"edge is not 0")
+        print(f"#5 {name}: B={B} P={P} din={din} f={f} {dtype}, {int(adj.sum())} edges, "
+              f"{int(empty.sum())} rows without an edge: max abs err {err:.3e}")
+        if not time_it:
+            return
+        ms, plain_ms = in_turns(
+            benchmark, lambda: flash_mask.flash_layer_dot_fwd_plain(*args, scale=f ** -0.5),
+            lambda: flash_mask.flash_layer_dot_fwd(*args, scale=f ** -0.5))
+        x2 = x.reshape(B * P, din)
+        w_cat = torch.cat([t.permute(0, 2, 1).reshape(f, din) for t in (wq, wk, wv)])
+        b_cat = torch.cat([t.reshape(f) for t in (bq, bk, bv)]).to(dtype)
+        mask = adj[:, None].bool()
+
+        def composition():
+            q, k, v = (t.reshape(B, P, 1, f).transpose(1, 2)
+                       for t in F.linear(x2, w_cat, b_cat).split(f, dim=1))
+            return F.scaled_dot_product_attention(q * f ** -0.5, k, v, attn_mask=mask, scale=1.0)
+
+        lib_ms = benchmark(composition)[1]
+        item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
+        bound_ms, bound_by = bound(*layer_work("dot", B, P, din, 1, f, int(adj.sum()), item),
+                                   peak)
+        print(f"  #5 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, F.linear + SDPA "
+              f"{lib_ms:.4f}, bound {bound_ms:.4f} {bound_by}; peak {peak_name(peak)})")
+
+    p512_adj = inputs(62, 64, 1, 512, 8, False, torch.float32)[3]
+    p2048_adj = inputs(63, 3, 1, 2048, 8, False, torch.float32)[3]
+    for dtype in (torch.float32, torch.bfloat16):
+        layer_dot_case("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj, HIDDEN, HIDDEN,
+                       dtype, 80, time_it=True)
+        layer_dot_case("P=512 (the COCO-SP-like size)", p512_adj, HIDDEN, HIDDEN, dtype, 81,
+                       time_it=True)
+        layer_dot_case("table adjacency, off-grid head dim", table_adj, HIDDEN, 75, dtype, 82)
+    layer_dot_case("P=2048 at f=256, three graphs", p2048_adj, HIDDEN, 256, torch.bfloat16, 83)
+    layer_dot_case("table shape, every fourth graph empty", holes, HIDDEN, HIDDEN,
+                   torch.float32, 84, time_it=True)
+    layer_dot_case("P=300, an odd din", p300_adj, 37, 64, torch.float32, 85)
+    del molhiv_adj, table_adj, holes, p300_adj, p512_adj, p2048_adj
     phase_done("10b kernels #5 and #6")
 
     # 11. GAT serving: the test_batch_graph twin at the reference's fig-1 setting
@@ -1073,6 +1211,9 @@ def main() -> int:
           f"auto {gat_auto:.4f} ms, dense {gat_dense:.4f} ms; peak device memory allocated "
           f"during one step above its start ({gpeaks['dense'][1]:.1f} MiB at the last step's "
           f"start): auto {gpeaks['auto'][0]:.1f} MiB, dense {gpeaks['dense'][0]:.1f} MiB")
+    # the step's device time by kernel group (#2 and #4 among them): host-bound
+    # steps are read here, not by their host-clock wall time
+    profile_train_step.main(["--model", "gat"])
     phase_done("13 GAT train step time")
 
     # 14. GAT serving at the fig-1 setting (Model("PATTERN", "gat", 128), bs=1024)
@@ -1378,7 +1519,7 @@ def main() -> int:
                gather_rec, take_rec]
     for rec in records:  # redesigned for this card since the first port (PERF.md section 6)
         rec["redesigned"] = rec["name"] in ("flash_mask_fwd", "flash_mask_bwd", "flash_add_fwd",
-                                            "take_rows")
+                                            "flash_add_bwd", "flash_layer_dot_fwd", "take_rows")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "redesigned")
     for rec in records:

@@ -1,5 +1,5 @@
 // Masked dense graph-attention backward with the additive (GAT) score, for
-// Hopper (sm_90a), hand-written CUDA.
+// Hopper (sm_90a), hand-written CUDA on the tensor cores: kernel #4.
 //
 // Replaces dfgnn_tpu/ops/pallas/flash_mask.py::_bwd_kernel_add (:286), driven
 // there by _bwd (:317).  For every graph b and head h of a DenseBatch, from
@@ -15,56 +15,73 @@
 //   d e_row[r] = sum_c dpre     d e_col[c] = sum_r dpre
 //   dv   = round_to<T>(p * keep)^T . dO
 // e_row, e_col and the sums d e_row, d e_col are fp32 whatever v's type, as
-// the Pallas kernel reads the scalars; v, dO and dv are fp32 or bf16.  fp32
-// arithmetic.
+// the Pallas kernel reads the scalars; v, dO and dv are fp32 or bf16, any f
+// from 1 to 256 (tiles zero past f up to the instantiated width 32, 64, 128
+// or 256), P <= 2048.  keep is regenerated from the seed with the hash of
+// flash_common.cuh, bitwise the forward's.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs two
 // products, dO . v^T and p^T . dO, only on the edges: 4*f operations per
-// edge and head.  At the serving shape (B=1024, h=1, P=128, f=128, fp32)
+// edge and head.  At the table's shape (B=1024, h=1, P=128, f=128, fp32)
 // with a fifth of the block entries edges, as chip_smoke.py's inputs have,
-// that is 1.8 GFLOP, 0.027 ms at 67 TFLOP/s, against 287 MB of
-// e_row, e_col, v, adj, lse, dO, out (for delta) read and d e_row, d e_col,
-// dv written, 0.086 ms at 3.35 TB/s: device memory bounds the function.
-// This kernel computes every entry of the dense [P, P] blocks as fp32 FMAs
-// fed from shared memory, as flash_mask_bwd.cu does.
+// that is 1.8 GFLOP, 0.011 ms as 3xTF32 on the tensor cores, against 287 MB
+// of e_row, e_col, v, adj, lse, dO, out (for delta) read and d e_row,
+// d e_col, dv written, 0.086 ms at 3.35 TB/s: device memory bounds it.
 //
-// Design.  Blocks run in no order, so a sum over one axis cannot be carried
-// from block to block.  Two launches, deterministic, without atomics:
-//   (a) flash_add_bwd_rows: a block per kRows query rows of one (graph,
-//       head).  It keeps those dO rows, streams V tiles to rebuild dp and
-//       turn it into dpre for its rows ([kRows, P] in shared memory), then
-//       sums each row: d e_row.
-//   (b) flash_add_bwd_cols: a block per kKeys key rows.  It keeps those V
-//       rows, streams dO tiles of kQRows rows to rebuild dp, p and dpre for
-//       its columns, sums dpre down each column (d e_col) and accumulates
-//       dv = (p * keep)^T . dO in registers.
-// dp is rebuilt in both passes, so they do 3 products where the bound
-// counts 2.
+// Design (tile helpers and the reason for mma.sync in flash_mma.cuh).  The
+// kernel this replaces ran two launches of fp32 FMAs over every entry of the
+// dense [P, P] blocks and formed dp in both: 3 products where the function
+// needs 2.  Here one launch does it with 2 products on the tensor cores,
+// built on #3's whole block (flash_mask_bwd.cu): a block of 8 warps per
+// (graph, head, 128 keys), warp w owning key group w (16 keys).
+// - V of the block's live key groups stays resident (cp.async); dO streams
+//   in 16-row tiles through a two-stage cp.async ring, only the row tiles
+//   with an edge into the block's keys.
+// - Per tile, warp w forms dp = dO . V_w^T (mma.sync) for its 16 keys, then
+//   p, ds and dpre straight in the C-fragment layout from e_row of its two
+//   fragment rows and e_col (shared memory), as #2's score policy forms
+//   scores: there is no q . k^T product.  It writes p * keep, rounded to T,
+//   to its own 16 columns of a [16, 128] tile, and accumulates dv of its
+//   keys (pn^T . dO, mma.sync) and d e_col of its keys in registers.
+// - d e_row of the tile's 16 rows: each warp's sum over its keys, summed
+//   across the 8 warps in shared memory in a fixed order.  At P <= 128 one
+//   block holds every key and writes d e_row; past it each of the P / 128
+//   key blocks writes its partial sums and flash_add_bwd_rowsum adds them in
+//   key-block order.  Deterministic, no atomics.
+// - Padding skipped, exactly, from adj itself (scan_adj): a row tile with no
+//   edge into the block's keys is neither loaded nor computed, a key group
+//   with no edge in a tile is skipped by its warp, and keys without an edge
+//   get dv = 0, d e_col = 0; a block without an edge writes zeros.
+// Shared memory at f = 128 in fp32: V 67.6 KB, the dO ring 16.9 KB, the pn
+// tile 8.4 KB, adj's edge bits 16 B a row (2 KB at P = 128): 97 KB, two
+// blocks an SM; at f = 256, P = 2048: 208 KB.
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;    // (a): query rows of one (graph, head) per block
-constexpr int kCols = 64;    // (a): value rows per streamed tile
-constexpr int kKeys = 16;    // (b): key rows of one (graph, head) per block
-constexpr int kQRows = 64;   // (b): dO rows per streamed tile
-constexpr int kPS = kKeys + 1;  // (b): row stride of the p and dpre tiles (no bank conflicts)
-constexpr int kMaxP = 2048;  // (a)'s [kRows, P] rows must fit shared memory
+constexpr int kMaxP = 2048;
+constexpr int kWarps = 8, kThreads = 256, kKeys = 128, kRT = 16;
+constexpr int kKeyGroups = kKeys / kGroup;  // 8: one a warp
 
-template <int F>
-size_t rows_smem_bytes(int P) {
-  return sizeof(float) * (size_t(kRows) * F + size_t(kCols) * (F + 1) + size_t(kRows) * P + P +
-                          3 * kRows);
-}
+template <typename T, int FI>
+struct BwdCfg {
+  static constexpr int ld = FI + pad_rm<T>();      // V and dO rows
+  static constexpr int ldd = kKeys + pad_rm<T>();  // pn rows
+  static constexpr size_t v_elems = size_t(kKeys) * ld;
+  static constexpr size_t ring_elems = size_t(2) * kRT * ld;
+  static constexpr size_t pn_elems = size_t(kRT) * ldd;
+  static constexpr int kMaxRowTiles = kMaxP / kRT;
+  // then e_col of the block's keys, the warps' row sums, a key-group mask
+  // per row tile, and adj's edge bits (a 16-key word per row and key group)
+  static size_t bytes(int P) {
+    return sizeof(T) * (v_elems + ring_elems + pn_elems) +
+           sizeof(float) * (kKeys + kWarps * kRT) + sizeof(uint32_t) * kMaxRowTiles +
+           sizeof(uint16_t) * size_t(P) * kKeyGroups;
+  }
+};
 
-template <int F>
-size_t cols_smem_bytes() {
-  return sizeof(float) * (kKeys * F + kQRows * (F + 1) + 2 * kQRows * kPS + 3 * kQRows + kKeys);
-}
-
-// dpre of one entry, from its dp (the sum dO[r] . v[c]); 0 off the edges.
+// dpre of one entry, from its dp (the sum dO[r] . v[c]); p * keep into p_keep.
 __device__ __forceinline__ float entry_dpre(float dp, float pre, float lse, float delta,
                                             float vv, bool has_val, float slope, float keep,
                                             float* p_keep) {
@@ -76,265 +93,231 @@ __device__ __forceinline__ float entry_dpre(float dp, float pre, float lse, floa
   return pre >= 0.f ? ds : ds * slope;
 }
 
-// (a) d e_row.  Thread -> one column of the V tile and kRows / kGroups rows,
-// so a warp reads 32 neighbouring V rows and one broadcast dO row.
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
-flash_add_bwd_rows(const float* __restrict__ e_row, const float* __restrict__ e_col,
-                   const T* __restrict__ v, const uint8_t* __restrict__ adj,
-                   const float* __restrict__ val, const float* __restrict__ lse,
-                   const float* __restrict__ delta, const T* __restrict__ dout,
-                   float* __restrict__ der, int B, int P, int H, float slope, Dropout drop) {
-  extern __shared__ float smem[];
-  float* rows = smem;                  // [kRows][F]: dO rows
-  float* tile = rows + kRows * F;      // [kCols][F + 1]: V tiles
-  float* ss = tile + kCols * (F + 1);  // [kRows][P]: dpre
-  float* ecs = ss + kRows * P;         // [P]
-  float* ers = ecs + P;                // [kRows]
-  float* lse_s = ers + kRows;          // [kRows]
-  float* delta_s = lse_s + kRows;      // [kRows]
+template <typename T, int FI>
+__global__ void __launch_bounds__(kThreads, FI <= 128 ? 2 : 1)
+flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ e_col,
+                     const T* __restrict__ v, const uint8_t* __restrict__ adj,
+                     const float* __restrict__ val, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const T* __restrict__ dout,
+                     float* __restrict__ der, float* __restrict__ der_part,
+                     float* __restrict__ dec, T* __restrict__ dv, int B, int P, int H, int f,
+                     int vec, float slope, Dropout drop) {
+  using C = BwdCfg<T, FI>;
+  constexpr int NTO = FI / 8;
+  constexpr int KS = kstep<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* vs = reinterpret_cast<T*>(smem_raw);                  // [128][ld]: V, at the end dv
+  T* dr = vs + C::v_elems;                                 // [2][16][ld]: dO ring
+  T* pns = dr + C::ring_elems;                             // [16][ldd]: p * keep
+  float* ecs = reinterpret_cast<float*>(pns + C::pn_elems);  // [128]
+  float* rsum = ecs + kKeys;                               // [8][16]: the warps' row sums
+  uint32_t* flags = reinterpret_cast<uint32_t*>(rsum + kWarps * kRT);  // [row tile]
+  uint16_t* rbits = reinterpret_cast<uint16_t*>(flags + C::kMaxRowTiles);  // [P][8]
 
-  const int n_row_blocks = (P + kRows - 1) / kRows;
-  const int rb = blockIdx.x % n_row_blocks;
-  const int hh = (blockIdx.x / n_row_blocks) % H;
-  const int b = blockIdx.x / (n_row_blocks * H);
-  const int r0 = rb * kRows;
-  const int tid = threadIdx.x;
-  const long row_stride = long(H) * F;
-  const long base = (long(b) * P * H + hh) * F;
-  const long sbase = long(b) * P * H + hh;
-  const uint8_t* adj_b = adj + long(b) * P * P;
-  const float* val_b = val ? val + long(b) * P * P : nullptr;
-  const long row_off = (long(hh) * B + b) * P;  // element (hh, b, 0) of [H, B, P]
-
-  for (int i = tid; i < kRows * F; i += kThreads) {
-    const int r = i / F, d = i - r * F;
-    rows[i] = r0 + r < P ? to_f32(dout[base + (r0 + r) * row_stride + d]) : 0.f;
-  }
-  for (int c = tid; c < P; c += kThreads) ecs[c] = e_col[sbase + long(c) * H];
-  if (tid < kRows) {
-    const bool live = r0 + tid < P;
-    ers[tid] = live ? e_row[sbase + long(r0 + tid) * H] : 0.f;
-    lse_s[tid] = live ? lse[row_off + r0 + tid] : 0.f;
-    delta_s[tid] = live ? delta[row_off + r0 + tid] : 0.f;
-  }
-
-  constexpr int kGroups = kThreads / kCols;
-  constexpr int kRpt = kRows / kGroups;
-  const int col_in_tile = tid % kCols;
-  const int rg = tid / kCols;
-  for (int c0 = 0; c0 < P; c0 += kCols) {
-    __syncthreads();  // dO, the scalars are loaded and the previous tile is consumed
-    load_tile<T, F, kCols, kThreads>(v, base, row_stride, c0, P, tile);
-    __syncthreads();
-    float acc[kRpt];
-#pragma unroll
-    for (int i = 0; i < kRpt; ++i) acc[i] = 0.f;
-    const float* vrow = tile + col_in_tile * (F + 1);
-#pragma unroll 16
-    for (int d = 0; d < F; ++d) {
-      const float vd = vrow[d];
-#pragma unroll
-      for (int i = 0; i < kRpt; ++i) acc[i] = fmaf(rows[(rg + i * kGroups) * F + d], vd, acc[i]);
-    }
-    const int col = c0 + col_in_tile;
-    if (col < P) {
-#pragma unroll
-      for (int i = 0; i < kRpt; ++i) {
-        const int r = rg + i * kGroups;
-        float dpre = 0.f;
-        if (r0 + r < P) {
-          const long e = long(r0 + r) * P + col;
-          if (adj_b[e]) {
-            const float keep = drop.on ? drop.factor(b, P, r0 + r, col, hh) : 1.f;
-            float unused;
-            dpre = entry_dpre(acc[i], ers[r] + ecs[col], lse_s[r], delta_s[r],
-                              val_b ? val_b[e] : 1.f, val_b != nullptr, slope, keep, &unused);
-          }
-        }
-        ss[r * P + col] = dpre;
-      }
-    }
-  }
-  __syncthreads();
-
-  // d e_row: one warp per row, lane-strided sums then a butterfly, so the
-  // order is fixed.
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    float acc = 0.f;
-    for (int c = lane; c < P; c += 32) acc += ss[r * P + c];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0 && r0 + r < P) der[sbase + long(r0 + r) * H] = acc;
-  }
-}
-
-// (b) d e_col and dv.
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
-flash_add_bwd_cols(const float* __restrict__ e_row, const float* __restrict__ e_col,
-                   const T* __restrict__ v, const uint8_t* __restrict__ adj,
-                   const float* __restrict__ val, const float* __restrict__ lse,
-                   const float* __restrict__ delta, const T* __restrict__ dout,
-                   float* __restrict__ dec, T* __restrict__ dv, int B, int P, int H, float slope,
-                   Dropout drop) {
-  extern __shared__ float smem[];
-  float* vs = smem;                       // [kKeys][F]: this block's V rows
-  float* dt = vs + kKeys * F;             // [kQRows][F + 1]: a dO tile
-  float* pt = dt + kQRows * (F + 1);      // [kQRows][kPS]: p * keep, rounded to T
-  float* dpt = pt + kQRows * kPS;         // [kQRows][kPS]: dpre
-  float* er_t = dpt + kQRows * kPS;       // [kQRows]
-  float* lse_t = er_t + kQRows;           // [kQRows]
-  float* delta_t = lse_t + kQRows;        // [kQRows]
-  float* ecs = delta_t + kQRows;          // [kKeys]
-
-  const int n_col_blocks = (P + kKeys - 1) / kKeys;
-  const int cb = blockIdx.x % n_col_blocks;
-  const int hh = (blockIdx.x / n_col_blocks) % H;
-  const int b = blockIdx.x / (n_col_blocks * H);
-  const int c0 = cb * kKeys;
-  const int tid = threadIdx.x;
-  const long row_stride = long(H) * F;
-  const long base = (long(b) * P * H + hh) * F;
-  const long sbase = long(b) * P * H + hh;
+  const int n_kb = (P + kKeys - 1) / kKeys;
+  const int kb = blockIdx.x % n_kb;
+  const int hh = (blockIdx.x / n_kb) % H;
+  const int b = blockIdx.x / (n_kb * H);
+  const int c0 = kb * kKeys;  // the block's first key
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long row_stride = long(H) * f;
+  const long base = (long(b) * P * H + hh) * f;
+  const long sbase = long(b) * P * H + hh;  // element (b, 0, hh) of a [B, P, H] scalar
   const uint8_t* adj_b = adj + long(b) * P * P;
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const long row_off = (long(hh) * B + b) * P;
+  const int n_rt = (P + kRT - 1) / kRT;
+  // d e_row, or this key block's share of it
+  float* rows_out = n_kb == 1 ? der : der_part + long(kb) * B * P * H;
 
-  for (int i = tid; i < kKeys * F; i += kThreads) {
-    const int c = i / F, d = i - c * F;
-    vs[i] = c0 + c < P ? to_f32(v[base + (c0 + c) * row_stride + d]) : 0.f;
+  for (int i = tid; i < n_rt; i += kThreads) flags[i] = 0u;
+  for (int i = tid; i < P * kKeyGroups; i += kThreads) rbits[i] = 0;
+  for (int c = tid; c < kKeys; c += kThreads)
+    ecs[c] = c0 + c < P ? e_col[sbase + long(c0 + c) * H] : 0.f;
+  __syncthreads();
+  scan_adj(adj_b, P, 0, P, c0, kKeyGroups, tid, kThreads, flags,
+           [&](int r, int gk, int& w, uint32_t& bit) {
+             w = r / kRT;
+             bit = 1u << gk;
+           },
+           [&](int r, int gk, uint32_t bits) { rbits[r * kKeyGroups + gk] = uint16_t(bits); });
+  __syncthreads();
+  uint32_t colmask = 0;  // the block's key groups with an edge
+  for (int i = 0; i < n_rt; ++i) colmask |= flags[i];
+
+  // rows without an edge into the block's keys sum to 0
+  for (int r = tid; r < P; r += kThreads)
+    if (flags[r / kRT] == 0u) rows_out[sbase + long(r) * H] = 0.f;
+  if (colmask == 0u) {
+    for (int i = tid; i < kKeys * f; i += kThreads) {
+      const int key = c0 + i / f;
+      if (key >= P) continue;
+      dv[base + long(key) * row_stride + i % f] = from_f32<T>(0.f);
+      if (i % f == 0) dec[sbase + long(key) * H] = 0.f;
+    }
+    return;
   }
-  if (tid < kKeys) ecs[tid] = c0 + tid < P ? e_col[sbase + long(c0 + tid) * H] : 0.f;
 
-  // dp: thread -> one dO row r of the tile and every kGroups1-th key, so a
-  // warp reads 32 neighbouring dO rows and one broadcast V row.
-  constexpr int kGroups1 = kThreads / kQRows;
-  constexpr int kCpt1 = kKeys / kGroups1;
-  const int r = tid % kQRows;
-  const int kg = tid / kQRows;
-  // dv: thread -> one feature column d and every kGroups3-th key.
-  constexpr int kGroups3 = kThreads / F;
-  constexpr int kCpt3 = (kKeys + kGroups3 - 1) / kGroups3;
-  const int d3 = tid % F;
-  const int cg = tid / F;
-  float dv_acc[kCpt3];
-#pragma unroll
-  for (int j = 0; j < kCpt3; ++j) dv_acc[j] = 0.f;
-  float dec_acc = 0.f;  // thread tid < kKeys: d e_col of key c0 + tid
+  const int kf = (f + KS - 1) / KS * KS;
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  auto next_live = [&](int i) {
+    while (i < n_rt && flags[i] == 0u) ++i;
+    return i;
+  };
+  auto stage_tile = [&](int i, int st) {
+    stage_rows<T, FI>(dout, base, row_stride, i * kRT, kRT, P, f, vec, 1u,
+                      dr + size_t(st) * kRT * C::ld, C::ld, tid, kThreads);
+  };
+  stage_rows<T, FI>(v, base, row_stride, c0, kKeys, P, f, vec, colmask, vs, C::ld, tid,
+                    kThreads);
+  int i = next_live(0);
+  stage_tile(i, 0);
+  cp_async_commit();
 
-  for (int r0 = 0; r0 < P; r0 += kQRows) {
-    __syncthreads();  // V, e_col are loaded and the previous tile is consumed
-    load_tile<T, F, kQRows, kThreads>(dout, base, row_stride, r0, P, dt);
-    if (tid < kQRows) {
-      const bool live = r0 + tid < P;
-      er_t[tid] = live ? e_row[sbase + long(r0 + tid) * H] : 0.f;
-      lse_t[tid] = live ? lse[row_off + r0 + tid] : 0.f;
-      delta_t[tid] = live ? delta[row_off + r0 + tid] : 0.f;
-    }
+  float dva[NTO][4];
+  zero_acc(dva);
+  float dca[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // d e_col of keys kw + 8 jj + 2 t + e1
+  const int kw = warp * kGroup;                // the warp's first key in the block
+  int st = 0;
+  while (i < n_rt) {
+    const int in = next_live(i + 1);
+    if (in < n_rt) stage_tile(in, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    float dpacc[kCpt1];
+    const bool mine = (flags[i] >> warp) & 1u;
+    const T* dt = dr + size_t(st) * kRT * C::ld;
+    const int row0 = i * kRT;
+    float rs[2] = {0.f, 0.f};  // rows g and g + 8: the lane's share of the warp's row sums
+    if (mine) {
+      float dp[2][4];
+      zero_acc(dp);
+      for (int k0 = 0; k0 < kf; k0 += KS)
+        mma_step<2, false, true>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0);
 #pragma unroll
-    for (int j = 0; j < kCpt1; ++j) dpacc[j] = 0.f;
-    const float* drow = dt + r * (F + 1);
-#pragma unroll 8
-    for (int d = 0; d < F; ++d) {
-      const float od = drow[d];
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int rr = g + 8 * e2, row = row0 + rr;
+        const bool live = row < P;
+        const float er = live ? e_row[sbase + long(row) * H] : 0.f;
+        const float lr = live ? lse[row_off + row] : 0.f;
+        const float dl = live ? delta[row_off + row] : 0.f;
+        const uint32_t bits = live ? rbits[row * kKeyGroups + warp] : 0u;
 #pragma unroll
-      for (int j = 0; j < kCpt1; ++j) dpacc[j] = fmaf(od, vs[(kg + j * kGroups1) * F + d], dpacc[j]);
-    }
+        for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
-    for (int j = 0; j < kCpt1; ++j) {
-      const int c = kg + j * kGroups1;
-      float pk = 0.f, dpre = 0.f;
-      if (r0 + r < P && c0 + c < P) {
-        const long e = long(r0 + r) * P + c0 + c;
-        if (adj_b[e]) {
-          const float keep = drop.on ? drop.factor(b, P, r0 + r, c0 + c, hh) : 1.f;
-          dpre = entry_dpre(dpacc[j], er_t[r] + ecs[c], lse_t[r], delta_t[r],
-                            val_b ? val_b[e] : 1.f, val_b != nullptr, slope, keep, &pk);
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int kc = jj * 8 + 2 * t + e1, key = c0 + kw + kc;
+            float dpre = 0.f, pk = 0.f;
+            if ((bits >> kc) & 1u) {
+              const long ei = long(row) * P + key;
+              const float keep = drop.on ? drop.factor(b, P, row, key, hh) : 1.f;
+              dpre = entry_dpre(dp[jj][2 * e2 + e1], er + ecs[kw + kc], lr, dl,
+                                val_b ? val_b[ei] : 1.f, val_b != nullptr, slope, keep, &pk);
+            }
+            pns[rr * C::ldd + kw + kc] = from_f32<T>(pk);
+            rs[e2] += dpre;
+            dca[jj][e1] += dpre;
+          }
         }
       }
-      pt[r * kPS + c] = round_to<T>(pk);
-      dpt[r * kPS + c] = dpre;
+      __syncwarp();  // the warp's own pn columns are written
+#pragma unroll
+      for (int k0 = 0; k0 < kRT; k0 += KS)
+        mma_step<NTO, true, false>(dva, pns + kw, C::ldd, dt, C::ld, k0, 0, fmask);
     }
-    __syncthreads();
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 1);
+      rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 2);
+      if (t == 0) rsum[warp * kRT + g + 8 * e2] = rs[e2];
+    }
+    __syncthreads();  // the row sums are in; this ring slot and pn are free again
+    if (tid < kRT && row0 + tid < P) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += rsum[w * kRT + tid];
+      rows_out[sbase + long(row0 + tid) * H] = s;
+    }
+    i = in;
+    st ^= 1;
+  }
 
-    const int nr = min(kQRows, P - r0);
-    for (int rr = 0; rr < nr; ++rr) {
-      const float od = dt[rr * (F + 1) + d3];
+  // d e_col: the warp's keys summed over the quads' rows (lanes of one t)
 #pragma unroll
-      for (int j = 0; j < kCpt3; ++j) {
-        const int c = cg + j * kGroups3;
-        if (c < kKeys) dv_acc[j] = fmaf(pt[rr * kPS + c], od, dv_acc[j]);
-      }
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      float s = dca[jj][e1];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      const int key = c0 + kw + jj * 8 + 2 * t + e1;
+      if (g == 0 && key < P) dec[sbase + long(key) * H] = s;
     }
-    if (tid < kKeys)
-      for (int rr = 0; rr < nr; ++rr) dec_acc += dpt[rr * kPS + tid];
-  }
+  // dv staged in the V rows (free after the last tile) and stored coalesced
 #pragma unroll
-  for (int j = 0; j < kCpt3; ++j) {
-    const int c = cg + j * kGroups3;
-    if (c < kKeys && c0 + c < P) dv[base + (c0 + c) * row_stride + d3] = from_f32<T>(dv_acc[j]);
-  }
-  if (tid < kKeys && c0 + tid < P) dec[sbase + long(c0 + tid) * H] = dec_acc;
+  for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+    for (int jj = 0; jj < NTO; ++jj)
+      store_pair<T>(vs + size_t(kw + g + 8 * e2) * C::ld + jj * 8 + 2 * t, dva[jj][2 * e2],
+                    dva[jj][2 * e2 + 1]);
+  __syncthreads();
+  store_tile<T>(vs, C::ld, dv, base, row_stride, c0, kKeys, P, f, vec, tid, kThreads);
 }
 
-template <typename T, int F>
-cudaError_t launch(const void* e_row, const void* e_col, const void* v, const uint8_t* adj,
-                   const float* val, const float* lse, const float* delta, const void* dout,
-                   void* der, void* dec, void* dv, int B, int P, int H, float slope, Dropout drop,
-                   cudaStream_t stream) {
-  static_assert(kThreads % F == 0, "a feature column per thread needs F | kThreads");
-  static_assert(kRows % (kThreads / kCols) == 0 && kKeys % (kThreads / kQRows) == 0,
-                "rows and keys split evenly over the thread groups");
-  const float* er = static_cast<const float*>(e_row);
-  const float* ec = static_cast<const float*>(e_col);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+// d e_row = the key blocks' partial sums [n_kb][n], added in key-block order.
+__global__ void flash_add_bwd_rowsum(const float* __restrict__ part, float* __restrict__ der,
+                                     long n, int n_kb) {
+  const long i = long(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int kb = 0; kb < n_kb; ++kb) s += part[long(kb) * n + i];
+  der[i] = s;
+}
 
-  const size_t smem_a = rows_smem_bytes<F>(P);
-  cudaError_t err = cudaFuncSetAttribute(flash_add_bwd_rows<T, F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_a));
+struct Args {
+  const float *e_row, *e_col;
+  const void *v, *dout;
+  const uint8_t* adj;
+  const float *val, *lse, *delta;
+  float *der, *der_part, *dec;
+  void* dv;
+  int B, P, H, f;
+  float slope;
+  Dropout drop;
+  cudaStream_t stream;
+};
+
+template <typename T, int FI>
+cudaError_t launch_fi(const Args& a) {
+  using C = BwdCfg<T, FI>;
+  const size_t bytes = C::bytes(a.P);
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  auto kernel = flash_add_bwd_kernel<T, FI>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const long blocks_a = long(B) * H * ((P + kRows - 1) / kRows);
-  const long blocks_b = long(B) * H * ((P + kKeys - 1) / kKeys);
-  if (blocks_a > 0x7fffffffL || blocks_b > 0x7fffffffL) return cudaErrorInvalidValue;
-  flash_add_bwd_rows<T, F><<<unsigned(blocks_a), kThreads, smem_a, stream>>>(
-      er, ec, vt, adj, val, lse, delta, dot, static_cast<float*>(der), B, P, H, slope, drop);
+  const int n_kb = (a.P + kKeys - 1) / kKeys;
+  const long n_blocks = long(a.B) * a.H * n_kb;
+  if (n_blocks > 0x7fffffffL || (n_kb > 1 && a.der_part == nullptr)) return cudaErrorInvalidValue;
+  kernel<<<unsigned(n_blocks), kThreads, bytes, a.stream>>>(
+      a.e_row, a.e_col, static_cast<const T*>(a.v), a.adj, a.val, a.lse, a.delta,
+      static_cast<const T*>(a.dout), a.der, a.der_part, a.dec, static_cast<T*>(a.dv), a.B, a.P,
+      a.H, a.f, fill_bytes<T>(a.f), a.slope, a.drop);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t smem_b = cols_smem_bytes<F>();
-  err = cudaFuncSetAttribute(flash_add_bwd_cols<T, F>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_b));
-  if (err != cudaSuccess) return err;
-  flash_add_bwd_cols<T, F><<<unsigned(blocks_b), kThreads, smem_b, stream>>>(
-      er, ec, vt, adj, val, lse, delta, dot, static_cast<float*>(dec), static_cast<T*>(dv), B, P, H,
-      slope, drop);
+  if (err != cudaSuccess || n_kb == 1) return err;
+  const long n = long(a.B) * a.P * a.H;
+  flash_add_bwd_rowsum<<<unsigned((n + 255) / 256), 256, 0, a.stream>>>(a.der_part, a.der, n,
+                                                                         n_kb);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_f(const void* e_row, const void* e_col, const void* v, const uint8_t* adj,
-                       const float* val, const float* lse, const float* delta, const void* dout,
-                       void* der, void* dec, void* dv, int B, int P, int H, int F, float slope,
-                       Dropout drop, cudaStream_t stream) {
-  switch (F) {
-#define DFGNN_ADD_BWD_CASE(FF)                                                                   \
-    case FF: return launch<T, FF>(e_row, e_col, v, adj, val, lse, delta, dout, der, dec, dv, B, \
-                                  P, H, slope, drop, stream);
-    DFGNN_ADD_BWD_CASE(8)
-    DFGNN_ADD_BWD_CASE(16)
-    DFGNN_ADD_BWD_CASE(32)
-    DFGNN_ADD_BWD_CASE(64)
-    DFGNN_ADD_BWD_CASE(128)
-    DFGNN_ADD_BWD_CASE(256)
-#undef DFGNN_ADD_BWD_CASE
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_f(const Args& a) {
+  if (a.f <= 32) return launch_fi<T, 32>(a);
+  if (a.f <= 64) return launch_fi<T, 64>(a);
+  if (a.f <= 128) return launch_fi<T, 128>(a);
+  return launch_fi<T, 256>(a);
 }
 
 }  // namespace
@@ -342,28 +325,27 @@ cudaError_t dispatch_f(const void* e_row, const void* e_col, const void* v, cons
 extern "C" {
 
 // dtype (of v, dout and dv): 0 = fp32, 1 = bf16.  e_row, e_col, der, dec:
-// fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous; adj: [B, P, P] uint8; val: [B, P, P]
-// fp32 or null; lse, delta: [H, B, P] fp32.  drop, seed, threshold and scale
-// as dfgnn_flash_add_fwd's.  Launches two kernels on `stream`, allocates
-// nothing, and returns the first CUDA error (0 when both launched).
+// fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous, 1 <= F <=
+// 256; adj: [B, P, P] uint8, 1 <= P <= 2048; val: [B, P, P] fp32 or null;
+// lse, delta: [H, B, P] fp32; der_part: fp32 scratch of ceil(P / 128) * B * P
+// * H floats when P > 128 (null otherwise).  drop, seed, threshold and scale
+// as dfgnn_flash_add_fwd's.  Launches one kernel (two when P > 128) on
+// `stream`, allocates nothing, and returns the first CUDA error (0 when all
+// launched).
 int dfgnn_flash_add_bwd(int dtype, const void* e_row, const void* e_col, const void* v,
                         const void* adj, const void* val, const void* lse, const void* delta,
-                        const void* dout, void* der, void* dec, void* dv, int B, int P, int H,
-                        int F, float slope, int drop, unsigned seed, unsigned threshold,
-                        float scale, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP) return int(cudaErrorInvalidValue);
-  const auto* a = static_cast<const uint8_t*>(adj);
-  const auto* ev = static_cast<const float*>(val);
-  const auto* l = static_cast<const float*>(lse);
-  const auto* dl = static_cast<const float*>(delta);
-  auto s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{drop != 0, seed, threshold, scale};
-  if (dtype == 0)
-    return int(dispatch_f<float>(e_row, e_col, v, a, ev, l, dl, dout, der, dec, dv, B, P, H, F,
-                                 slope, dr, s));
-  if (dtype == 1)
-    return int(dispatch_f<__nv_bfloat16>(e_row, e_col, v, a, ev, l, dl, dout, der, dec, dv, B,
-                                         P, H, F, slope, dr, s));
+                        const void* dout, void* der, void* der_part, void* dec, void* dv, int B,
+                        int P, int H, int F, float slope, int drop, unsigned seed,
+                        unsigned threshold, float scale, void* stream) {
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1 || F > 256) return int(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(e_row), static_cast<const float*>(e_col), v, dout,
+               static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<float*>(der), static_cast<float*>(der_part), static_cast<float*>(dec),
+               dv, B, P, H, F, slope, Dropout{drop != 0, seed, threshold, scale},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return int(dispatch_f<float>(a));
+  if (dtype == 1) return int(dispatch_f<__nv_bfloat16>(a));
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,7 @@
 // The masked dense graph-attention forward on the tensor cores: one kernel
-// body for the dot score (#1, flash_mask_fwd.cu) and the additive score (#2,
-// flash_add_fwd.cu), templated on a score policy.
+// body for the dot score (#1, flash_mask_fwd.cu), the additive score (#2,
+// flash_add_fwd.cu) and the whole GT layer (#5, flash_layer_dot.cu),
+// templated on a score policy.
 //
 // For every graph b and head h of a DenseBatch:
 //   s   = score(r, c), times val[b] when edge values are given
@@ -24,6 +25,12 @@
 //   (P floats) and keeps e_row of a thread's two fragment rows (g, g + 8) in
 //   registers; each score is formed straight in the C-fragment layout, with
 //   no product and no K tile.
+// - LayerScore (#5): DotScore with q, k and v projected in the kernel from
+//   node features x by the tensor cores (project_tile, flash_mma.cuh), into
+//   the same shared-memory tiles #1 fills by cp.async: the Q rows of the live
+//   warps, K and V of the live key groups of each key tile.  The projection
+//   is synchronous, so the stream block keeps one K/V stage and projects the
+//   next live tile after the current one is consumed.
 // Everything after the score is shared.
 //
 // Design (the tile helpers are in flash_mma.cuh, which says why mma.sync):
@@ -70,6 +77,8 @@
 // - The supported set: P <= 2048, f <= 256.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
@@ -78,24 +87,34 @@ constexpr int kMaxP = 2048;
 
 template <typename T>
 struct DotScore {
-  static constexpr bool kDot = true;
+  static constexpr bool kDot = true, kProject = false;
   const T* q;  // [B, P, H, f], pre-scaled
   const T* k;
 };
 
 struct AddScore {
-  static constexpr bool kDot = false;
+  static constexpr bool kDot = false, kProject = false;
   const float* e_row;  // [B, P, H] fp32
   const float* e_col;
   float slope;  // of the leaky ReLU
 };
 
+template <typename T>
+struct LayerScore {
+  static constexpr bool kDot = true, kProject = true;
+  const T* x;                 // [B, P, din]
+  const T *wq, *wk, *wv;      // [H, din, f]
+  const float *bq, *bk, *bv;  // [H, f] fp32
+  int din, xvec;              // xvec: fill_bytes of din
+  float scale;                // q's
+};
+
 template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
 struct FwdCfg {
-  static constexpr bool kDot = Score::kDot;
+  static constexpr bool kDot = Score::kDot, kProject = Score::kProject;
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS * 16;  // query rows per block
-  static constexpr int kStages = WHOLE ? 1 : 2;
+  static constexpr int kStages = WHOLE || kProject ? 1 : 2;
   static constexpr int kMaxTiles = WHOLE ? 1 : kMaxP / KT;
   // ex (and at the end the output rows) over the Q rows' buffer, except in
   // the dot score's stream block, whose Q rows serve every key tile
@@ -116,9 +135,19 @@ struct FwdCfg {
   static constexpr int kBitWords = WHOLE ? kRows * (KT / kGroup) : 0;
   // whole: l of the block's rows, for the warp pair that shares them
   static constexpr int kLRows = WHOLE ? kRows : 0;
+  // layer: project_tile's ring, KC = 128 bytes of din a chunk in the whole
+  // block, 64 in the stream block (whose tiles leave less room); a warp's
+  // tile is 32 rows by 8 kNJ columns, and the widest pass is the one over the
+  // fewest rows (Q: kRows, K and V: KT)
+  static constexpr int kPK = (WHOLE ? 128 : 64) / int(sizeof(T));
+  static constexpr int kNJ = WHOLE ? FI / 16 : (WARPS == 8 ? FI / 32 : 2);
+  static constexpr int kPRows = kRows > KT ? kRows : KT;
+  static constexpr int kPCols = kThreads * 8 * kNJ / (kRows < KT ? kRows : KT);
+  static constexpr size_t px_elems = kProject ? size_t(2) * kPRows * (kPK + pad_rm<T>()) : 0;
+  static constexpr size_t pw_elems = kProject ? size_t(2) * kPK * (kPCols + 8) : 0;
   static constexpr size_t bytes =
-      sizeof(T) * (q_elems + p_elems + k_elems + v_elems) + sizeof(float) * kECols +
-      sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
+      sizeof(T) * (q_elems + p_elems + k_elems + v_elems + px_elems + pw_elems) +
+      sizeof(float) * kECols + sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
       sizeof(uint16_t) * kBitWords + sizeof(float) * kLRows;
 };
 
@@ -137,7 +166,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   T* ps = C::kExInQ ? qs : qs + C::q_elems;
   T* ks = qs + C::q_elems + C::p_elems;
   T* vs = kDot && WHOLE ? ks : ks + C::k_elems;
-  float* ecs = reinterpret_cast<float*>(ks + C::k_elems + C::v_elems);  // add: [P]
+  T* pxs = ks + C::k_elems + C::v_elems;  // layer: the projection's x and W ring
+  T* pws = pxs + C::px_elems;
+  float* ecs = reinterpret_cast<float*>(pws + C::pw_elems);  // add: [P]
   // whole: adj's edge bits, [rows][KT / kGroup] 16-key words, 16-byte rows
   uint16_t* rbits = reinterpret_cast<uint16_t*>(ecs + C::kECols);
   uint32_t* flags = reinterpret_cast<uint32_t*>(rbits + C::kBitWords);  // [WARPS][n_tiles]
@@ -202,14 +233,31 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     while (j < n_tiles && tmask[j] == 0u) ++j;
     return j;
   };
+  // layer: rows [n0, n0 + R) of q (which 0), k (1) or v (2) into dst
+  auto project = [&](auto rows, int which, int n0, uint32_t live, T* dst, int ld) {
+    if constexpr (C::kProject) {
+      const long wbase = long(hh) * sc.din * f;
+      const T* w = which == 0 ? sc.wq : which == 1 ? sc.wk : sc.wv;
+      const float* bias = (which == 0 ? sc.bq : which == 1 ? sc.bk : sc.bv) + long(hh) * f;
+      project_tile<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK>(
+          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, w + wbase, f, vec, bias,
+          which == 0 ? sc.scale : 1.f, n0, P, live, dst, ld, pxs, pws, tid);
+    }
+  };
+  using KRows = std::integral_constant<int, KT>;
   // dot: K, and V too unless whole; add: V
   auto stage_kv = [&](int j, int st, bool with_v) {
-    if constexpr (kDot)
-      stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
-                        ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
-    if (with_v || !kDot)
-      stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
-                        vs + size_t(st) * KT * C::ldv, C::ldv, tid, C::kThreads);
+    if constexpr (C::kProject) {
+      project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk);
+      if (with_v) project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv);
+    } else {
+      if constexpr (kDot)
+        stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+                          ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
+      if (with_v || !kDot)
+        stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+                          vs + size_t(st) * KT * C::ldv, C::ldv, tid, C::kThreads);
+    }
   };
 
   const bool live_w = wlive[warp] != 0u;
@@ -239,7 +287,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   }
 
   // dot: Q (the live warps' rows) and the first live key tile; add: its V
-  if constexpr (kDot)
+  if constexpr (C::kProject)
+    project(std::integral_constant<int, C::kRows>{}, 0, r0, qlive, qs, C::ldq);
+  else if constexpr (kDot)
     stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq, tid,
                       C::kThreads);
   int j = next_live(0);
@@ -248,13 +298,13 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   int st = 0;
   while (j < n_tiles) {
     const int jn = WHOLE ? n_tiles : next_live(j + 1);
-    if (!WHOLE) {
+    if (!WHOLE && !C::kProject) {
       if (jn < n_tiles) stage_kv(jn, st ^ 1, true);
       cp_async_commit();
     }
     if constexpr (kDot) {
-      if (WHOLE)
-        cp_async_wait<0>();  // Q and K have landed
+      if (WHOLE || C::kProject)
+        cp_async_wait<0>();  // Q and K (and V: layer stream) are in place
       else
         cp_async_wait<1>();  // Q and this tile's K and V have landed
       __syncthreads();
@@ -358,8 +408,11 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     if (WHOLE) {
       if constexpr (kDot) {  // V over K, once every warp has its scores
         __syncthreads();
-        stage_rows<T, FI>(v, base, row_stride, 0, KT, P, f, vec, tmask[j], vs, C::ldv, tid,
-                          C::kThreads);
+        if constexpr (C::kProject)
+          project(KRows{}, 2, 0, tmask[j], vs, C::ldv);
+        else
+          stage_rows<T, FI>(v, base, row_stride, 0, KT, P, f, vec, tmask[j], vs, C::ldv, tid,
+                            C::kThreads);
         cp_async_commit();
       }
       cp_async_wait<0>();  // V has landed
@@ -396,7 +449,11 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     }
     __syncthreads();  // this stage's K, V and the ex tiles are free again
     j = jn;
-    st ^= 1;
+    if constexpr (C::kProject) {  // layer stream: the next live tile into the one stage
+      if (!WHOLE && j < n_tiles) stage_kv(j, 0, true);
+    } else {
+      st ^= 1;
+    }
   }
 
   // rows g and g + 8 of the warp: l summed over the quad; out staged in the

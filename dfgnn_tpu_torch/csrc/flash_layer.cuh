@@ -1,6 +1,7 @@
-// Helpers shared by the whole-layer kernels (flash_layer_dot.cu, #5, and
-// flash_layer_add.cu, #6): the block's tile sizes, its shared-memory budget,
-// and the projection x . W of a block of node rows, in fp32 FMAs.
+// Helpers of the whole-layer GAT kernel (flash_layer_add.cu, #6): the block's
+// tile sizes, its shared-memory budget, and the projection x . W of a block
+// of node rows, in fp32 FMAs.  (#5, flash_layer_dot.cu, runs on the tensor
+// cores on the forward body of #1, flash_fwd.cuh.)
 #pragma once
 
 #include "flash_common.cuh"

@@ -1,10 +1,11 @@
-// Tensor-core building blocks of the redesigned kernels #1 and #2 (their
-// shared forward body, flash_fwd.cuh) and #3 (flash_mask_bwd.cu): warp-level
-// mma.sync products over shared-memory tiles, 3xTF32 for fp32 and bf16 with
-// fp32 accumulators, cp.async staging of [rows, F] tiles with zero fill, and
-// the adjacency scan that finds the tiles with no edge.
+// Tensor-core building blocks of the redesigned kernels #1, #2 and #5 (their
+// shared forward body, flash_fwd.cuh), #3 (flash_mask_bwd.cu) and #4
+// (flash_add_bwd.cu): warp-level mma.sync products over shared-memory tiles,
+// 3xTF32 for fp32 and bf16 with fp32 accumulators, cp.async staging of
+// [rows, F] tiles with zero fill, #5's projection, and the adjacency scan
+// that finds the tiles with no edge.
 //
-// Why mma.sync and not wgmma.  Every product of #1 to #3 has one operand
+// Why mma.sync and not wgmma.  Every product of #1 to #4 has one operand
 // that is produced in the kernel (p, ds, pn) and lives in a per-warp
 // shared-memory tile, and three of them (p.V, ds^T.Q, pn^T.dO) read an
 // operand along its rows.  wgmma's .tf32 form takes both operands K-major
@@ -313,6 +314,91 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
       const int node = n0 + r;
       const bool fill = node < P && c < f;
       tile[r * ld + c] = fill ? src[base + long(node) * row_stride + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// The projection of the whole-layer kernel #5 (flash_layer_dot.cu) on the
+// tensor cores, block-collective (every thread of the WARPS warps calls it):
+//   dst[r][c] = round_to<T>((sum_k x[n0 + r][k] W[k][c] + bias[c]) * scale)
+// for the rows r < R of the 16-row groups whose bit in `live` is set (the
+// others are neither loaded nor written) and every column c below f rounded
+// up to the pass width, columns past f being exact zeros.  x is [.., din] of
+// T from element `xbase` (row n0 + r of one graph, rows past P read as 0), W
+// [din, f] of T and bias fp32 [f].  x and W stream through a two-stage
+// cp.async ring of KC-deep chunks (xs: 2 x [R][KC + pad], ws: 2 x [KC][CW +
+// 8]; W from L2, where every block reads it).  A warp owns a 32 x 8 NJ tile
+// of each pass of CW columns, the passes sized so that the WARPS warps cover
+// it once, and sums it with mma_step2 (3xTF32 in fp32: each k-step's
+// products summed apart).  Starts by writing the ring and ends after the
+// last chunk's barrier with the stores to dst, so the caller waits at a
+// barrier before reading dst.  xvec and wvec: the fill_bytes of din and f.
+// Not inlined: one copy of its unrolled products serves the q, k and v
+// projections, where three inlined copies ran slower (the kernel's code
+// outgrew the instruction cache).  (A ring of 3 or 4 stages, or the three
+// TF32 products of a k-step in three independent accumulators, ran no
+// faster: the products are issue-bound at one block of 8 warps an SM.)
+template <typename T, int R, int NJ, int WARPS, int KC>
+__device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, int din,
+                                             int xvec, const T* __restrict__ w, int f, int wvec,
+                                             const float* __restrict__ bias, float scale, int n0,
+                                             int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
+                                             int tid) {
+  constexpr int kThreads = WARPS * 32;
+  constexpr int CW = kThreads * 8 * NJ / R;  // columns a pass
+  constexpr int TC = CW / (8 * NJ);          // warp tiles across a pass
+  static_assert(R % 32 == 0 && (R / 32) * TC == WARPS && TC * 8 * NJ == CW,
+                "the warps cover a pass once");
+  constexpr int ldx = KC + pad_rm<T>(), ldw = CW + 8;
+  constexpr int KS = kstep<T>();
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (warp / TC) * 32, wc = (warp % TC) * 8 * NJ;  // the warp's tile
+  const uint32_t mts = (live >> (wr / kGroup)) & 3u;
+  const int n_chunks = (din + KC - 1) / KC;
+#pragma unroll 1
+  for (int c0 = 0; c0 < f; c0 += CW) {
+    const int cols = f - c0 - wc;  // the warp's columns below f
+    const uint32_t nmask = cols <= 0 ? 0u : cols >= 8 * NJ ? 0xffffffffu
+                                                           : (1u << ((cols + 7) / 8)) - 1u;
+    float acc[2][NJ][4];
+    zero_acc(acc[0]);
+    zero_acc(acc[1]);
+    auto stage = [&](int ch, int slot) {
+      const int k0 = ch * KC;
+      stage_rows<T, KC>(x + k0, xbase, din, n0, R, P, din - k0, xvec, live,
+                        xs + size_t(slot) * R * ldx, ldx, tid, kThreads);
+      stage_rows<T, CW>(w + c0, 0, f, k0, KC, din, f - c0, wvec, 0xffffffffu,
+                        ws + size_t(slot) * KC * ldw, ldw, tid, kThreads);
+    };
+    stage(0, 0);
+    cp_async_commit();
+#pragma unroll 1
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (ch + 1 < n_chunks) stage(ch + 1, (ch + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (mts != 0u && nmask != 0u) {
+        const T* xa = xs + size_t(ch & 1) * R * ldx + size_t(wr) * ldx;
+        const T* wb = ws + size_t(ch & 1) * KC * ldw;
+#pragma unroll 1
+        for (int k0 = 0; k0 < KC; k0 += KS) mma_step2<NJ>(acc, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+      }
+      __syncthreads();  // this slot is free again
+    }
+    // every n-tile of a live m-tile is stored: those at or past f are zeros
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (!((mts >> mt) & 1u)) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = c0 + wc + 8 * j + 2 * t;
+        const float b0 = c < f ? bias[c] : 0.f, b1 = c + 1 < f ? bias[c + 1] : 0.f;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          store_pair<T>(dst + size_t(wr + 16 * mt + g + 8 * h2) * ld + c,
+                        (acc[mt][j][2 * h2] + b0) * scale, (acc[mt][j][2 * h2 + 1] + b1) * scale);
+      }
     }
   }
 }

@@ -121,8 +121,9 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
     The JAX rule's three outcomes on its two observables (token count and
     width, edge values barring ``flash_fused``), with the H100's thresholds
     and directions: on the card the whole-layer kernel wins where the work
-    is small (one launch where the other impls run several; its fp32-FMA
-    projections lose once the work grows) and the dense formulation, on
+    is small (one launch where the other impls run several; the thresholds
+    date from its CUDA-core projections, which lost once the work grew, and
+    their retune is queued in ROADMAP.md section 2) and the dense formulation, on
     cuBLAS's bf16 tensor cores, wins at large token counts, the reverse of
     the v5e's crossovers.  GT: ``dense`` at or above ``GT_DENSE_TOKENS``
     tokens or ``GT_DENSE_WIDTH``; else ``flash_fused`` below
@@ -135,9 +136,10 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
     table is in PERF.md (section 6), from ``scripts/shmoo.py``.
 
     Both are shape rules on what the kernels take as well: ``flash_fused``
-    only where kernel #5's block fits (:func:`layer_fits` at the head dim,
-    ``out_size`` by default), else ``flash``; ``flash`` only where kernels
-    #1 and #3 take the head dim (:func:`flash_takes`), else ``dense``.
+    only where kernel #5 takes the shape (:func:`layer_fits` at the head
+    dim, ``out_size`` by default: any f up to 256, P up to 2048), else
+    ``flash``; ``flash`` only where kernels #1 and #3 take the head dim
+    (:func:`flash_takes`), else ``dense``.
     """
     f = out_size if head_dim is None else head_dim
     n_tokens = g.n_graphs * g.np_pad

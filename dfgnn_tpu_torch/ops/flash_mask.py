@@ -36,12 +36,15 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernels take: the head dims #4, #5 and #6 are instantiated for,
-# the widest head dim of the tensor-core kernels #1, #2 and #3 (any f from 1
-# up to it: csrc/flash_fwd.cuh), and the most nodes of #1 to #4.
+# What the kernels take: the head dims #6 is instantiated for, the widest
+# head dim of the tensor-core kernels #1 to #5 (any f from 1 up to it: the
+# tiles are zero past f), and the most nodes of #1 to #5.
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DOT_KERNEL_MAX_F = 256
 KERNEL_MAX_P = 2048
+# #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
+# d e_row into scratch, summed by a second launch (csrc/flash_add_bwd.cu)
+KERNEL_KEYS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per wrapper call, one each (a backward call runs two passes);
@@ -82,7 +85,7 @@ def _library() -> ctypes.CDLL:
     drop = [f, *dot_drop]  # slope, drop, seed, threshold, scale
     lib.dfgnn_flash_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *drop, vp]
     lib.dfgnn_flash_add_fwd.restype = i
-    lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *drop, vp]
+    lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 12, i, i, i, i, *drop, vp]
     lib.dfgnn_flash_add_bwd.restype = i
     lib.dfgnn_flash_layer_dot_fwd.argtypes = [i, *[vp] * 9, i, i, i, i, i, f, vp]
     lib.dfgnn_flash_layer_dot_fwd.restype = i
@@ -246,19 +249,15 @@ def flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do, delta, *, slope: flo
     return der.to(e_row.dtype), dec.to(e_col.dtype), dv.to(v.dtype)
 
 
-def takes_head_dim(score: str, f: int) -> bool:
-    """Whether the flash kernels of ``score`` take head dim ``f``: any f from
-    1 to DOT_KERNEL_MAX_F for the dot score (#1, #3), KERNEL_HEAD_DIMS for the
-    additive one (#2, #4)."""
-    if score == "dot":
-        return 1 <= f <= DOT_KERNEL_MAX_F
-    return f in KERNEL_HEAD_DIMS
+def takes_head_dim(f: int) -> bool:
+    """Whether the flash kernels #1 to #4 (either score) take head dim ``f``:
+    any f from 1 to DOT_KERNEL_MAX_F."""
+    return 1 <= f <= DOT_KERNEL_MAX_F
 
 
-def _check_block_args(v, adj, val, score: str = "add", any_f: bool = False, **named):
-    """What every kernel takes: fp32 or bf16 ``v`` ``[B, P, h, f]`` with f
-    taken (:func:`takes_head_dim`, or any f from 1 to DOT_KERNEL_MAX_F with
-    ``any_f``, as the additive forward #2 takes it) and P <= KERNEL_MAX_P,
+def _check_block_args(v, adj, val, score: str = "add", **named):
+    """What kernels #1 to #4 take, either ``score``: fp32 or bf16 ``v``
+    ``[B, P, h, f]`` with 1 <= f <= DOT_KERNEL_MAX_F and P <= KERNEL_MAX_P,
     uint8 ``adj`` and fp32 ``val`` ``[B, P, P]``, all on v's device; ``v``,
     ``adj``, ``val`` and the ``named`` tensors contiguous."""
     if v.dtype not in _DTYPE_CODES:
@@ -266,11 +265,11 @@ def _check_block_args(v, adj, val, score: str = "add", any_f: bool = False, **na
     if v.dim() != 4:
         raise ValueError(f"v must be [B, P, h, f], got {tuple(v.shape)}")
     B, P, h, f = v.shape
-    if not takes_head_dim("dot" if any_f else score, f):
-        dims = (f"1 to {DOT_KERNEL_MAX_F}" if any_f or score == "dot"
-                else str(KERNEL_HEAD_DIMS))
-        raise ValueError(f"the kernel takes head dims {dims}, not {f}; other head dims are "
-                         "ROADMAP.md section 2 item c, and method='auto' runs them densely")
+    if not takes_head_dim(f):
+        kernels = "#1 and #3" if score == "dot" else "#2 and #4"
+        raise ValueError(f"kernels {kernels} take head dims 1 to {DOT_KERNEL_MAX_F}, not {f}; "
+                         "wider head dims are ROADMAP.md section 2 item c, and method='auto' "
+                         "runs them densely")
     if not 1 <= P <= KERNEL_MAX_P or B < 1 or h < 1:
         raise ValueError(f"the kernel takes 1 <= P <= {KERNEL_MAX_P} and B, h >= 1, "
                          f"got B={B} P={P} h={h}")
@@ -297,13 +296,13 @@ def _check_kernel_args(q, k, v, adj, val, seed, rate):
     _check_dropout(seed, rate)
 
 
-def _check_add_args(e_row, e_col, v, adj, val, seed, rate, any_f: bool = False):
+def _check_add_args(e_row, e_col, v, adj, val, seed, rate):
     if v.dim() == 4:
         for name, t in (("e_row", e_row), ("e_col", e_col)):
             if (t.dtype not in (torch.float32, v.dtype) or t.shape != v.shape[:3]
                     or t.device != v.device):
                 raise ValueError(f"{name} must be [B, P, h] of fp32 or v's dtype on v's device")
-    _check_block_args(v, adj, val, any_f=any_f, e_row=e_row, e_col=e_col)
+    _check_block_args(v, adj, val, e_row=e_row, e_col=e_col)
     _check_dropout(seed, rate)
 
 
@@ -394,8 +393,7 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
 
     CPU tensors run :func:`flash_add_fwd_plain`.  CUDA tensors launch kernel
     #2 on the current stream: fp32 or bf16 ``v``, contiguous, any head dim
-    from 1 to DOT_KERNEL_MAX_F (the backward #4, and so ``method="auto"``,
-    takes KERNEL_HEAD_DIMS); ``e_row,
+    from 1 to DOT_KERNEL_MAX_F; ``e_row,
     e_col`` ``[B, P, h]`` contiguous, fp32 or v's dtype (the kernel reads
     fp32, as the Pallas kernel does, so bf16 scalars are widened exactly);
     ``adj``, ``val`` as :func:`flash_mask_fwd` takes them; ``0 <= rate < 1``
@@ -407,7 +405,7 @@ def flash_add_fwd(e_row, e_col, v, adj, val=None, *, slope: float = 0.2, seed: i
         return out, (lse if want_lse else None)
     if v.device.type != "cuda":
         raise ValueError(f"no flash_add_fwd kernel for device {v.device}")
-    _check_add_args(e_row, e_col, v, adj, val, seed, rate, any_f=True)
+    _check_add_args(e_row, e_col, v, adj, val, seed, rate)
     e_row, e_col = e_row.float(), e_col.float()
     B, P, h, f = v.shape
     out = torch.empty_like(v)
@@ -433,7 +431,8 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
     ``out`` and ``lse`` are the forward's (``out`` with dropout applied, for
     ``delta``); ``do`` is the output's gradient.  Computes ``delta``
     (:func:`bwd_delta`), then on CPU tensors runs :func:`flash_add_bwd_plain`
-    and on CUDA tensors launches kernel #4 (two passes, one C call) with the
+    and on CUDA tensors launches kernel #4 (one C call; at P > KERNEL_KEYS
+    a second launch sums the key blocks' shares of d e_row) with the
     forward's seed and rate.  The kernel takes what :func:`flash_add_fwd`'s
     takes, with ``out`` and ``do`` of v's dtype and shape, ``do`` contiguous
     and ``lse`` fp32 ``[h, B, P]``; anything else raises.  ``d e_row`` and
@@ -459,12 +458,16 @@ def flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, *, slope: float = 0.2
     e_dtypes = e_row.dtype, e_col.dtype
     e_row, e_col = e_row.float(), e_col.float()
     der, dec, dv = torch.empty_like(e_row), torch.empty_like(e_col), torch.empty_like(v)
+    n_kb = -(-P // KERNEL_KEYS)
+    part = (torch.empty((n_kb, B, P, h), dtype=torch.float32, device=v.device)
+            if n_kb > 1 else None)
     lib = _library()
     with torch.cuda.device(v.device):
         err = lib.dfgnn_flash_add_bwd(
             _DTYPE_CODES[v.dtype], e_row.data_ptr(), e_col.data_ptr(), v.data_ptr(),
             adj.data_ptr(), None if val is None else val.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), do.data_ptr(), der.data_ptr(), dec.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), do.data_ptr(), der.data_ptr(),
+            None if part is None else part.data_ptr(), dec.data_ptr(), dv.data_ptr(),
             B, P, h, f, slope, *_dropout_args(seed, rate),
             torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_add_bwd")
@@ -575,39 +578,43 @@ def flash_graph_attention(
 # package's custom VJPs reuse its Pallas kernels.
 # ---------------------------------------------------------------------------
 
-# The whole-layer kernels' tiles (csrc/flash_layer.cuh): query rows per
-# attention tile, rows per projection pass, depth of an x / W tile; and the
-# shared memory one H100 block may use.
+# Kernel #6's tiles (csrc/flash_layer.cuh): query rows per attention tile,
+# rows per projection pass, depth of an x / W tile; and the shared memory one
+# H100 block may use.
 _LAYER_Q, _LAYER_PR, _LAYER_K = 32, 64, 32
 MAX_SMEM_BYTES = 232448
 
 
-def layer_smem_bytes(score: str, P: int, f: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of kernel #5 (``score="dot"``) or #6
-    (``"add"``), as ``smem_bytes`` in their sources computes it: the fp32
-    staging tiles and score rows, then K, V and a q tile (#5) or z (#6) in
-    the input dtype, each row padded to an odd number of 32-bit words."""
+def layer_smem_bytes(P: int, f: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of kernel #6, as ``smem_bytes`` in its
+    source computes it: the fp32 staging tiles and score rows, then z in the
+    input dtype, each row padded to an odd number of 32-bit words.  (#5
+    streams its tiles, so its block does not grow with P.)"""
     item = 4 if dtype == torch.float32 else 2
     row = f + 4 // item
     floats = _LAYER_PR * (_LAYER_K + 1) + _LAYER_K * f + _LAYER_Q * (P + 1) + _LAYER_Q
-    if score == "dot":
-        return 4 * floats + item * (2 * P + _LAYER_Q) * row
     return 4 * (floats + 2 * P) + item * P * row
 
 
 def layer_fits(score: str, P: int, f: int, dtype: torch.dtype) -> bool:
     """Whether kernel #5 (``score="dot"``) or #6 (``"add"``) takes a layer of
-    head dim ``f`` over ``P`` nodes in ``dtype``: f in KERNEL_HEAD_DIMS, P <=
-    KERNEL_MAX_P and a block within one H100 block's shared memory."""
-    return (f in KERNEL_HEAD_DIMS and 1 <= P <= KERNEL_MAX_P
-            and layer_smem_bytes(score, P, f, dtype) <= MAX_SMEM_BYTES)
+    head dim ``f`` over ``P`` nodes in ``dtype``.  #5: any f from 1 to
+    DOT_KERNEL_MAX_F and P <= KERNEL_MAX_P, fp32 or bf16.  #6: f in
+    KERNEL_HEAD_DIMS, P <= KERNEL_MAX_P and a block within one H100 block's
+    shared memory (:func:`layer_smem_bytes`)."""
+    if not 1 <= P <= KERNEL_MAX_P:
+        return False
+    if score == "dot":
+        return takes_head_dim(f)
+    return f in KERNEL_HEAD_DIMS and layer_smem_bytes(P, f, dtype) <= MAX_SMEM_BYTES
 
 
 def flash_takes(score: str, P: int, f: int) -> bool:
     """Whether the flash kernels of ``score`` (#1 and #3, or #2 and #4) take
     a DenseBatch of ``P`` nodes and head dim ``f``: the shape rule of
-    ``method="auto"``, which runs anything else densely."""
-    return takes_head_dim(score, f) and 1 <= P <= KERNEL_MAX_P
+    ``method="auto"``, which runs anything else densely.  Both scores take
+    the same set: 1 <= f <= DOT_KERNEL_MAX_F, P <= KERNEL_MAX_P."""
+    return takes_head_dim(f) and 1 <= P <= KERNEL_MAX_P
 
 
 def _layer_project(x, w, b, scale: float = 1.0):
@@ -661,9 +668,9 @@ def flash_layer_add_fwd_plain(x, w, b, al, ar, adj, *, slope: float = 0.2, seed:
 
 def _check_layer_args(score, x, adj, ws, fp32s):
     """What kernels #5 and #6 take: fp32 or bf16 ``x`` ``[B, P, din]``,
-    weights ``ws`` ``[h, din, f]`` of x's dtype with f in KERNEL_HEAD_DIMS,
-    fp32 ``[h, f]`` vectors ``fp32s``, uint8 ``adj`` ``[B, P, P]``, all
-    contiguous on x's device, and a block whose shared memory fits."""
+    weights ``ws`` ``[h, din, f]`` of x's dtype, fp32 ``[h, f]`` vectors
+    ``fp32s``, uint8 ``adj`` ``[B, P, P]``, all contiguous on x's device, at
+    a shape :func:`layer_fits` takes."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes fp32 or bf16, not {x.dtype}")
     if x.dim() != 3:
@@ -680,14 +687,18 @@ def _check_layer_args(score, x, adj, ws, fp32s):
         raise ValueError("adj must be uint8 [B, P, P] on x's device")
     if not all(t.is_contiguous() for t in (x, adj, *ws, *fp32s)):
         raise ValueError("the kernel takes contiguous tensors")
-    kernel = "#5 (_layer_kernel_dot)" if score == "dot" else "#6 (_layer_kernel_add)"
-    need = layer_smem_bytes(score, P, f, x.dtype)
-    if f not in KERNEL_HEAD_DIMS or not 1 <= P <= KERNEL_MAX_P or need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"kernel {kernel} takes head dims {KERNEL_HEAD_DIMS} and P whose block fits "
-            f"{MAX_SMEM_BYTES} bytes of shared memory; P={P}, f={f}, {x.dtype} needs {need}. "
-            "The supported set is in ROADMAP.md queue 2 (kernels #5 and #6); "
-            "impl='flash' runs the decomposed layer")
+    if layer_fits(score, P, f, x.dtype):
+        return
+    if score == "dot":
+        rule = f"kernel #5 (_layer_kernel_dot) takes 1 <= f <= {DOT_KERNEL_MAX_F}"
+    else:
+        rule = (f"kernel #6 (_layer_kernel_add) takes head dims {KERNEL_HEAD_DIMS} and P "
+                f"whose block fits {MAX_SMEM_BYTES} bytes of shared memory "
+                f"({layer_smem_bytes(P, f, x.dtype)} here)")
+    raise ValueError(
+        f"{rule} and 1 <= P <= {KERNEL_MAX_P}, not P={P}, f={f} in {x.dtype}. The supported "
+        "sets are in ROADMAP.md section 2 (kernels #5 and #6); impl='flash' runs the "
+        "decomposed layer")
 
 
 def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
@@ -696,8 +707,8 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
     CPU tensors run :func:`flash_layer_dot_fwd_plain`.  CUDA tensors launch
     kernel #5 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w*`` ``[h, din, f]`` of x's dtype, fp32 ``b*`` ``[h, f]``, uint8
-    ``adj``, all contiguous, at a shape whose block fits
-    (:func:`layer_smem_bytes`).  Anything else raises.
+    ``adj``, all contiguous, 1 <= f <= 256 and P <= 2048 (:func:`layer_fits`).
+    Anything else raises.
     """
     if x.device.type == "cpu":
         return flash_layer_dot_fwd_plain(x, wq, bq, wk, bk, wv, bv, adj, scale=scale)
@@ -727,7 +738,7 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     kernel #6 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w`` ``[h, din, f]`` of x's dtype, fp32 ``b``, ``al``, ``ar`` ``[h, f]``,
     uint8 ``adj``, all contiguous, at a shape whose block fits
-    (:func:`layer_smem_bytes`); ``0 <= rate < 1`` and a uint32 ``seed``.
+    (:func:`layer_fits`); ``0 <= rate < 1`` and a uint32 ``seed``.
     Anything else raises.
     """
     if x.device.type == "cpu":

@@ -46,7 +46,7 @@ GROUPS = (  # (group, substrings of kernel names), first match wins
     ("attention backward kernel #4", ("flash_add_bwd",)),
     ("attention backward kernel #3", ("flash_mask_bwd_whole", "flash_mask_bwd_rows",
                                       "flash_mask_bwd_cols")),
-    ("whole-layer kernel #5", ("flash_layer_dot",)),
+    ("whole-layer kernel #5", ("LayerScore",)),  # flash_fwd_kernel<LayerScore<...>, ...>
     ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "splitK", "dot_kernel")),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
     ("embedding", ("embedding", "Embedding", "indexSelect", "index_select")),

@@ -468,23 +468,30 @@ def test_add_kernels_take_fp32_scores_with_bf16_v(cuda, case):
 
 @pytest.mark.parametrize("P,f", [(128, 12), (128, 75), (300, 200), (64, 1)])
 def test_add_forward_takes_any_head_dim(cuda, P, f):
-    """Kernel #2 takes any f from 1 to 256, as #1 does; #4, and so the
-    routing, keep KERNEL_HEAD_DIMS."""
+    """Kernels #2 and #4 take any f from 1 to 256, as #1 and #3 do, and so
+    does the routing."""
     e_row, e_col, v, adj, val = _add_inputs(29, 3, 2, P, f, with_val=True)
     kw = dict(slope=0.2, seed=5, rate=0.4)
     out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
     want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
     torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
-    assert not flash_mask.flash_takes("add", P, f)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, out, lse, out)
+    assert flash_mask.flash_takes("add", P, f)
+    do = torch.from_numpy(np.random.default_rng(30).standard_normal(v.shape)
+                          .astype(np.float32)).cuda()
+    flash_mask.reset_launch_counts()
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, want_out, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_mask.launch_counts() == (0, 0, 0, 1, 0, 0)
+    want = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, val, want_lse, do,
+                                          flash_mask.bwd_delta(do, want_out), **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_FP32_TOL)
 
 
 # Kernels #5 and #6, the whole layers.  (B, h, P, din, f, dtype): the GT and
 # GAT serving shapes in fp32 and bf16, the GAT step's f=64, several heads with
-# din != f, ragged P, the smallest f, bf16 at f=256 and the largest fp32 P at
-# f=128 that #5's block takes.
+# din != f, ragged P, the smallest f, bf16 at f=256 and a ragged P past 128.
 LAYER_SHAPES = [
     (1024, 1, 128, 128, 128, torch.float32),
     (1024, 1, 128, 128, 128, torch.bfloat16),
@@ -494,6 +501,17 @@ LAYER_SHAPES = [
     (3, 2, 40, 24, 8, torch.float32),
     (2, 1, 128, 256, 256, torch.bfloat16),
     (2, 1, 164, 128, 128, torch.float32),
+]
+
+
+# #5 alone takes more: P up to 2048 and any f up to 256 in fp32 and bf16,
+# any din (odd ones are not 16-byte rows).
+LAYER_DOT_SHAPES = LAYER_SHAPES + [
+    (2, 1, 512, 128, 128, torch.float32),
+    (2, 1, 512, 128, 128, torch.bfloat16),
+    (1, 1, 2048, 64, 256, torch.float32),
+    (3, 2, 128, 37, 75, torch.float32),
+    (3, 2, 300, 40, 12, torch.bfloat16),
 ]
 
 
@@ -515,7 +533,7 @@ def _layer_tol(dtype):
     return dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_SHAPES)
+@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_DOT_SHAPES)
 def test_layer_dot_kernel_matches_plain(cuda, B, h, P, din, f, dtype):
     x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(30, B, h, P, din, f, dtype)
     args = (x, wq, bq, wk, bk, wv, bv, adj)
@@ -553,8 +571,8 @@ def test_layer_add_dropout_matches_the_decomposed_path(cuda):
 
 
 def test_layer_kernels_refuse_what_does_not_fit(cuda):
-    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, 256, torch.float32)
-    with pytest.raises(ValueError, match="ROADMAP"):  # fp32 K and V of f=256 exceed 227 KB
+    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, 300, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP"):  # #5 takes f up to 256
         flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):
         flash_mask.flash_layer_add_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w, b,

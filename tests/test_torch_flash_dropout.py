@@ -162,16 +162,17 @@ def _batch(n_graphs, P, val=False):
 
 
 @pytest.mark.parametrize("conv,P,width,want", [
-    ("gt", 512, 128, "flash"),     # #5 needs 365,184 bytes in bf16 here
+    ("gt", 512, 128, "flash_fused"),  # #5 streams its key tiles: any P up to 2048
     ("gt", 128, 128, "flash_fused"),
     ("gat", 512, 256, "flash"),    # #6 does not fit at f=256, P=512 ...
     ("gat", 640, 128, "flash"),    # ... nor at P >= 640
     ("gat", 512, 128, "flash_fused"),
-    ("gat", 128, 48, "dense"),     # #2 and #4 do not take f=48
+    ("gat", 128, 48, "flash"),     # #6 does not take f=48; #2 and #4 take any f up to 256
 ])
 def test_bf16_auto_routes_on_the_whole_layer_kernels_shared_memory(conv, P, width, want):
-    """The bf16 auto rules route to the whole-layer kernels only where their
-    block fits one H100 block's shared memory, as a rule on the shape."""
+    """The bf16 auto rules route to the whole-layer kernels only where they
+    take the shape (#6: where its block fits one H100 block's shared memory),
+    as a rule on the shape."""
     batch = _batch(8, P)  # few tokens: GT's rule would pick flash_fused
     if conv == "gt":
         assert conv_mod._auto_bf16_dense_batch("gt", batch, width) == want
@@ -192,7 +193,8 @@ def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
     monkeypatch.delenv("DFGNN_TPU_FORCE_METHOD", raising=False)
     batch, e = _batch(2, 16), torch.zeros(2, 16, 1)
     for score, f, want in [("dot", 12, "flash"), ("dot", 256, "flash"), ("dot", 300, "dense"),
-                           ("add", 16, "flash"), ("add", 12, "dense"), ("add", 48, "dense")]:
+                           ("add", 16, "flash"), ("add", 12, "flash"), ("add", 48, "flash"),
+                           ("add", 300, "dense")]:
         calls.clear()
         v = torch.zeros(2, 16, 1, f)
         kw = dict(score="add", e_row=e, e_col=e) if score == "add" else {}
@@ -202,13 +204,13 @@ def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
 
 
 def test_explicit_flash_refuses_head_dims_the_kernels_do_not_take():
-    """What the wrappers check before a launch: the additive kernels take
-    the instantiated head dims, the dot kernels any f up to 256; the error
-    names ROADMAP.md section 2 item c."""
+    """What the wrappers check before a launch: the kernels of either score
+    take any f up to 256; the error names ROADMAP.md section 2 item c."""
     adj = torch.ones(2, 16, 16, dtype=torch.uint8)
     flash_mask._check_block_args(torch.zeros(2, 16, 1, 48), adj, None, score="dot")
+    flash_mask._check_block_args(torch.zeros(2, 16, 1, 48), adj, None, score="add")
     with pytest.raises(ValueError, match="item c"):
-        flash_mask._check_block_args(torch.zeros(2, 16, 1, 48), adj, None, score="add")
+        flash_mask._check_block_args(torch.zeros(2, 16, 1, 300), adj, None, score="add")
     with pytest.raises(ValueError, match="item c"):
         flash_mask._check_block_args(torch.zeros(2, 16, 1, 300), adj, None, score="dot")
 

@@ -155,3 +155,33 @@ def test_flash_add_dropout_draws_its_seed_from_the_generator(rng):
     assert not torch.allclose(outs[0], clean)
     with pytest.raises(ValueError, match="dropout_generator"):
         flash_mask.flash_graph_attention(tb, None, None, v, **add)
+
+
+def test_add_auto_takes_flash_at_an_off_grid_head_dim(rng):
+    """method="auto" on a DenseBatch with the additive score at f = 12 (no
+    power of two): the port takes the flash path, as JAX's auto does, and its
+    forward and VJP match JAX's interpret-mode Pallas kernels."""
+    from dfgnn_tpu.ops import graph_attention as jax_graph_attention
+    from dfgnn_tpu_torch.ops import graph_attention
+
+    B, P, h, f = 2, 32, 1, 12
+    jb, tb = _batches(rng, B, P, with_val=False)
+    er, ec = (rng.standard_normal((B, P, h)).astype(np.float32) for _ in range(2))
+    v, t = (rng.standard_normal((B, P, h, f)).astype(np.float32) for _ in range(2))
+
+    @jax.jit
+    def jax_loss(er_, ec_, v_):
+        out = jax_graph_attention(jb, None, None, v_, score="add", e_row=er_, e_col=ec_,
+                                  method="auto")
+        return jnp.sum(out * t), out
+
+    (_, want), want_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (er, ec, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (er, ec, v)]
+    out = graph_attention(tb, None, None, leaves[2], score="add", e_row=leaves[0],
+                          e_col=leaves[1], method="auto")
+    assert type(out.grad_fn).__name__ == "_FlashAddBackward"
+    (out * torch.from_numpy(t)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **FP32_TOL)
+    for leaf, g in zip(leaves, want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), **FP32_TOL)
