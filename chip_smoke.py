@@ -17,12 +17,14 @@ on the body it shares with #1, also at the GAT training shape, on
 the ogbg-molhiv batch, on a batch with every fourth graph empty and at
 P = 300, each with and without dropout; #4 also at f = 48 and 75, at P =
 300, on the ogbg-molhiv batch and with empty graphs, with and without
-dropout, its keep mask held bitwise to the hash's; #5 also at P = 512 (fp32
-and bf16), at P = 2048 and f = 256 (bf16), at f = 75, with an odd din, on
-the ogbg-molhiv batch and with empty graphs.  Each bound counts the
-products at the peak of the units the kernel runs them on (printed beside
-it: fp32 as 3xTF32 on the tensor cores for #1 to #5, the CUDA cores for
-#6).  Then
+dropout, its keep mask held bitwise to the hash's; #5 and #6 also at P =
+512 (fp32 and bf16), at P = 2048 and f = 256 (bf16), at f = 75, with an odd
+din, on the ogbg-molhiv batch and with empty graphs (#6 each with and
+without dropout, and its keep mask bitwise); a bf16 GATConv through #6
+against its flash route at P = 256 and 512 (the readings behind
+``GAT_FUSED_MAX_P``).  Each bound counts the products at the peak of the
+units the kernel runs them on (printed beside it: fp32 as 3xTF32 on the
+tensor cores).  Then
 it drives the slice's paths with random weights from a seed, each with the
 six launch counts set to 0 just before it and read just after:
 - GTModel serving: the 8-layer, hidden-128, 1-head model over three bs=1024
@@ -149,7 +151,7 @@ EPOCHS, STEPS_PER_EPOCH, TRAJECTORY_STEPS = 2, 8, 3
 # H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
-# fp32 products run as 3xTF32 on the tensor cores (#1 to #5): three TF32
+# fp32 products run as 3xTF32 on the tensor cores (#1 to #6): three TF32
 # products each, so a third of the 495 TFLOP/s TF32 peak
 TF32X3_FLOPS = 495e12 / 3
 
@@ -973,6 +975,28 @@ def main() -> int:
         vecs = [t(rng.standard_normal((h, f)) / np.sqrt(f)) for _ in range(3)]
         return x, ws, vecs, adj
 
+    def add_composition(x, w, b, al, ar, adj):
+        """#6's nearest PyTorch composition, as a function of no arguments:
+        F.linear, the two score contractions, the masked leaky scores as a
+        float attn_mask (built inside the call) and
+        scaled_dot_product_attention with q = k = 0 of width 8."""
+        B, P, din = x.shape
+        h, _, f = w.shape
+        x2, w_flat = x.reshape(B * P, din), w.permute(0, 2, 1).reshape(h * f, din)
+        mask = adj[:, None].bool()
+        zq = torch.zeros(B, h, P, 8, device="cuda", dtype=x.dtype)
+
+        def run():
+            z = F.linear(x2, w_flat, b.reshape(h * f).to(x.dtype)).reshape(B, P, h, f)
+            z = z.transpose(1, 2).float()
+            el = torch.einsum("bhpf,hf->bhp", z, al)
+            er = torch.einsum("bhpf,hf->bhp", z, ar)
+            s = torch.where(mask, F.leaky_relu(el[..., None] + er[..., None, :], 0.2),
+                            flash_mask.NEG_BIG).to(x.dtype)
+            return F.scaled_dot_product_attention(zq, zq, z.to(x.dtype), attn_mask=s)
+
+        return run
+
     for i, (B, h, P, din, f, dtype) in enumerate(LAYER_SHAPES):
         x, (wq, wk, wv), (bq, bk, bv), adj = layer_inputs(70 + i, B, h, P, din, f, dtype)
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
@@ -1011,17 +1035,6 @@ def main() -> int:
             return F.scaled_dot_product_attention(heads(q) * f ** -0.5, heads(k), heads(v),
                                                   attn_mask=mask, scale=1.0)
 
-        w_flat, zq = w.permute(0, 2, 1).reshape(h * f, din), torch.zeros(B, h, P, 8, device="cuda",
-                                                                          dtype=dtype)
-
-        def sdpa_add():
-            z = heads(F.linear(x2, w_flat, b.reshape(h * f).to(dtype))).float()
-            el = torch.einsum("bhpf,hf->bhp", z, al)
-            er = torch.einsum("bhpf,hf->bhp", z, ar)
-            s = torch.where(mask, F.leaky_relu(el[..., None] + er[..., None, :], 0.2),
-                            flash_mask.NEG_BIG).to(dtype)
-            return F.scaled_dot_product_attention(zq, zq, z.to(dtype), attn_mask=s)
-
         timed = {}
         for name, rec, kernel_fn, plain_fn, lib_fn in (
                 ("#5", layer_rec,
@@ -1030,7 +1043,8 @@ def main() -> int:
                  sdpa_dot),
                 ("#6", layer_add_rec,
                  lambda: flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj),
-                 lambda: flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj), sdpa_add)):
+                 lambda: flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj),
+                 add_composition(x, w, b, al, ar, adj))):
             ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
             lib_ms = benchmark(lib_fn)[1]
             timed[name] = ms
@@ -1038,14 +1052,13 @@ def main() -> int:
                   f"{plain_ms:.4f} ms, library composition {lib_ms:.4f} ms")
             if dtype == torch.float32:
                 score = "dot" if name == "#5" else "add"
-                # #5 runs its products as 3xTF32 on the tensor cores, #6 as fp32 FMAs
-                peak = TF32X3_FLOPS if name == "#5" else FP32_FLOPS
+                # both run their products as 3xTF32 on the tensor cores
                 flops, nbytes = layer_work(score, B, P, din, h, f, int(adj.sum()), 4)
-                bound_ms, bound_by = bound(flops, nbytes, peak)
+                bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
                 rec.update(bound_ms=bound_ms, bound_by=bound_by, ms=ms, plain_ms=plain_ms,
                            max_abs_err=e_dot if name == "#5" else e_add[0.0], library_ms=lib_ms)
                 print(f"  {name} bound on these inputs ({int(adj.sum())} edges; {flops / 1e9:.2f} "
-                      f"GFLOP, {nbytes / 1e6:.1f} MB; peak {peak_name(peak)}): "
+                      f"GFLOP, {nbytes / 1e6:.1f} MB; peak {peak_name(TF32X3_FLOPS)}): "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         if dtype == torch.float32:
             drop_ms = benchmark(lambda: flash_mask.flash_layer_add_fwd(
@@ -1097,19 +1110,107 @@ def main() -> int:
         print(f"  #5 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, F.linear + SDPA "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} {bound_by}; peak {peak_name(peak)})")
 
+    def layer_add_case(name, adj, din, f, dtype, seed, time_it=False, vs_flash=False):
+        """#6 on one adjacency against its plain version, with and without
+        dropout: rows without an edge exactly 0.  When asked, timed in turns
+        beside its plain version, its bound and the F.linear + SDPA
+        composition; ``vs_flash`` also times a bf16 GATConv through
+        flash_fused (one #6) and through the flash route (F.linear, the
+        score contractions and kernel #2), the readings behind
+        GAT_FUSED_MAX_P in models/conv.py."""
+        B, P, _ = adj.shape
+        x, (w, _, _), (b, al, ar), _ = layer_inputs(seed, B, 1, P, din, f, dtype)
+        args = (x, w, b, al, ar, adj)
+        fp32 = dtype == torch.float32
+        empty = adj.sum(-1) == 0
+        errs = {}
+        for rate in DROP_RATES:
+            kw = dict(slope=0.2, seed=DROP_SEED, rate=rate)
+            out = flash_mask.flash_layer_add_fwd(*args, **kw)
+            torch.cuda.synchronize()
+            want = flash_mask.flash_layer_add_fwd_plain(*args, **kw)
+            errs[rate] = max_err(out, want, FP32_TOL if fp32 else BF16_TOL)
+            if out.shape != (B, P, 1, f) or not bool((out[empty] == 0).all()):
+                raise AssertionError(f"#6 {name} rate {rate}: shape {tuple(out.shape)}, or a "
+                                     f"row without an edge is not 0")
+        print(f"#6 {name}: B={B} P={P} din={din} f={f} {dtype}, {int(adj.sum())} edges, "
+              f"{int(empty.sum())} rows without an edge: max abs err {errs[0.0]:.3e}, with "
+              f"dropout {errs[0.4]:.3e}" + kept(adj, 1, 0.4))
+        if not time_it:
+            return
+        ms, plain_ms = in_turns(benchmark, lambda: flash_mask.flash_layer_add_fwd_plain(*args),
+                                lambda: flash_mask.flash_layer_add_fwd(*args))
+        lib_ms = benchmark(add_composition(*args))[1]
+        item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
+        bound_ms, bound_by = bound(*layer_work("add", B, P, din, 1, f, int(adj.sum()), item),
+                                   peak)
+        print(f"  #6 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, F.linear + SDPA "
+              f"{lib_ms:.4f}, bound {bound_ms:.4f} {bound_by}; peak {peak_name(peak)})")
+        if not vs_flash:
+            return
+        conv = make_conv("gat", din, f, 1, dtype=dtype,
+                         generator=torch.Generator().manual_seed(seed))
+        batch = DenseBatch(adj=adj, node_mask=adj.any(-1), n_graphs=B, np_pad=P)
+        x2 = x.reshape(B * P, din)
+        with torch.inference_mode():
+            flash_mask.reset_launch_counts()
+            fused = conv(batch, x2, impl="flash_fused")
+            torch.cuda.synchronize()
+            if flash_mask.launch_counts() != (0, 0, 0, 0, 0, 1):
+                raise AssertionError(f"#6 {name}: flash_fused launched "
+                                     f"{flash_mask.launch_counts()}, expected one #6")
+            rel = float((fused.float() - conv(batch, x2, impl="flash").float()).abs().max()
+                        / fused.float().abs().max())
+            if not rel < BF16_REL:
+                raise AssertionError(f"#6 {name}: flash_fused vs flash {rel}")
+            fused_ms, flash_ms = in_turns(benchmark, lambda: conv(batch, x2, impl="flash"),
+                                          lambda: conv(batch, x2, impl="flash_fused"),
+                                          names=("flash", "flash_fused"))
+        print(f"  GAT_FUSED_MAX_P reading: GATConv {dtype} forward at P={P} ({smi}): "
+              f"flash_fused {fused_ms:.4f} ms, flash {flash_ms:.4f} ms (flash_fused / flash "
+              f"{fused_ms / flash_ms:.3f}; max |diff| / max {rel:.3e})")
+
+    def keep_mask_case(B, P, seed):
+        """#6's keep mask bitwise: with x = W = I (din = f = P) and b = 0, z
+        is one-hot per node, so out[r, c] = p[r, c] * keep[r, c], nonzero
+        exactly where an edge is kept."""
+        adj = inputs(seed, B, 1, P, 8, False, torch.float32)[3]
+        eye = torch.eye(P, device="cuda")
+        x, w = eye.expand(B, P, P).contiguous(), eye[None].contiguous()
+        vec = torch.full((1, P), 0.1, device="cuda")
+        out = flash_mask.flash_layer_add_fwd(x, w, torch.zeros(1, P, device="cuda"), vec, vec,
+                                             adj, seed=DROP_SEED, rate=0.4)
+        keep = flash_mask.dropout_factor(DROP_SEED, 0.4, B, 1, P, adj.device)[:, 0] != 0
+        if not torch.equal(out[:, :, 0] != 0, keep & adj.bool()):
+            raise AssertionError("#6 keep mask differs from the hash's")
+        print(f"#6 keep mask B={B} P={P}: equal to the hash's, bitwise" + kept(adj, 1, 0.4))
+
     p512_adj = inputs(62, 64, 1, 512, 8, False, torch.float32)[3]
     p2048_adj = inputs(63, 3, 1, 2048, 8, False, torch.float32)[3]
+    p256_adj = inputs(64, 128, 1, 256, 8, False, torch.float32)[3]
     for dtype in (torch.float32, torch.bfloat16):
         layer_dot_case("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj, HIDDEN, HIDDEN,
                        dtype, 80, time_it=True)
         layer_dot_case("P=512 (the COCO-SP-like size)", p512_adj, HIDDEN, HIDDEN, dtype, 81,
                        time_it=True)
         layer_dot_case("table adjacency, off-grid head dim", table_adj, HIDDEN, 75, dtype, 82)
+        layer_add_case("ogbg-molhiv bs=1024 (the GT step's batch)", molhiv_adj, HIDDEN, HIDDEN,
+                       dtype, 90, time_it=True)
+        layer_add_case("P=512 (the COCO-SP-like size)", p512_adj, HIDDEN, HIDDEN, dtype, 91,
+                       time_it=True, vs_flash=dtype == torch.bfloat16)
+        layer_add_case("table adjacency, off-grid head dim", table_adj, HIDDEN, 75, dtype, 92)
     layer_dot_case("P=2048 at f=256, three graphs", p2048_adj, HIDDEN, 256, torch.bfloat16, 83)
     layer_dot_case("table shape, every fourth graph empty", holes, HIDDEN, HIDDEN,
                    torch.float32, 84, time_it=True)
     layer_dot_case("P=300, an odd din", p300_adj, 37, 64, torch.float32, 85)
-    del molhiv_adj, table_adj, holes, p300_adj, p512_adj, p2048_adj
+    layer_add_case("P=2048 at f=256, three graphs", p2048_adj, HIDDEN, 256, torch.bfloat16, 93)
+    layer_add_case("table shape, every fourth graph empty", holes, HIDDEN, HIDDEN,
+                   torch.float32, 94, time_it=True)
+    layer_add_case("P=300, an odd din", p300_adj, 37, 75, torch.float32, 95)
+    layer_add_case("P=256", p256_adj, HIDDEN, HIDDEN, torch.bfloat16, 96, time_it=True,
+                   vs_flash=True)
+    keep_mask_case(64, 128, 97)
+    del molhiv_adj, table_adj, holes, p300_adj, p512_adj, p2048_adj, p256_adj
     phase_done("10b kernels #5 and #6")
 
     # 11. GAT serving: the test_batch_graph twin at the reference's fig-1 setting
@@ -1211,9 +1312,11 @@ def main() -> int:
           f"auto {gat_auto:.4f} ms, dense {gat_dense:.4f} ms; peak device memory allocated "
           f"during one step above its start ({gpeaks['dense'][1]:.1f} MiB at the last step's "
           f"start): auto {gpeaks['auto'][0]:.1f} MiB, dense {gpeaks['dense'][0]:.1f} MiB")
-    # the step's device time by kernel group (#2 and #4 among them): host-bound
-    # steps are read here, not by their host-clock wall time
+    # the step's device time by kernel group (#2 and #4 among them; #6, #2 and
+    # #4 through flash_fused): host-bound steps are read here, not by their
+    # host-clock wall time
     profile_train_step.main(["--model", "gat"])
+    profile_train_step.main(["--model", "gat", "--impl", "flash_fused"])
     phase_done("13 GAT train step time")
 
     # 14. GAT serving at the fig-1 setting (Model("PATTERN", "gat", 128), bs=1024)
@@ -1519,7 +1622,8 @@ def main() -> int:
                gather_rec, take_rec]
     for rec in records:  # redesigned for this card since the first port (PERF.md section 6)
         rec["redesigned"] = rec["name"] in ("flash_mask_fwd", "flash_mask_bwd", "flash_add_fwd",
-                                            "flash_add_bwd", "flash_layer_dot_fwd", "take_rows")
+                                            "flash_add_bwd", "flash_layer_dot_fwd",
+                                            "flash_layer_add_fwd", "take_rows")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "redesigned")
     for rec in records:

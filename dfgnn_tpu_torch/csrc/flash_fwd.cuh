@@ -1,7 +1,7 @@
 // The masked dense graph-attention forward on the tensor cores: one kernel
 // body for the dot score (#1, flash_mask_fwd.cu), the additive score (#2,
-// flash_add_fwd.cu) and the whole GT layer (#5, flash_layer_dot.cu),
-// templated on a score policy.
+// flash_add_fwd.cu), the whole GT layer (#5, flash_layer_dot.cu) and the
+// whole GAT layer (#6, flash_layer_add.cu), templated on a score policy.
 //
 // For every graph b and head h of a DenseBatch:
 //   s   = score(r, c), times val[b] when edge values are given
@@ -31,6 +31,13 @@
 //   warps, K and V of the live key groups of each key tile.  The projection
 //   is synchronous, so the stream block keeps one K/V stage and projects the
 //   next live tile after the current one is consumed.
+// - LayerAddScore (#6): AddScore with v = z projected in the kernel from x
+//   (project_tile_scores), and e_row, e_col summed from the same unrounded
+//   fp32 z into shared memory: the whole block projects every node live as
+//   a row or a key once, with both scalars; the stream block projects its
+//   query rows for e_row only, then each live key tile's z into the one V
+//   stage with that tile's e_col (so e_col is kept of one tile, not the
+//   graph).  The scores are then AddScore's.
 // Everything after the score is shared.
 //
 // Design (the tile helpers are in flash_mma.cuh, which says why mma.sync):
@@ -109,6 +116,16 @@ struct LayerScore {
   float scale;                // q's
 };
 
+template <typename T>
+struct LayerAddScore {
+  static constexpr bool kDot = false, kProject = true;
+  const T* x;                        // [B, P, din]
+  const T* w;                        // [H, din, f]
+  const float *bias, *a_l, *a_r;     // [H, f] fp32
+  int din, xvec;                     // xvec: fill_bytes of din
+  float slope;                       // of the leaky ReLU
+};
+
 template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
 struct FwdCfg {
   static constexpr bool kDot = Score::kDot, kProject = Score::kProject;
@@ -129,8 +146,10 @@ struct FwdCfg {
   // dot whole: V replaces K in one buffer once the scores are formed
   static constexpr size_t k_elems = kDot ? size_t(kStages) * KT * (WHOLE ? ldv : ldk) : 0;
   static constexpr size_t v_elems = kDot && WHOLE ? 0 : size_t(kStages) * KT * ldv;
-  // add: e_col of the graph, fp32
-  static constexpr int kECols = kDot ? 0 : (WHOLE ? KT : kMaxP);
+  // add: e_col of the graph, fp32 (layer add: of the block's one key tile,
+  // and e_row of its query rows)
+  static constexpr int kECols = kDot ? 0 : (WHOLE || kProject ? KT : kMaxP);
+  static constexpr int kERows = !kDot && kProject ? kRows : 0;
   // whole: adj's edge bits of the block's rows, 16 keys a word
   static constexpr int kBitWords = WHOLE ? kRows * (KT / kGroup) : 0;
   // whole: l of the block's rows, for the warp pair that shares them
@@ -147,7 +166,7 @@ struct FwdCfg {
   static constexpr size_t pw_elems = kProject ? size_t(2) * kPK * (kPCols + 8) : 0;
   static constexpr size_t bytes =
       sizeof(T) * (q_elems + p_elems + k_elems + v_elems + px_elems + pw_elems) +
-      sizeof(float) * kECols + sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
+      sizeof(float) * (kECols + kERows) + sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
       sizeof(uint16_t) * kBitWords + sizeof(float) * kLRows;
 };
 
@@ -168,9 +187,10 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   T* vs = kDot && WHOLE ? ks : ks + C::k_elems;
   T* pxs = ks + C::k_elems + C::v_elems;  // layer: the projection's x and W ring
   T* pws = pxs + C::px_elems;
-  float* ecs = reinterpret_cast<float*>(pws + C::pw_elems);  // add: [P]
+  float* ecs = reinterpret_cast<float*>(pws + C::pw_elems);  // add: [P] (layer add: [KT])
+  float* ers = ecs + C::kECols;  // layer add: e_row of the block's rows, [kRows]
   // whole: adj's edge bits, [rows][KT / kGroup] 16-key words, 16-byte rows
-  uint16_t* rbits = reinterpret_cast<uint16_t*>(ecs + C::kECols);
+  uint16_t* rbits = reinterpret_cast<uint16_t*>(ers + C::kERows);
   uint32_t* flags = reinterpret_cast<uint32_t*>(rbits + C::kBitWords);  // [WARPS][n_tiles]
   uint32_t* tmask = flags + WARPS * C::kMaxTiles;                       // [n_tiles]
   uint32_t* wlive = tmask + C::kMaxTiles;                               // [WARPS]
@@ -190,7 +210,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const int n_tiles = (P + KT - 1) / KT;
   const int n_groups = (P + kGroup - 1) / kGroup;
 
-  if constexpr (!kDot)
+  if constexpr (!kDot && !C::kProject)
     for (int c = tid; c < P; c += C::kThreads) ecs[c] = sc.e_col[sbase + long(c) * H];
   for (int i = tid; i < WARPS * n_tiles; i += C::kThreads) flags[i] = 0u;
   for (int i = tid; i < C::kBitWords; i += C::kThreads) rbits[i] = 0;
@@ -235,7 +255,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   };
   // layer: rows [n0, n0 + R) of q (which 0), k (1) or v (2) into dst
   auto project = [&](auto rows, int which, int n0, uint32_t live, T* dst, int ld) {
-    if constexpr (C::kProject) {
+    if constexpr (C::kProject && kDot) {
       const long wbase = long(hh) * sc.din * f;
       const T* w = which == 0 ? sc.wq : which == 1 ? sc.wk : sc.wv;
       const float* bias = (which == 0 ? sc.bq : which == 1 ? sc.bk : sc.bv) + long(hh) * f;
@@ -244,10 +264,26 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
           which == 0 ? sc.scale : 1.f, n0, P, live, dst, ld, pxs, pws, tid);
     }
   };
+  // layer add: rows [n0, n0 + R) of z into dst, and their e_row, e_col into
+  // erow, ecol (either may be null)
+  auto project_z = [&](auto rows, int n0, uint32_t live, T* dst, int ld, float* erow,
+                       float* ecol) {
+    if constexpr (C::kProject && !kDot) {
+      const long hf = long(hh) * f;
+      project_tile_scores<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK>(
+          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, sc.w + hf * sc.din, f, vec,
+          sc.bias + hf, sc.a_l + hf, sc.a_r + hf, n0, P, live, dst, ld, pxs, pws, erow, ecol,
+          tid);
+    }
+  };
   using KRows = std::integral_constant<int, KT>;
-  // dot: K, and V too unless whole; add: V
+  // dot: K, and V too unless whole; add: V; layer add: z as V and its e_col
+  // (whole: every node live as a row or a key, with e_row too)
   auto stage_kv = [&](int j, int st, bool with_v) {
-    if constexpr (C::kProject) {
+    if constexpr (C::kProject && !kDot) {
+      project_z(KRows{}, j * KT, WHOLE ? tmask[j] | qlive : tmask[j], vs, C::ldv,
+                WHOLE ? ers : nullptr, ecs);
+    } else if constexpr (C::kProject) {
       project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk);
       if (with_v) project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv);
     } else {
@@ -278,7 +314,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   for (int mt = 0; mt < MT; ++mt) zero_acc(o[mt]);
   float m_run[2] = {kDead, kDead}, l_run[2] = {0.f, 0.f};
   float er[2] = {0.f, 0.f};  // add: e_row of rows g and g + 8 of the warp
-  if constexpr (!kDot) {
+  if constexpr (!kDot && !C::kProject) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = row_w + g + 8 * h2;
@@ -286,9 +322,13 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     }
   }
 
-  // dot: Q (the live warps' rows) and the first live key tile; add: its V
-  if constexpr (C::kProject)
+  // dot: Q (the live warps' rows) and the first live key tile; add: its V;
+  // layer add stream: e_row of the live warps' rows (their z, projected into
+  // the ex rows, is not used), then z and e_col of the first live key tile
+  if constexpr (C::kProject && kDot)
     project(std::integral_constant<int, C::kRows>{}, 0, r0, qlive, qs, C::ldq);
+  else if constexpr (C::kProject && !WHOLE)
+    project_z(std::integral_constant<int, C::kRows>{}, r0, qlive, qs, C::ldq, ers, nullptr);
   else if constexpr (kDot)
     stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq, tid,
                       C::kThreads);
@@ -302,12 +342,19 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       if (jn < n_tiles) stage_kv(jn, st ^ 1, true);
       cp_async_commit();
     }
-    if constexpr (kDot) {
+    if constexpr (kDot || C::kProject) {
       if (WHOLE || C::kProject)
         cp_async_wait<0>();  // Q and K (and V: layer stream) are in place
       else
         cp_async_wait<1>();  // Q and this tile's K and V have landed
       __syncthreads();
+    }
+    if constexpr (!kDot && C::kProject) {  // layer add: e_row of rows g and g + 8
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int row = row_w + g + 8 * h2;
+        er[h2] = live_w && row < P ? ers[row - r0] : 0.f;
+      }
     }
     const uint32_t gm = live_w ? flags[warp * n_tiles + j] : 0u;
     const T* kt = ks + size_t(st) * KT * C::ldk;
@@ -346,7 +393,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       for (int jj = 0; jj < NTS; ++jj) {
         float2 ec2 = make_float2(0.f, 0.f);  // add: e_col of keys kc, kc + 1
         if constexpr (!kDot)
-          if ((nm >> jj) & 1u) ec2 = *reinterpret_cast<const float2*>(ecs + j * KT + jj * 8 + 2 * t);
+          if ((nm >> jj) & 1u)  // layer add: ecs holds this tile's keys only
+            ec2 = *reinterpret_cast<const float2*>(ecs + (C::kProject ? 0 : j * KT) + jj * 8 +
+                                                   2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int rr = g + (e >> 1) * 8, row = row_w + rr;
@@ -544,6 +593,39 @@ cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* 
   if (f <= 128)
     return launch_fi<Score, T, 128>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
   return launch_fi<Score, T, 256>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
+}
+
+// The whole-layer kernels #5 and #6 (policy LayerScore<T> or
+// LayerAddScore<T>): P <= 128 with FI <= 128 (every GT and GAT serving and
+// training shape) takes the whole block of 8 warps over all 128 rows of one
+// (graph, head), so each node is projected once; larger shapes the stream
+// block, 8 warps over 128 query rows where the block fits (FI = 64, 128),
+// else 4 over 64, each projecting the live key tiles as it reaches them.
+template <typename Score, typename T, int FI>
+cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H,
+                         int f, Dropout drop, cudaStream_t stream) {
+  if constexpr (FI <= 128) {
+    if (P <= 128)
+      return launch<Score, T, FI, 8, 128, true>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
+                                                H, f, drop, stream);
+  }
+  constexpr int KT = FI == 256 ? 32 : 64;
+  constexpr int WARPS = FI == 64 || FI == 128 ? 8 : 4;
+  return launch<Score, T, FI, WARPS, KT, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
+                                                H, f, drop, stream);
+}
+
+// Checks the shape and launches a whole-layer kernel: 1 <= P <= kMaxP,
+// 1 <= f <= 256, din >= 1.
+template <typename Score, typename T>
+cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H, int f,
+                      Dropout drop, cudaStream_t stream) {
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || f > 256 || sc.din < 1)
+    return cudaErrorInvalidValue;
+  if (f <= 32) return launch_layer<Score, T, 32>(sc, adj, out, B, P, H, f, drop, stream);
+  if (f <= 64) return launch_layer<Score, T, 64>(sc, adj, out, B, P, H, f, drop, stream);
+  if (f <= 128) return launch_layer<Score, T, 128>(sc, adj, out, B, P, H, f, drop, stream);
+  return launch_layer<Score, T, 256>(sc, adj, out, B, P, H, f, drop, stream);
 }
 
 }  // namespace

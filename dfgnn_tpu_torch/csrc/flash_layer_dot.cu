@@ -51,38 +51,6 @@
 
 #include "flash_fwd.cuh"
 
-namespace {
-
-template <typename T, int FI>
-cudaError_t launch_layer(const LayerScore<T>& sc, const uint8_t* adj, void* out, int B, int P,
-                         int H, int f, cudaStream_t stream) {
-  const Dropout no_drop{false, 0u, 0u, 1.f};
-  if constexpr (FI <= 128) {
-    if (P <= 128)
-      return launch<LayerScore<T>, T, FI, 8, 128, true>(sc, nullptr, adj, nullptr, out, nullptr,
-                                                        B, P, H, f, no_drop, stream);
-  }
-  // stream: 8 warps over 128 query rows where the block fits (f = 64, 128),
-  // so each graph's K and V are projected P / 128 times
-  constexpr int KT = FI == 256 ? 32 : 64;
-  constexpr int WARPS = FI == 64 || FI == 128 ? 8 : 4;
-  return launch<LayerScore<T>, T, FI, WARPS, KT, false>(sc, nullptr, adj, nullptr, out, nullptr,
-                                                        B, P, H, f, no_drop, stream);
-}
-
-template <typename T>
-cudaError_t layer_fwd(const LayerScore<T>& sc, const uint8_t* adj, void* out, int B, int P,
-                      int H, int f, cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || f > 256 || sc.din < 1)
-    return cudaErrorInvalidValue;
-  if (f <= 32) return launch_layer<T, 32>(sc, adj, out, B, P, H, f, stream);
-  if (f <= 64) return launch_layer<T, 64>(sc, adj, out, B, P, H, f, stream);
-  if (f <= 128) return launch_layer<T, 128>(sc, adj, out, B, P, H, f, stream);
-  return launch_layer<T, 256>(sc, adj, out, B, P, H, f, stream);
-}
-
-}  // namespace
-
 extern "C" {
 
 // dtype (of x, the weights and out): 0 = fp32, 1 = bf16.  x: [B, P, din]
@@ -99,18 +67,19 @@ int dfgnn_flash_layer_dot_fwd(int dtype, const void* x, const void* wq, const vo
   const auto* fk = static_cast<const float*>(bk);
   const auto* fv = static_cast<const float*>(bv);
   auto s = static_cast<cudaStream_t>(stream);
+  const Dropout no_drop{false, 0u, 0u, 1.f};
   if (dtype == 0) {
     const LayerScore<float> sc{static_cast<const float*>(x),  static_cast<const float*>(wq),
                                static_cast<const float*>(wk), static_cast<const float*>(wv),
                                fq, fk, fv, din, fill_bytes<float>(din), scale};
-    return int(layer_fwd<float>(sc, a, out, B, P, H, F, s));
+    return int(layer_fwd<LayerScore<float>, float>(sc, a, out, B, P, H, F, no_drop, s));
   }
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     const LayerScore<bf16> sc{static_cast<const bf16*>(x),  static_cast<const bf16*>(wq),
                               static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
                               fq, fk, fv, din, fill_bytes<bf16>(din), scale};
-    return int(layer_fwd<bf16>(sc, a, out, B, P, H, F, s));
+    return int(layer_fwd<LayerScore<bf16>, bf16>(sc, a, out, B, P, H, F, no_drop, s));
   }
   return int(cudaErrorInvalidValue);
 }

@@ -1,9 +1,9 @@
-// Tensor-core building blocks of the redesigned kernels #1, #2 and #5 (their
-// shared forward body, flash_fwd.cuh), #3 (flash_mask_bwd.cu) and #4
+// Tensor-core building blocks of the redesigned kernels #1, #2, #5 and #6
+// (their shared forward body, flash_fwd.cuh), #3 (flash_mask_bwd.cu) and #4
 // (flash_add_bwd.cu): warp-level mma.sync products over shared-memory tiles,
 // 3xTF32 for fp32 and bf16 with fp32 accumulators, cp.async staging of
-// [rows, F] tiles with zero fill, #5's projection, and the adjacency scan
-// that finds the tiles with no edge.
+// [rows, F] tiles with zero fill, the projection of #5 and #6, and the
+// adjacency scan that finds the tiles with no edge.
 //
 // Why mma.sync and not wgmma.  Every product of #1 to #4 has one operand
 // that is produced in the kernel (p, ds, pn) and lives in a per-warp
@@ -318,9 +318,10 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
   }
 }
 
-// The projection of the whole-layer kernel #5 (flash_layer_dot.cu) on the
-// tensor cores, block-collective (every thread of the WARPS warps calls it):
-//   dst[r][c] = round_to<T>((sum_k x[n0 + r][k] W[k][c] + bias[c]) * scale)
+// The projection of the whole-layer kernels #5 (flash_layer_dot.cu) and #6
+// (flash_layer_add.cu) on the tensor cores, block-collective (every thread
+// of the WARPS warps calls it):
+//   dst[r][c] = round_to<T>(z[r][c]),  z = (sum_k x[n0 + r][k] W[k][c] + bias[c]) * scale
 // for the rows r < R of the 16-row groups whose bit in `live` is set (the
 // others are neither loaded nor written) and every column c below f rounded
 // up to the pass width, columns past f being exact zeros.  x is [.., din] of
@@ -333,28 +334,33 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
 // products summed apart).  Starts by writing the ring and ends after the
 // last chunk's barrier with the stores to dst, so the caller waits at a
 // barrier before reading dst.  xvec and wvec: the fill_bytes of din and f.
-// Not inlined: one copy of its unrolled products serves the q, k and v
-// projections, where three inlined copies ran slower (the kernel's code
-// outgrew the instruction cache).  (A ring of 3 or 4 stages, or the three
-// TF32 products of a k-step in three independent accumulators, ran no
-// faster: the products are issue-bound at one block of 8 warps an SM.)
-template <typename T, int R, int NJ, int WARPS, int KC>
-__device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, int din,
-                                             int xvec, const T* __restrict__ w, int f, int wvec,
-                                             const float* __restrict__ bias, float scale, int n0,
-                                             int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
-                                             int tid) {
+// With SCORES (#6) it also forms, from the unrounded fp32 z, the row scalars
+//   el[r] = sum_c z[r][c] a_l[c],  er[r] = sum_c z[r][c] a_r[c]
+// (a_l, a_r fp32 [f]; el or er may be null) for the same rows, in a fixed
+// order: each thread's columns over the passes, the quad, then the TC warps
+// that share a row, in warp order, through the ring (free once the last
+// chunk is consumed).  No atomics, so two launches agree bitwise; it ends
+// with a barrier, so the next call may refill the ring.
+template <typename T, int R, int NJ, int WARPS, int KC, bool SCORES>
+__device__ __forceinline__ void project_tile_body(
+    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
+    int wvec, const float* __restrict__ bias, float scale, int n0, int P, uint32_t live, T* dst,
+    int ld, T* xs, T* ws, int tid, const float* __restrict__ a_l, const float* __restrict__ a_r,
+    float* el, float* er) {
   constexpr int kThreads = WARPS * 32;
   constexpr int CW = kThreads * 8 * NJ / R;  // columns a pass
   constexpr int TC = CW / (8 * NJ);          // warp tiles across a pass
   static_assert(R % 32 == 0 && (R / 32) * TC == WARPS && TC * 8 * NJ == CW,
                 "the warps cover a pass once");
   constexpr int ldx = KC + pad_rm<T>(), ldw = CW + 8;
+  static_assert(!SCORES || int(sizeof(T)) * ldx >= 4 * TC,
+                "the row scalars' partial sums fit the ring");
   constexpr int KS = kstep<T>();
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int wr = (warp / TC) * 32, wc = (warp % TC) * 8 * NJ;  // the warp's tile
   const uint32_t mts = (live >> (wr / kGroup)) & 3u;
   const int n_chunks = (din + KC - 1) / KC;
+  float sl[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, sr[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // SCORES
 #pragma unroll 1
   for (int c0 = 0; c0 < f; c0 += CW) {
     const int cols = f - c0 - wc;  // the warp's columns below f
@@ -382,7 +388,26 @@ __device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, i
         const T* xa = xs + size_t(ch & 1) * R * ldx + size_t(wr) * ldx;
         const T* wb = ws + size_t(ch & 1) * KC * ldw;
 #pragma unroll 1
-        for (int k0 = 0; k0 < KC; k0 += KS) mma_step2<NJ>(acc, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+        for (int k0 = 0; k0 < KC; k0 += KS) {
+          if constexpr (SCORES && sizeof(T) == 2) {
+            // #6 in bf16: each k-step's products summed apart and added to acc
+            // in fp32, as the 3xTF32 products are (mma_step): accumulated on
+            // the tensor core, z came out biased toward zero, one bf16 step of
+            // z off an exact evaluation more often than an fp32 GEMM's z
+            float part[2][NJ][4];
+            zero_acc(part[0]);
+            zero_acc(part[1]);
+            mma_step2<NJ>(part, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
+          } else {
+            mma_step2<NJ>(acc, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+          }
+        }
       }
       __syncthreads();  // this slot is free again
     }
@@ -394,13 +419,84 @@ __device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, i
       for (int j = 0; j < NJ; ++j) {
         const int c = c0 + wc + 8 * j + 2 * t;
         const float b0 = c < f ? bias[c] : 0.f, b1 = c + 1 < f ? bias[c + 1] : 0.f;
+        float l0 = 0.f, l1 = 0.f, q0 = 0.f, q1 = 0.f;  // SCORES: a_l, a_r of columns c, c + 1
+        if constexpr (SCORES) {
+          if (c < f) l0 = a_l[c], q0 = a_r[c];
+          if (c + 1 < f) l1 = a_l[c + 1], q1 = a_r[c + 1];
+        }
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
-          store_pair<T>(dst + size_t(wr + 16 * mt + g + 8 * h2) * ld + c,
-                        (acc[mt][j][2 * h2] + b0) * scale, (acc[mt][j][2 * h2 + 1] + b1) * scale);
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float z0 = (acc[mt][j][2 * h2] + b0) * scale;
+          const float z1 = (acc[mt][j][2 * h2 + 1] + b1) * scale;
+          store_pair<T>(dst + size_t(wr + 16 * mt + g + 8 * h2) * ld + c, z0, z1);
+          if constexpr (SCORES) {
+            sl[mt][h2] += z0 * l0 + z1 * l1;
+            sr[mt][h2] += z0 * q0 + z1 * q1;
+          }
+        }
       }
     }
   }
+  if constexpr (SCORES) {
+    float* part = reinterpret_cast<float*>(xs);  // [2][TC][R]: el's, then er's partial sums
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float l = sl[mt][h2], q = sr[mt][h2];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        q += __shfl_xor_sync(0xffffffffu, q, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        q += __shfl_xor_sync(0xffffffffu, q, 2);
+        if (t == 0 && ((mts >> mt) & 1u)) {
+          const int r = wr + 16 * mt + g + 8 * h2;
+          part[(warp % TC) * R + r] = l;
+          part[(TC + warp % TC) * R + r] = q;
+        }
+      }
+    __syncthreads();
+    for (int r = tid; r < R; r += kThreads) {
+      if (!((live >> (r / kGroup)) & 1u)) continue;
+      float l = 0.f, q = 0.f;
+#pragma unroll
+      for (int tc = 0; tc < TC; ++tc) {
+        l += part[tc * R + r];
+        q += part[(TC + tc) * R + r];
+      }
+      if (el != nullptr) el[r] = l;
+      if (er != nullptr) er[r] = q;
+    }
+    __syncthreads();  // el and er are in place, and the ring is free again
+  }
+}
+
+// #5's projection.  Not inlined: one copy of its unrolled products serves
+// the q, k and v projections, where three inlined copies ran slower (the
+// kernel's code outgrew the instruction cache).  (A ring of 3 or 4 stages,
+// or the three TF32 products of a k-step in three independent accumulators,
+// ran no faster: the products are issue-bound at one block of 8 warps an
+// SM.)
+template <typename T, int R, int NJ, int WARPS, int KC>
+__device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, int din,
+                                             int xvec, const T* __restrict__ w, int f, int wvec,
+                                             const float* __restrict__ bias, float scale, int n0,
+                                             int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
+                                             int tid) {
+  project_tile_body<T, R, NJ, WARPS, KC, false>(x, xbase, din, xvec, w, f, wvec, bias, scale,
+                                                n0, P, live, dst, ld, xs, ws, tid, nullptr,
+                                                nullptr, nullptr, nullptr);
+}
+
+// #6's projection: z and its row scalars el, er (project_tile_body with
+// SCORES), scale 1.  Not inlined, as project_tile.
+template <typename T, int R, int NJ, int WARPS, int KC>
+__device__ __noinline__ void project_tile_scores(
+    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
+    int wvec, const float* __restrict__ bias, const float* __restrict__ a_l,
+    const float* __restrict__ a_r, int n0, int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
+    float* el, float* er, int tid) {
+  project_tile_body<T, R, NJ, WARPS, KC, true>(x, xbase, din, xvec, w, f, wvec, bias, 1.f, n0,
+                                               P, live, dst, ld, xs, ws, tid, a_l, a_r, el, er);
 }
 
 // Bit i set iff byte i of w is not 0.

@@ -112,6 +112,19 @@ GT_FUSED_TOKENS = 24_576    # flash_fused won bs=128 (16384 tokens) in 4 runs, f
 GT_FUSED_WIDTH = 96         # flash_fused won dims 16 to 64 at bs=256 in 3 runs of 4 each
 AGNN_DENSE_TOKENS = 98_304  # flash won bs=512 in 3 runs of 4, dense bs >= 1024 in all
 AGNN_DENSE_WIDTH = 192      # dense won dim 256 in 3 runs of 4, flash dims <= 128 in all
+# bf16 GAT: the whole-layer kernel #6 up to P = 128 (one block projects each
+# graph's z once), and past it only up to this many padded nodes, since its
+# stream block projects each live key tile's z once per 128 query rows.
+# chip_smoke.py's phase 10b times a bf16 GATConv forward (din = f = 128)
+# through #6 and through the flash route (F.linear, the score contractions
+# and kernel #2) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6):
+# P = 256 (128 graphs) 0.1756 and 0.1766 against 0.2429 and 0.2913 ms, P =
+# 512 (64 graphs) 0.3085 and 0.3131 against 0.2844 and 0.2304, in two runs.
+# Two later runs read 0.1812, 0.1819 against 0.2445, 0.2573 at P = 256 and
+# 0.3269, 0.3134 against 0.4844, 0.3090 at P = 512: the flash route is
+# host-bound and spreads, but wins at 512 on the median of the four runs.
+# The bound sits between the two points, as the thresholds above do.
+GAT_FUSED_MAX_P = 384
 
 
 def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
@@ -147,7 +160,7 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
         if n_tokens >= GT_DENSE_TOKENS or out_size >= GT_DENSE_WIDTH:
             return "dense"
         if (g.val is None and (n_tokens < GT_FUSED_TOKENS or out_size < GT_FUSED_WIDTH)
-                and layer_fits("dot", g.np_pad, f, torch.bfloat16)):
+                and layer_fits("dot", g.np_pad, f)):
             return "flash_fused"
         return "flash" if flash_takes("dot", g.np_pad, f) else "dense"
     if n_tokens >= AGNN_DENSE_TOKENS or out_size >= AGNN_DENSE_WIDTH:
@@ -158,13 +171,13 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
 def _auto_bf16_gat(g: DenseBatch, head_dim: int) -> str:
     """GAT's bf16 ``method="auto"`` on a DenseBatch.  With edge values it
     stays ``auto`` (the decomposed layer, where the dispatcher's shape rule
-    picks flash or dense).  Without, the whole-layer kernel #6 where its
-    block fits (:func:`layer_fits`), else ``flash`` where kernels #2 and #4
-    take the head dim, else ``dense``: a rule on the shape, as
-    :func:`_auto_bf16_dense_batch`."""
+    picks flash or dense).  Without, the whole-layer kernel #6 where it
+    takes the shape (:func:`layer_fits`) and ``np_pad`` is at most
+    ``GAT_FUSED_MAX_P``, the measured bound; else ``flash`` where kernels #2
+    and #4 take the head dim, else ``dense``."""
     if g.val is not None:
         return "auto"
-    if layer_fits("add", g.np_pad, head_dim, torch.bfloat16):
+    if layer_fits("add", g.np_pad, head_dim) and g.np_pad <= GAT_FUSED_MAX_P:
         return "flash_fused"
     return "flash" if flash_takes("add", g.np_pad, head_dim) else "dense"
 
@@ -230,7 +243,7 @@ class GATConv(nn.Module):
     edge hash's seed), any generator for the dense path and the oracle.
     On a :class:`DenseBatch` without edge values, ``impl="flash_fused"`` runs
     the whole layer as kernel #6, and so does ``method="auto"`` with
-    ``dtype=torch.bfloat16`` where #6's block fits (:func:`_auto_bf16_gat`).  In bf16, z is bf16 and e_l, e_r are fp32 (JAX
+    ``dtype=torch.bfloat16`` where :func:`_auto_bf16_gat` routes to it.  In bf16, z is bf16 and e_l, e_r are fp32 (JAX
     promotes the bf16 z against the fp32 a_l, a_r).
     """
 

@@ -36,10 +36,9 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernels take: the head dims #6 is instantiated for, the widest
-# head dim of the tensor-core kernels #1 to #5 (any f from 1 up to it: the
-# tiles are zero past f), and the most nodes of #1 to #5.
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# What the kernels take: the widest head dim of the tensor-core kernels #1
+# to #6 (any f from 1 up to it: the tiles are zero past f), and the most
+# nodes.
 DOT_KERNEL_MAX_F = 256
 KERNEL_MAX_P = 2048
 # #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
@@ -578,35 +577,14 @@ def flash_graph_attention(
 # package's custom VJPs reuse its Pallas kernels.
 # ---------------------------------------------------------------------------
 
-# Kernel #6's tiles (csrc/flash_layer.cuh): query rows per attention tile,
-# rows per projection pass, depth of an x / W tile; and the shared memory one
-# H100 block may use.
-_LAYER_Q, _LAYER_PR, _LAYER_K = 32, 64, 32
-MAX_SMEM_BYTES = 232448
-
-
-def layer_smem_bytes(P: int, f: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of kernel #6, as ``smem_bytes`` in its
-    source computes it: the fp32 staging tiles and score rows, then z in the
-    input dtype, each row padded to an odd number of 32-bit words.  (#5
-    streams its tiles, so its block does not grow with P.)"""
-    item = 4 if dtype == torch.float32 else 2
-    row = f + 4 // item
-    floats = _LAYER_PR * (_LAYER_K + 1) + _LAYER_K * f + _LAYER_Q * (P + 1) + _LAYER_Q
-    return 4 * (floats + 2 * P) + item * P * row
-
-
-def layer_fits(score: str, P: int, f: int, dtype: torch.dtype) -> bool:
+def layer_fits(score: str, P: int, f: int) -> bool:
     """Whether kernel #5 (``score="dot"``) or #6 (``"add"``) takes a layer of
-    head dim ``f`` over ``P`` nodes in ``dtype``.  #5: any f from 1 to
-    DOT_KERNEL_MAX_F and P <= KERNEL_MAX_P, fp32 or bf16.  #6: f in
-    KERNEL_HEAD_DIMS, P <= KERNEL_MAX_P and a block within one H100 block's
-    shared memory (:func:`layer_smem_bytes`)."""
-    if not 1 <= P <= KERNEL_MAX_P:
-        return False
-    if score == "dot":
-        return takes_head_dim(f)
-    return f in KERNEL_HEAD_DIMS and layer_smem_bytes(P, f, dtype) <= MAX_SMEM_BYTES
+    head dim ``f`` over ``P`` nodes.  Both stream their key tiles past
+    P = 128 (their blocks do not grow with P), so both take one set, in
+    fp32 and bf16: any f from 1 to DOT_KERNEL_MAX_F and P <= KERNEL_MAX_P."""
+    if score not in ("dot", "add"):
+        raise ValueError(f"unknown score mode {score!r}")
+    return takes_head_dim(f) and 1 <= P <= KERNEL_MAX_P
 
 
 def flash_takes(score: str, P: int, f: int) -> bool:
@@ -687,18 +665,13 @@ def _check_layer_args(score, x, adj, ws, fp32s):
         raise ValueError("adj must be uint8 [B, P, P] on x's device")
     if not all(t.is_contiguous() for t in (x, adj, *ws, *fp32s)):
         raise ValueError("the kernel takes contiguous tensors")
-    if layer_fits(score, P, f, x.dtype):
+    if layer_fits(score, P, f):
         return
-    if score == "dot":
-        rule = f"kernel #5 (_layer_kernel_dot) takes 1 <= f <= {DOT_KERNEL_MAX_F}"
-    else:
-        rule = (f"kernel #6 (_layer_kernel_add) takes head dims {KERNEL_HEAD_DIMS} and P "
-                f"whose block fits {MAX_SMEM_BYTES} bytes of shared memory "
-                f"({layer_smem_bytes(P, f, x.dtype)} here)")
+    kernel = "#5 (_layer_kernel_dot)" if score == "dot" else "#6 (_layer_kernel_add)"
     raise ValueError(
-        f"{rule} and 1 <= P <= {KERNEL_MAX_P}, not P={P}, f={f} in {x.dtype}. The supported "
-        "sets are in ROADMAP.md section 2 (kernels #5 and #6); impl='flash' runs the "
-        "decomposed layer")
+        f"kernel {kernel} takes 1 <= f <= {DOT_KERNEL_MAX_F} and 1 <= P <= {KERNEL_MAX_P}, "
+        f"not P={P}, f={f}. The supported sets are in ROADMAP.md section 2 (kernels #5 and "
+        "#6); impl='flash' runs the decomposed layer")
 
 
 def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float):
@@ -737,7 +710,7 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     CPU tensors run :func:`flash_layer_add_fwd_plain`.  CUDA tensors launch
     kernel #6 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w`` ``[h, din, f]`` of x's dtype, fp32 ``b``, ``al``, ``ar`` ``[h, f]``,
-    uint8 ``adj``, all contiguous, at a shape whose block fits
+    uint8 ``adj``, all contiguous, 1 <= f <= 256 and P <= 2048
     (:func:`layer_fits`); ``0 <= rate < 1`` and a uint32 ``seed``.
     Anything else raises.
     """
@@ -747,8 +720,7 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     if x.device.type != "cuda":
         raise ValueError(f"no flash_layer_add_fwd kernel for device {x.device}")
     _check_layer_args("add", x, adj, (w,), (b, al, ar))
-    if not 0.0 <= rate < 1.0 or not 0 <= seed < 2 ** 32:
-        raise ValueError(f"dropout takes 0 <= rate < 1 and a uint32 seed, got {rate}, {seed}")
+    _check_dropout(seed, rate)
     B, P, din = x.shape
     h, _, f = w.shape
     out = torch.empty((B, P, h, f), dtype=x.dtype, device=x.device)

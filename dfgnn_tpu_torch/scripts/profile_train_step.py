@@ -42,6 +42,8 @@ DATASET, DIM, LAYERS, BATCH, PROFILED_STEPS = "ogbg-molhiv", 128, 8, 1024, 5
 GAT_HIDDEN, GAT_LAYERS, NP_PAD = 64, 2, 128
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("attention forward kernel #1", ("DotScore",)),  # flash_fwd_kernel<DotScore<...>, ...>
+    # before #2's group: LayerAddScore contains AddScore
+    ("whole-layer kernel #6", ("LayerAddScore",)),
     ("attention forward kernel #2", ("AddScore",)),
     ("attention backward kernel #4", ("flash_add_bwd",)),
     ("attention backward kernel #3", ("flash_mask_bwd_whole", "flash_mask_bwd_rows",

@@ -491,7 +491,9 @@ def test_add_forward_takes_any_head_dim(cuda, P, f):
 
 # Kernels #5 and #6, the whole layers.  (B, h, P, din, f, dtype): the GT and
 # GAT serving shapes in fp32 and bf16, the GAT step's f=64, several heads with
-# din != f, ragged P, the smallest f, bf16 at f=256 and a ragged P past 128.
+# din != f, ragged P, the smallest f, bf16 at f=256 and a ragged P past 128;
+# then P up to 2048 and off-grid f in fp32 and bf16, and an odd din (not
+# 16-byte rows).  Both kernels take every row.
 LAYER_SHAPES = [
     (1024, 1, 128, 128, 128, torch.float32),
     (1024, 1, 128, 128, 128, torch.bfloat16),
@@ -501,12 +503,6 @@ LAYER_SHAPES = [
     (3, 2, 40, 24, 8, torch.float32),
     (2, 1, 128, 256, 256, torch.bfloat16),
     (2, 1, 164, 128, 128, torch.float32),
-]
-
-
-# #5 alone takes more: P up to 2048 and any f up to 256 in fp32 and bf16,
-# any din (odd ones are not 16-byte rows).
-LAYER_DOT_SHAPES = LAYER_SHAPES + [
     (2, 1, 512, 128, 128, torch.float32),
     (2, 1, 512, 128, 128, torch.bfloat16),
     (1, 1, 2048, 64, 256, torch.float32),
@@ -533,7 +529,7 @@ def _layer_tol(dtype):
     return dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_DOT_SHAPES)
+@pytest.mark.parametrize("B,h,P,din,f,dtype", LAYER_SHAPES)
 def test_layer_dot_kernel_matches_plain(cuda, B, h, P, din, f, dtype):
     x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(30, B, h, P, din, f, dtype)
     args = (x, wq, bq, wk, bk, wv, bv, adj)
@@ -555,6 +551,39 @@ def test_layer_add_kernel_matches_plain(cuda, B, h, P, din, f, dtype, rate):
     want = flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj, **kw)
     assert out.dtype == dtype and out.shape == (B, P, h, f)
     torch.testing.assert_close(out.float(), want.float(), **_layer_tol(dtype))
+    assert not out[~adj.bool().any(-1)].any()  # empty and padded rows give 0
+
+
+_LAYER_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 512: (2, 1), 2048: (2, 1)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [26, 128, 300, 512, 2048])
+@pytest.mark.parametrize("f", [12, 48, 75, 128, 256])
+def test_layer_add_kernel_takes_any_head_dim_and_P(cuda, f, P, dtype, rate):
+    """#6 over its whole set (whole block at P <= 128 and f <= 128, the
+    stream block elsewhere) against its plain version; every fourth graph
+    empty, whose rows are exactly 0."""
+    B, h = _LAYER_BH[P]
+    x, (w, _, _), (b, al, ar), adj = _layer_inputs(36, B, h, P, 40, f, dtype)
+    adj[::4] = 0
+    kw = dict(slope=0.2, seed=0x5EED, rate=rate)
+    out = flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, **kw)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_layer_add_fwd_plain(x, w, b, al, ar, adj, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **_layer_tol(dtype))
+    assert not out[::4].any() and not out[~adj.bool().any(-1)].any()
+
+
+@pytest.mark.parametrize("P,f", [(128, 128), (300, 75)])
+def test_layer_add_kernel_is_deterministic(cuda, P, f):
+    """Two launches of #6 are bitwise equal: e_l and e_r are summed in a
+    fixed order, with no atomics."""
+    x, (w, _, _), (b, al, ar), adj = _layer_inputs(37, 4, 2, P, 64, f, torch.float32)
+    runs = [flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, seed=5, rate=0.4)
+            for _ in range(2)]
+    assert torch.equal(*runs)
 
 
 def test_layer_add_dropout_matches_the_decomposed_path(cuda):
@@ -574,6 +603,11 @@ def test_layer_kernels_refuse_what_does_not_fit(cuda):
     x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, 300, torch.float32)
     with pytest.raises(ValueError, match="ROADMAP"):  # #5 takes f up to 256
         flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
+    with pytest.raises(ValueError, match="ROADMAP"):  # so does #6
+        flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj)
+    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 1, 1, 2049, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP"):  # and P up to 2048
+        flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj)
     with pytest.raises(ValueError, match="contiguous"):
         flash_mask.flash_layer_add_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w, b,
                                        b, b, adj)

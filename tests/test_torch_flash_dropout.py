@@ -164,22 +164,44 @@ def _batch(n_graphs, P, val=False):
 @pytest.mark.parametrize("conv,P,width,want", [
     ("gt", 512, 128, "flash_fused"),  # #5 streams its key tiles: any P up to 2048
     ("gt", 128, 128, "flash_fused"),
-    ("gat", 512, 256, "flash"),    # #6 does not fit at f=256, P=512 ...
-    ("gat", 640, 128, "flash"),    # ... nor at P >= 640
-    ("gat", 512, 128, "flash_fused"),
-    ("gat", 128, 48, "flash"),     # #6 does not take f=48; #2 and #4 take any f up to 256
+    # #6 takes every shape here; past P = GAT_FUSED_MAX_P the flash route wins
+    ("gat", 512, 256, "flash"),
+    ("gat", 640, 128, "flash"),
+    ("gat", 512, 128, "flash"),
+    ("gat", 128, 48, "flash_fused"),  # #6 takes any f up to 256
 ])
 def test_bf16_auto_routes_on_the_whole_layer_kernels_shared_memory(conv, P, width, want):
     """The bf16 auto rules route to the whole-layer kernels only where they
-    take the shape (#6: where its block fits one H100 block's shared memory),
-    as a rule on the shape."""
+    take the shape; GAT's past P = 128 only up to its measured bound
+    GAT_FUSED_MAX_P."""
     batch = _batch(8, P)  # few tokens: GT's rule would pick flash_fused
     if conv == "gt":
         assert conv_mod._auto_bf16_dense_batch("gt", batch, width) == want
     else:
         assert conv_mod._auto_bf16_gat(batch, width) == want
-    fits = flash_mask.layer_fits("dot" if conv == "gt" else "add", P, width, torch.bfloat16)
-    assert fits == (want == "flash_fused")
+        assert (want == "flash_fused") == (P <= conv_mod.GAT_FUSED_MAX_P)
+    assert flash_mask.layer_fits("dot" if conv == "gt" else "add", P, width)
+
+
+def test_whole_layer_kernels_take_one_set():
+    """#6 takes what #5 takes, in fp32 and bf16: any f from 1 to 256 and P
+    up to 2048.  Its argument check takes f = 48 at P = 640 and refuses
+    f = 300 and P = 2049, naming ROADMAP.md section 2."""
+    for P in (1, 24, 128, 129, 640, 2048, 2049):
+        for f in (1, 12, 48, 75, 128, 256, 257, 300):
+            want = P <= 2048 and f <= 256
+            assert flash_mask.layer_fits("add", P, f) == flash_mask.layer_fits("dot", P, f) == want
+
+    def check(P, f, dtype=torch.float32):
+        flash_mask._check_layer_args(
+            "add", torch.zeros(1, P, 8, dtype=dtype), torch.zeros(1, P, P, dtype=torch.uint8),
+            (torch.zeros(1, 8, f, dtype=dtype),), [torch.zeros(1, f)] * 3)
+
+    check(640, 48)
+    check(640, 48, torch.bfloat16)
+    for P, f in ((128, 300), (2049, 48)):
+        with pytest.raises(ValueError, match="ROADMAP.md section 2"):
+            check(P, f)
 
 
 def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):

@@ -83,14 +83,22 @@ def test_layer_dot_and_grads_match_jax_interpret(din, h, f):
     _assert_grads([leaf.grad for leaf in leaves], want_grads)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.4])
-def test_layer_add_and_grads_match_jax_interpret(rate):
+@pytest.mark.parametrize("rate,P,f", [
+    pytest.param(0.0, 32, 8, id="0.0"),
+    pytest.param(0.4, 32, 8, id="0.4"),
+    # an off-grid head dim, and an np_pad off the kernels' 16-row tiles
+    pytest.param(0.0, 32, 12, id="0.0-f12"),
+    pytest.param(0.4, 32, 12, id="0.4-f12"),
+    pytest.param(0.0, 24, 8, id="0.0-P24"),
+    pytest.param(0.4, 24, 8, id="0.4-P24"),
+])
+def test_layer_add_and_grads_match_jax_interpret(rate, P, f):
     """flash_layer_attention_gat's inner Function (kernel #6 and its
     recompute backward through #2 and #4) against JAX's _flash_layer_add,
     with the gradients of x, W, b, a_l and a_r; dropout with the same seed."""
     rng = np.random.default_rng(5)
-    jb, tb = _batches(rng)
-    B, P, din, h, f = 2, 32, 16, 2, 8
+    jb, tb = _batches(rng, P=P)
+    B, din, h = 2, 16, 2
     x = _normal(rng, (B, P, din))
     w = _normal(rng, (h, din, f), din ** -0.5)
     b, al, ar = (_normal(rng, (h, f), 0.5) for _ in range(3))
