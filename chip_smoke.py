@@ -63,9 +63,21 @@ six launch counts set to 0 just before it and read just after:
   autograd through the oracle at dropout 0 and 0.4, and ``run_parity_full``;
 - the gather probe twin ``dfgnn_tpu_torch.scripts.microbench_gather``, the
   path that launches #7 and #8, with its table sweep and its rows of the
-  cluster probe (#8's function with the slab in a cluster's shared memory).
-The bucket path is torch ops, so the full-graph phases launch none of the
-hand-written kernels, and they assert that.  Prints progress and each
+  cluster probe (#8's function with the slab in a cluster's shared memory);
+- sampled training: the twin ``dfgnn_tpu_torch.scripts.train_sampled`` on
+  the arxiv stand-in (dim 64, bs 1024, one epoch, ``--compare-full``), its
+  steps/s, host sampling seconds and device ms a step and both runs' peak
+  memory; one batch's ``sampled_block_attention`` on both scores against
+  the segment-op oracle on the block's live lanes; the sampled step's
+  profile (``profile_train_step --model sampled``);
+- the utilities and the timing twins: ``profile_region`` around a GT
+  serving forward (the trace holds the ``annotate`` range), a checkpoint
+  round trip of a TrainState's ``state_dict``s, the batch timing twin
+  (PATTERN bs 256, dim 64, 4 layers: #1 and #3, their launches asserted),
+  the full-graph timing twin (cora, dim 64, 8 layers) and the GraphWorld
+  sweep (dim 64).
+The bucket path is torch ops, so the full-graph and sampled phases launch
+none of the hand-written kernels, and they assert that.  Prints progress and each
 phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
 and last a ``{"ok": true, ...}`` line.  Exits
 non-zero, with no result line, when there is no CUDA device or any check
@@ -78,6 +90,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -140,6 +153,13 @@ GATHER_SHAPES = [  # (table rows, row shape, dtype, rows gathered, chunk, lookah
 ]
 TAKE_SLABS, TAKE_MAIN = (512, 1024, 4096, 20000), 4096  # #8's slabs of 128 fp32, 2**20 ids
 FULL_SERVE_ARGS = ["--dataset", "reddit", "--dim", "128", "--heads", "1", "--format", "all_fg"]
+SAMPLED_BATCH, SAMPLED_DIM = 1024, 64
+SAMPLED_ARGS = ["--dataset", "arxiv", "--dim", str(SAMPLED_DIM), "--batch-size",
+                str(SAMPLED_BATCH), "--epochs", "1", "--compare-full"]
+BATCH_TIMING_ARGS = ["--dataset", "PATTERN", "--batch-size", "256", "--dim", "64",
+                     "--n-layers", "4"]
+FULL_TIMING_ARGS = ["--dataset", "cora", "--dim", "64", "--n-layers", "8", "--epochs", "5"]
+GRAPHWORLD_ARGS = ["--dim", "64"]
 FULL_TRAIN_ARGS = ["--dataset", "arxiv", "--dim", "64", "--heads", "4", "--n-layers", "2",
                    "--epochs", "5", "--lr", "1e-2"]
 GRAD_SUB_EDGES, GRAD_TOL = 1_000_000, dict(rtol=1e-3, atol=1e-4)
@@ -287,8 +307,13 @@ def main() -> int:
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import _cuda, flash_mask, gather
     from dfgnn_tpu_torch.scripts import (microbench_gather, profile_train_step, shmoo,
-                                         test_batch_graph, test_full_graph, train_gatconv,
-                                         train_gtconv, train_parity)
+                                         test_batch_graph, test_full_graph, test_gt_graphworld,
+                                         train_batch_graph_timing, train_full_graph_timing,
+                                         train_gatconv, train_gtconv, train_parity,
+                                         train_sampled)
+    from dfgnn_tpu_torch.data.sampling import NeighborSampler, sampled_block_attention
+    from dfgnn_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from dfgnn_tpu_torch.utils.profiling import annotate, profile_region
     from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
     from dfgnn_tpu_torch import formats
     from dfgnn_tpu_torch.data.datasets import load_full_graph
@@ -1617,6 +1642,165 @@ def main() -> int:
     print(f"gather probe twin: {len(probe)} rows; {seen[0]} #7 and {seen[1]} #8 launches "
           f"({smi})")
     phase_done("20 gather probe")
+
+    # 21. sampled training: the train_sampled twin on the arxiv stand-in, and
+    #     one batch's sampled_block_attention against the segment-op oracle
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    t0 = time.perf_counter()
+    sampled = train_sampled.main(SAMPLED_ARGS)
+    torch.cuda.synchronize()
+    no_kernel_launches("sampled training")
+    for key in ("losses", "full_losses"):
+        if not (sampled[key] and all(map(math.isfinite, sampled[key]))):
+            raise AssertionError(f"train_sampled {key}: {sampled[key]}")
+    for key in ("acc_sampled", "acc_full"):
+        if not 0.0 <= sampled[key] <= 1.0:
+            raise AssertionError(f"train_sampled {key}: {sampled[key]}")
+    print(f"train_sampled twin ({' '.join(SAMPLED_ARGS)}) in {time.perf_counter() - t0:.2f} s "
+          f"(host clock), {sampled['steps']} steps: sampled {sampled['steps_per_s']:.4f} "
+          f"steps/s, host sampling {sampled['sample_s_per_step']:.6f} s a step, device "
+          f"{sampled['device_ms_per_step']:.4f} ms a step (CUDA events), peak "
+          f"{sampled['peak_mib']:.1f} MiB, test accuracy {sampled['acc_sampled']:.4f}; full "
+          f"graph {sampled['full_steps_per_s']:.4f} steps/s, peak "
+          f"{sampled['full_peak_mib']:.1f} MiB, test accuracy {sampled['acc_full']:.4f}; "
+          f"sampled-full gap {sampled['gap']:+.4f} ({smi})")
+
+    ds = load_full_graph("arxiv", quiet=True)
+    bs = SAMPLED_BATCH
+    blocks, sup = NeighborSampler(Graph.from_coo(ds.rows, ds.cols, ds.n_nodes)).sample_localized(
+        np.nonzero(ds.train_mask)[0][:bs], train_sampled.FANOUTS, seed=0,
+        pad_to=[bs, bs * 9], support_pad=bs * 81)
+    del ds
+    rng = np.random.default_rng(21)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    h, f = 1, SAMPLED_DIM  # the twin's GTConv: one head of the hidden width
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    for li, blk in enumerate(blocks):
+        blk = blk.to("cuda")
+        b = blk.bg.buckets[0]
+        s_pad = b.row_ids.shape[0]
+        n_src = blocks[li + 1].bg.n_nodes if li + 1 < len(blocks) else sup.shape[0]
+        # the oracle's edge list: the block's live (row, neighbour) lanes
+        r_idx, w_idx = b.emask.nonzero(as_tuple=True)
+        n = max(s_pad, n_src)
+        g_live = Graph.from_coo(r_idx.cpu().numpy(), b.nbr[r_idx, w_idx].cpu().numpy(), n)
+        pad = lambda t: torch.cat([t, t.new_zeros((n - t.shape[0], *t.shape[1:]))])
+        q_tab, k, v, e_r, e_c = arr(n_src, h, f), arr(n_src, h, f), arr(n_src, h, f), \
+            arr(n_src, h), arr(n_src, h)
+        q_rows, er_rows = bucket._take(q_tab, blk.seeds), bucket._take(e_r, blk.seeds)
+        errs = []
+        for score in ("dot", "add"):
+            if score == "dot":
+                got = sampled_block_attention(blk, q_tab, k, v)
+                want = reference.graph_attention_reference(g_live, pad(q_rows), pad(k), pad(v))
+            else:
+                got = sampled_block_attention(blk, None, None, v, score="add", e_row=e_r,
+                                              e_col=e_c)
+                want = reference.graph_attention_reference(
+                    g_live, None, None, pad(v), score="add", e_row=pad(er_rows),
+                    e_col=pad(e_c))
+            if got.shape != (s_pad, h, f) or not torch.isfinite(got).all():
+                raise AssertionError(f"block {li} {score}: {tuple(got.shape)}")
+            errs.append(max_err(got, want[:s_pad], MODEL_TOL))
+        print(f"sampled block {li} of the arxiv stand-in's first batch ({blk.n_seeds} seeds of "
+              f"{s_pad}, {b.emask.sum().item()} live lanes of fanout {b.width}, {n_src} source "
+              f"rows): sampled_block_attention vs the segment-op oracle on its live lanes, max "
+              f"abs err dot {errs[0]:.3e}, add {errs[1]:.3e} (tol {MODEL_TOL})")
+    torch.cuda.synchronize()
+    no_kernel_launches("sampled-block attention")
+    del blocks, sup, g_live
+    prof = profile_train_step.main(["--model", "sampled"])
+    torch.cuda.synchronize()
+    no_kernel_launches("the sampled step's profile")
+    print(f"sampled train step (one batch, no sampling): forward {prof['forward_ms']:.4f} ms, "
+          f"backward {prof['backward_ms']:.4f}, Adam {prof['optimizer_ms']:.4f} (CUDA events); "
+          f"idle share under the profiler {prof['idle_share_profiled']:.4f}")
+    phase_done("21 sampled training")
+
+    # 22. utilities and the timing twins: a traced GT serving forward, a
+    #     checkpoint round trip, the two timing twins and the GraphWorld sweep
+    gt = GTModel("PATTERN", out_size=2, hidden_size=HIDDEN, num_layers=LAYERS, num_heads=1,
+                 generator=torch.Generator().manual_seed(0), device="cuda").eval()
+    rng = np.random.default_rng(0)
+    batch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).to("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.inference_mode():
+            gt(batch, x)  # warm-up outside the trace
+            with profile_region("gt_serving", log_dir=tmp) as path:
+                with annotate("gt_serving_forward"):
+                    gt(batch, x)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {e.get("name") for e in events}
+        if not {"gt_serving", "gt_serving_forward"} <= names:
+            raise AssertionError(f"the trace {path} lacks the annotated ranges")
+        n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"profile_region around one GT serving forward: {len(events)} trace events, "
+              f"{n_kernels} of them device kernels, the annotate range present")
+
+        state = TrainState.create(gt.train(), lr=1e-3, device="cuda")
+        loss_fn = make_loss_fn(gt, "graph_classification", 2)
+        y = torch.from_numpy(rng.integers(0, 2, BATCH)).cuda()
+        train_step(state, loss_fn, batch, x, y, torch.ones(BATCH, device="cuda"))
+        saved = {"model": gt.state_dict(), "opt": state.opt.state_dict()}
+        save_checkpoint(tmp, saved, step=1)
+        restored, step = restore_checkpoint(tmp, saved)
+
+        def tensors(tree):
+            if isinstance(tree, dict):
+                return [t for key in sorted(tree, key=str) for t in tensors(tree[key])]
+            return [tree] if isinstance(tree, torch.Tensor) else []
+
+        want, got = tensors(saved), tensors(restored)
+        if len(want) != len(got) or not all(a.device == b.device and torch.equal(a, b)
+                                            for a, b in zip(want, got)):
+            raise AssertionError("the checkpoint round trip changed a tensor")
+        print(f"checkpoint round trip of a TrainState's state_dicts (GTModel, Adam) on the "
+              f"card: step {step}, {len(want)} tensors bitwise equal")
+    del gt, state, batch, x
+
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    bt = train_batch_graph_timing.main(BATCH_TIMING_ARGS)
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    n_layers = int(BATCH_TIMING_ARGS[BATCH_TIMING_ARGS.index("--n-layers") + 1])
+    if not (bt["ok"] and bt["launches"] == [n_layers, n_layers, 0, 0, 0, 0]
+            and min(seen[:2]) > 0 and not any(seen[2:]) and not any(gather.launch_counts())):
+        raise AssertionError(f"batch timing twin: {bt}, launches #1, #3, #2, #4, #5, #6 {seen}")
+    print(f"batch timing twin ({' '.join(BATCH_TIMING_ARGS)}; {smi}): preprocess "
+          f"{bt['preprocess_ms']:.4f} ms a batch (host), forward {bt['forward_ms']:.4f}, "
+          f"backward {bt['backward_ms']:.4f}, fw+bw {bt['fwbw_ms']:.4f} ms a batch; one "
+          f"fw+bw {bt['launches'][0]} #1 and {bt['launches'][1]} #3 launches; the run "
+          f"{seen[0]} #1 and {seen[1]} #3")
+
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    ft = train_full_graph_timing.main(FULL_TIMING_ARGS)
+    torch.cuda.synchronize()
+    no_kernel_launches("full-graph timing")
+    if not ft["ok"]:
+        raise AssertionError(f"full-graph timing twin: {ft}")
+    for name in ("fused(bucket)", "unfused(oracle)"):
+        r = ft[name]
+        print(f"full timing twin ({' '.join(FULL_TIMING_ARGS)}; {smi}), {name}: forward "
+              f"{r['forward_ms']:.4f} ms, backward {r['backward_ms']:.4f}, update "
+              f"{r['update_ms']:.4f}, epoch {r['epoch_ms']:.4f}")
+
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    gw = test_gt_graphworld.main(GRAPHWORLD_ARGS)
+    torch.cuda.synchronize()
+    no_kernel_launches("GraphWorld sweep")
+    if not all(r["ok"] for r in gw.values()):
+        raise AssertionError(f"GraphWorld sweep: {gw}")
+    print(f"GraphWorld twin ({' '.join(GRAPHWORLD_ARGS)}; {smi}): " + ", ".join(
+        f"deg {d}: {r['ms']:.4f} ms ({r['edges_per_s']:.4e} edges/s)" for d, r in gw.items()))
+    phase_done("22 utilities and timing twins")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

@@ -18,3 +18,10 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} needs a CUDA card and torch.cuda.is_available() "
             "is false; pass device='cpu' to run on the CPU")
     return dev
+
+
+def synchronize(device) -> None:
+    """Waits for ``device``'s work when it is a CUDA device (a no-op on the
+    CPU, where work is done when the call returns)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,9 +1,9 @@
 """Single entry point dispatching on graph layout.
 
 The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  The :class:`DenseBatch`,
-:class:`Graph`, :class:`BucketedGraph` and :class:`BlockedBucketedGraph`
-layouts are ported; ``method`` names the same implementations as in the JAX
-package.
+:class:`Graph`, :class:`BucketedGraph`, :class:`BlockedBucketedGraph` and
+:class:`SampledBlock` layouts are ported; ``method`` names the same
+implementations as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from dfgnn_tpu_torch.data.sampling import SampledBlock, sampled_block_attention
 from dfgnn_tpu_torch.formats import BlockedBucketedGraph, BucketedGraph
 from dfgnn_tpu_torch.graph import DenseBatch, Graph
 from dfgnn_tpu_torch.ops import bucket as _bucket
@@ -47,7 +48,10 @@ def graph_attention(
     On a :class:`Graph`, ``auto`` and ``reference`` run the unfused
     segment-op oracle.  On a :class:`BucketedGraph` or
     :class:`BlockedBucketedGraph`, ``auto`` and ``bucket`` run the fused
-    bucket path (:mod:`dfgnn_tpu_torch.ops.bucket`).
+    bucket path (:mod:`dfgnn_tpu_torch.ops.bucket`).  On a
+    :class:`SampledBlock`, ``auto``, ``sampled`` and ``bucket`` run
+    :func:`sampled_block_attention`, which has neither dropout nor
+    ``return_weights`` (both raise).
     The ``DFGNN_TPU_FORCE_METHOD`` environment variable overrides
     ``method="auto"``.
     """
@@ -65,11 +69,22 @@ def graph_attention(
             return _bucket.bucket_graph_attention(g, q, k, v, **kw,
                                                   return_weights=return_weights)
         raise ValueError(f"method {method!r} invalid for {type(g).__name__}")
+    if isinstance(g, SampledBlock):
+        if return_weights:
+            raise NotImplementedError(
+                "return_weights is not available on the sampled-block path")
+        if dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not implemented on the sampled-block "
+                "path (never silently ignored)")
+        if method in ("auto", "sampled", "bucket"):
+            return sampled_block_attention(g, q, k, v, score=score, e_row=e_row, e_col=e_col,
+                                           negative_slope=negative_slope)
+        raise ValueError(f"method {method!r} invalid for SampledBlock")
     if not isinstance(g, DenseBatch):
         raise NotImplementedError(
-            f"graph layout {type(g).__name__} is not ported yet: DenseBatch, Graph and "
-            "the bucketed full graph are. SampledBlock comes with ROADMAP.md queue 1 "
-            "item 8 and the edge-partitioned graph with item 10.")
+            f"graph layout {type(g).__name__} is not ported yet: the edge-partitioned "
+            "graph comes with ROADMAP.md queue 1 item 10.")
     if method == "auto":
         method = "flash" if flash_mask.flash_takes(score, g.np_pad, v.shape[-1]) else "dense"
     if method == "flash" and not return_weights:

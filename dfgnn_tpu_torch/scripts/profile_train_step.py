@@ -1,14 +1,17 @@
 """Where a train step's device time goes, on the card.
 
-    python -m dfgnn_tpu_torch.scripts.profile_train_step [--model gt|gat]
+    python -m dfgnn_tpu_torch.scripts.profile_train_step [--model gt|gat|sampled]
         [--impl auto|dense|flash_fused]
 
 Builds, with random weights from a seed, the main path's GTModel
 (``--model gt``: ogbg-molhiv, hidden 128, 8 layers, 1 head, one collated
-bs=1024 batch) or the GAT step's ``FullGraphNet("gat")`` (``--model gat``:
+bs=1024 batch), the GAT step's ``FullGraphNet("gat")`` (``--model gat``:
 hidden 64, 2 layers, a bs=1024 PATTERN-like batch with noisy one-hot
-features, as ``chip_smoke.py`` times it), and reports for a train step
-(forward, backward, Adam update):
+features, as ``chip_smoke.py`` times it) or the sampled trainer's
+``SampledNet`` (``--model sampled``: the arxiv stand-in's first bs=1024
+batch of localized blocks, fanouts 8, 8, dim 64; the host sampling is not
+in the step), and reports for a train step (forward, backward, Adam
+update):
 - phase times from CUDA events (3 warmups, mean of 10 runs): the forward
   with its loss, the backward (forward + backward less the forward) and the
   optimizer's step alone;
@@ -28,18 +31,23 @@ import subprocess
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dfgnn_tpu_torch.data.collate import collate_dense
-from dfgnn_tpu_torch.data.datasets import load_batched
+from dfgnn_tpu_torch.data.datasets import load_batched, load_full_graph
+from dfgnn_tpu_torch.data.sampling import NeighborSampler
 from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
-from dfgnn_tpu_torch.graph import DenseBatch
+from dfgnn_tpu_torch.graph import DenseBatch, Graph
 from dfgnn_tpu_torch.models import FullGraphNet, GTModel
+from dfgnn_tpu_torch.ops.bucket import _take
+from dfgnn_tpu_torch.scripts.train_sampled import FANOUTS, SampledNet
 from dfgnn_tpu_torch.train.parity import _noisy_onehot
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 from dfgnn_tpu_torch.utils.benchmark import benchmark
 
 DATASET, DIM, LAYERS, BATCH, PROFILED_STEPS = "ogbg-molhiv", 128, 8, 1024, 5
 GAT_HIDDEN, GAT_LAYERS, NP_PAD = 64, 2, 128
+SAMPLED_BATCH, SAMPLED_DIM = 1024, 64
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("attention forward kernel #1", ("DotScore",)),  # flash_fwd_kernel<DotScore<...>, ...>
     # before #2's group: LayerAddScore contains AddScore
@@ -51,7 +59,7 @@ GROUPS = (  # (group, substrings of kernel names), first match wins
     ("whole-layer kernel #5", ("LayerScore",)),  # flash_fwd_kernel<LayerScore<...>, ...>
     ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "splitK", "dot_kernel")),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
-    ("embedding", ("embedding", "Embedding", "indexSelect", "index_select")),
+    ("embedding and row gathers", ("embedding", "Embedding", "indexSelect", "index_select")),
 )
 
 
@@ -77,7 +85,7 @@ def _busy_us(intervals) -> float:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default="gt", choices=["gt", "gat"])
+    p.add_argument("--model", default="gt", choices=["gt", "gat", "sampled"])
     p.add_argument("--impl", default="auto", choices=["auto", "dense", "flash_fused"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,6 +103,26 @@ def main(argv=None):
         state = TrainState.create(model, lr=1e-3, step_lr_every=20)
         base = make_loss_fn(model, ds.task, ds.num_classes)
         what = f"{DATASET} bs={BATCH}, GTModel dim {DIM}, {LAYERS} layers"
+    elif args.model == "sampled":
+        ds = load_full_graph("arxiv", quiet=True)
+        bs = SAMPLED_BATCH
+        seeds = np.nonzero(ds.train_mask)[0][:bs]
+        blocks, sup = NeighborSampler(Graph.from_coo(ds.rows, ds.cols, ds.n_nodes)
+                                      ).sample_localized(seeds, FANOUTS, seed=0,
+                                                         pad_to=[bs, bs * 9],
+                                                         support_pad=bs * 81)
+        batch = [b.to("cuda") for b in blocks]
+        feats = np.concatenate([ds.features[:, :SAMPLED_DIM], np.zeros((1, SAMPLED_DIM))])
+        x = _take(torch.from_numpy(feats.astype(np.float32)).cuda(),
+                  torch.from_numpy(sup).cuda())
+        y = torch.from_numpy(np.asarray(ds.labels)[seeds]).cuda()
+        m = torch.ones(bs, device="cuda")
+        model = SampledNet(SAMPLED_DIM, SAMPLED_DIM, ds.num_classes,
+                           generator=torch.Generator().manual_seed(0))
+        state = TrainState.create(model, lr=1e-3)
+        base = lambda blocks, x, y, m, impl=None: F.cross_entropy(model(blocks, x)[:bs], y)
+        what = (f"arxiv stand-in, SampledNet dim {SAMPLED_DIM}, fanouts {list(FANOUTS)}, "
+                f"bs={bs}")
     else:
         rng = np.random.default_rng(7)
         graphs = pattern_like_batch(rng, BATCH)

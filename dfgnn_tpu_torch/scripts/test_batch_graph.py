@@ -9,6 +9,7 @@ in the JAX script, ``reference`` on a DenseBatch is the dense formulation.
 TF32 is off for every product, in place of the JAX script's
 ``default_matmul_precision("highest")``.  It runs on the card unless
 ``--device cpu`` is given; on the CPU it checks but does not time.
+``--profile`` traces each format's first forward (``utils/profiling.py``).
 
     python -m dfgnn_tpu_torch.scripts.test_batch_graph --dataset PATTERN \\
         --batch-size 1024 --dim 128 --conv gat --format all [--device cpu]
@@ -28,6 +29,7 @@ from dfgnn_tpu_torch.models import Model
 from dfgnn_tpu_torch.ops import flash_mask
 from dfgnn_tpu_torch.utils.benchmark import benchmark, check_correct
 from dfgnn_tpu_torch.utils.config import build_parser, parse_args, resolve_format
+from dfgnn_tpu_torch.utils.profiling import profile_region
 
 
 def main(argv=None) -> dict:
@@ -38,9 +40,6 @@ def main(argv=None) -> dict:
     parser = build_parser(__doc__)
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on")
     args = parse_args(parser, argv)
-    if args.profile:
-        raise NotImplementedError("--profile needs utils/profiling.py, which is not ported "
-                                  "yet: ROADMAP.md queue 1 item 9")
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -62,6 +61,9 @@ def main(argv=None) -> dict:
         with torch.inference_mode():
             for ep, (batch, x, _, _) in enumerate(
                     batch_iterator(ds, args.batch_size, device=dev)):
+                if ep == 0 and args.profile:
+                    with profile_region(f"batch_{args.dataset}_{fmt}"):
+                        model(batch, x, impl=fmt)
                 if dev.type == "cuda":
                     ms = benchmark(lambda: model(batch, x, impl=fmt))[1]
                     times.append((ms, batch.n_edges / (ms / 1e3)))

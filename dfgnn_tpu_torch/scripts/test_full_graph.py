@@ -11,7 +11,8 @@ the bucket path is checked on the subsample.  ``--format dist`` (the
 edge-partitioned multi-device path) is not ported.  TF32 is off for every
 product, in place of the JAX script's ``default_matmul_precision("highest")``.
 It runs on the card unless ``--device cpu`` is given; on the CPU it checks
-but does not time.
+but does not time.  ``--profile`` traces one call per format
+(``utils/profiling.py``).
 
     python -m dfgnn_tpu_torch.scripts.test_full_graph --dataset reddit --dim 128 \\
         --heads 1 --conv gt --format all_fg [--device cpu]
@@ -32,6 +33,7 @@ from dfgnn_tpu_torch.graph import Graph
 from dfgnn_tpu_torch.models import make_conv
 from dfgnn_tpu_torch.utils.benchmark import benchmark, check_correct
 from dfgnn_tpu_torch.utils.config import build_parser, parse_args, resolve_format
+from dfgnn_tpu_torch.utils.profiling import profile_region
 
 
 def print_graph_struct(ds):
@@ -50,9 +52,6 @@ def main(argv=None) -> dict:
                    help="edge count above which the oracle runs on a random edge subsample")
     p.add_argument("--device", type=str, default="cuda", help="torch device to run on")
     args = parse_args(p, argv)
-    if args.profile:
-        raise NotImplementedError("--profile needs utils/profiling.py, which is not ported "
-                                  "yet: ROADMAP.md queue 1 item 9")
     if args.format in ("all_fg", "all_fg_super", "all"):
         fmts = ["reference", "bucket"]
     else:
@@ -94,6 +93,9 @@ def main(argv=None) -> dict:
             n_e = g_ref.n_edges if fmt == "reference" else g.n_edges
             res = {"n_edges": int(n_e), "ok": None, "ms": None, "edges_per_s": None,
                    "peak_mib": None}
+            if args.profile:
+                with profile_region(f"full_{args.dataset}_{fmt}"):
+                    layer(gg, x)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()

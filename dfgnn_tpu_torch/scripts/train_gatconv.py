@@ -22,17 +22,12 @@ import numpy as np
 import torch
 
 from dfgnn_tpu_torch.data.datasets import load_full_graph
-from dfgnn_tpu_torch.device import resolve_device
+from dfgnn_tpu_torch.device import resolve_device, synchronize
 from dfgnn_tpu_torch.formats import build_buckets
 from dfgnn_tpu_torch.graph import Graph
 from dfgnn_tpu_torch.models import GATNet
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 from dfgnn_tpu_torch.utils.config import build_parser, parse_args
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main(argv=None) -> dict:
@@ -63,7 +58,7 @@ def main(argv=None) -> dict:
 
     losses, train_ms = [], []
     for epoch in range(args.epochs):
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         _, loss = train_step(state, loss_fn, bg, x, y, train_mask)
         loss = float(loss)  # a value fetch: the device has finished the step
@@ -72,7 +67,7 @@ def main(argv=None) -> dict:
         if epoch % max(1, args.epochs // 5) == 0:
             print(f"epoch {epoch}: loss={loss:.4f} time={train_ms[-1]:.1f}ms", flush=True)
 
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     with torch.no_grad():
         pred = model(bg, x).argmax(dim=-1).cpu().numpy()

@@ -52,3 +52,14 @@ def check_correct(a, b, *, rtol: float = 1e-3, atol: float = 1e-5,
         print(f"check_correct: {bad_nodes.size}/{len(flat_a)} nodes mismatched")
         return False
     return True
+
+
+def github_table(headers, rows) -> str:
+    """A GitHub-markdown table of ``rows`` under ``headers``: what the JAX
+    scripts print through ``tabulate(..., tablefmt="github")``, in plain
+    string formatting (the card's machine has no ``tabulate``)."""
+    cells = [[str(c) for c in r] for r in [headers, *rows]]
+    widths = [max(len(r[i]) for r in cells) for i in range(len(headers))]
+    line = lambda r: "| " + " | ".join(c.ljust(w) for c, w in zip(r, widths)) + " |"
+    rule = "|" + "|".join("-" * (w + 2) for w in widths) + "|"
+    return "\n".join([line(cells[0]), rule, *map(line, cells[1:])])

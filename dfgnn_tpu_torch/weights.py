@@ -1,6 +1,7 @@
 """Carry a JAX model's weights into its PyTorch twin.
 
-Converters for ``GTModel``, ``Model``, ``FullGraphNet`` and ``GATNet``.  They
+Converters for ``GTModel``, ``Model``, ``FullGraphNet``, ``GATNet`` and the
+sampled trainer's ``SampledNet`` (and its ``FullNet``).  They
 take the flax parameter tree as nested mappings of array-likes (numpy
 arrays, or anything ``np.asarray`` reads), so they need no JAX.  A Dense
 ``kernel`` ``[din, dout]`` becomes ``Linear.weight = kernel.T``; an Embed
@@ -103,14 +104,14 @@ def _inproj(sd, tree):
         _done(node, name)
 
 
-def _layers(sd, tree, conv=None):
-    """``layer_0 .. layer_{n-1}`` -> ``layers.i``."""
-    layers = sorted(int(m.group(1)) for m in map(re.compile(r"layer_(\d+)").fullmatch, tree)
-                    if m)
+def _layers(sd, tree, conv=None, flax_name="layer", torch_name="layers"):
+    """``layer_0 .. layer_{n-1}`` -> ``layers.i`` (or other names)."""
+    pattern = re.compile(flax_name + r"_(\d+)")
+    layers = sorted(int(m.group(1)) for m in map(pattern.fullmatch, tree) if m)
     if layers != list(range(len(layers))):
-        raise KeyError(f"flax layers are not numbered 0..n-1: {layers}")
+        raise KeyError(f"flax {flax_name}s are not numbered 0..n-1: {layers}")
     for i in layers:
-        _conv(sd, tree.pop(f"layer_{i}"), f"layer_{i}", f"layers.{i}", conv)
+        _conv(sd, tree.pop(f"{flax_name}_{i}"), f"{flax_name}_{i}", f"{torch_name}.{i}", conv)
 
 
 def gtmodel_params_from_flax(params) -> dict[str, torch.Tensor]:
@@ -162,5 +163,18 @@ def gatnet_params_from_flax(params) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     _layers(sd, tree, "gat")
     _conv(sd, _take(tree, "out_layer", ""), "out_layer", "out_layer", "gat")
+    _done(tree, "the top level")
+    return sd
+
+
+def sampled_net_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """Flax ``SampledNet`` (or ``FullNet``) params of the sampled trainer
+    (``Dense_0``, ``conv_i`` GT layers, ``Dense_1``) -> a ``state_dict`` of
+    :class:`dfgnn_tpu_torch.scripts.train_sampled.SampledNet`."""
+    tree = _top(params)
+    sd: dict[str, torch.Tensor] = {}
+    _dense(sd, _take(tree, "Dense_0", ""), "Dense_0", "input_proj")
+    _layers(sd, tree, "gt", flax_name="conv", torch_name="convs")
+    _dense(sd, _take(tree, "Dense_1", ""), "Dense_1", "output_proj")
     _done(tree, "the top level")
     return sd

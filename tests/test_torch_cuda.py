@@ -13,10 +13,14 @@ from dfgnn_tpu_torch import DenseBatch, GTModel, formats
 from dfgnn_tpu_torch.graph import Graph
 from dfgnn_tpu_torch.data.collate import collate_dense
 from dfgnn_tpu_torch.data.datasets import load_batched
+from dfgnn_tpu_torch.data.sampling import NeighborSampler, sampled_block_attention
 from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
 from dfgnn_tpu_torch.models import make_conv
 from dfgnn_tpu_torch.ops import dense_block, flash_mask, gather, graph_attention
+from dfgnn_tpu_torch.ops.bucket import _take
+from dfgnn_tpu_torch.scripts.train_sampled import SampledNet
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+from dfgnn_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 pytestmark = pytest.mark.gpu
 
@@ -743,3 +747,66 @@ def test_bucket_path_on_card_matches_cpu(cuda, blocked):
         results.append([r.detach().cpu() for r in res])
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _sampled_case(device):
+    """One sampled batch of a 400-node graph (fanouts 4, 4), its input rows,
+    labels, and a SampledNet (hidden 16) from one seed."""
+    rng = np.random.default_rng(7)
+    n, bs = 400, 128
+    rows = np.repeat(np.arange(n), rng.integers(0, 12, n))
+    g = Graph.from_coo(rows, rng.integers(0, n, rows.size), n, device=device)
+    blocks, sup = NeighborSampler(g).sample_localized(
+        np.arange(bs), [4, 4], seed=3, pad_to=[bs, bs * 5], support_pad=bs * 25)
+    x = torch.from_numpy(np.concatenate([rng.standard_normal((n, 16)), np.zeros((1, 16))]
+                                        ).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 3, bs)).to(device)
+    model = SampledNet(16, 16, 3, generator=torch.Generator().manual_seed(0), device=device)
+    return [b.to(device) for b in blocks], _take(x, torch.from_numpy(sup).to(device)), y, model
+
+
+def test_sampled_path_on_card_matches_cpu(cuda):
+    """Sampled-block attention on both scores, and a SampledNet step (loss,
+    gradients, the loss after one Adam update), on the card against the CPU."""
+    results = []
+    flash_mask.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        blocks, x_sup, y, model = _sampled_case(dev)
+        blk = blocks[-1]
+        h = x_sup.reshape(x_sup.shape[0], 2, 8)
+        e = x_sup[:, :2]
+        res = [sampled_block_attention(blk, h, h, h),
+               sampled_block_attention(blk, None, None, h, score="add", e_row=e, e_col=e)]
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        loss_fn = lambda: torch.nn.functional.cross_entropy(model(blocks, x_sup)[:128], y)
+        loss = loss_fn()
+        loss.backward()
+        res += [loss.detach()] + [p.grad for p in model.parameters()]
+        opt.step()
+        # the loss after the update: Adam turns the k bias's zero gradient
+        # (softmax ignores a per-row shift) into noise-signed steps, which the
+        # output does not see
+        with torch.no_grad():
+            res.append(loss_fn())
+        results.append([r.cpu() for r in res])
+    assert flash_mask.launch_counts() == (0,) * 6  # the bucket path is torch ops
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    model = make_conv("gt", 8, 8, 2, generator=torch.Generator().manual_seed(0), device=cuda)
+    state = TrainState.create(model, lr=1e-2, device=cuda)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    state.opt.step()
+    saved = {"model": model.state_dict(), "opt": state.opt.state_dict()}
+    save_checkpoint(str(tmp_path), saved, step=5)
+    restored, step = restore_checkpoint(str(tmp_path), saved)
+    assert step == 5
+    for key, t in saved["model"].items():
+        got = restored["model"][key]
+        assert got.device == t.device and torch.equal(got, t)
+    for pid, st in saved["opt"]["state"].items():
+        for key, t in st.items():
+            assert torch.equal(restored["opt"]["state"][pid][key], t)
