@@ -75,7 +75,14 @@ six launch counts set to 0 just before it and read just after:
   round trip of a TrainState's ``state_dict``s, the batch timing twin
   (PATTERN bs 256, dim 64, 4 layers: #1 and #3, their launches asserted),
   the full-graph timing twin (cora, dim 64, 8 layers) and the GraphWorld
-  sweep (dim 64).
+  sweep (dim 64);
+- the ablation twin ``dfgnn_tpu_torch.scripts.ablation`` at the JAX
+  script's defaults (a PATTERN-like bs=1024 batch at dim 128, 1 head:
+  reference, dense, flash through #1, flash_fused through #5; the reddit
+  stand-in at quarter scale: the oracle and the five bucket layouts), every
+  row held against its oracle, the flash row's #1 and the flash_fused row's
+  #5 launches asserted; then one ``utils.Timer`` block around launches of
+  #1, against CUDA events.
 The bucket path is torch ops, so the full-graph and sampled phases launch
 none of the hand-written kernels, and they assert that.  Prints progress and each
 phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -306,7 +313,7 @@ def main() -> int:
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import _cuda, flash_mask, gather
-    from dfgnn_tpu_torch.scripts import (microbench_gather, profile_train_step, shmoo,
+    from dfgnn_tpu_torch.scripts import (ablation, microbench_gather, profile_train_step, shmoo,
                                          test_batch_graph, test_full_graph, test_gt_graphworld,
                                          train_batch_graph_timing, train_full_graph_timing,
                                          train_gatconv, train_gtconv, train_parity,
@@ -320,7 +327,7 @@ def main() -> int:
     from dfgnn_tpu_torch.graph import Graph
     from dfgnn_tpu_torch.ops import bucket, edge_dropout, reference
     from dfgnn_tpu_torch.train.parity import _noisy_onehot, run_parity_batched, run_parity_full
-    from dfgnn_tpu_torch.utils.benchmark import benchmark
+    from dfgnn_tpu_torch.utils.benchmark import Timer, benchmark
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1801,6 +1808,49 @@ def main() -> int:
     print(f"GraphWorld twin ({' '.join(GRAPHWORLD_ARGS)}; {smi}): " + ", ".join(
         f"deg {d}: {r['ms']:.4f} ms ({r['edges_per_s']:.4e} edges/s)" for d, r in gw.items()))
     phase_done("22 utilities and timing twins")
+
+    # 23. the ablation twin at the JAX script's defaults, and one Timer block
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    abl = ablation.main([])
+    torch.cuda.synchronize()
+    seen = flash_mask.launch_counts()
+    rows = abl["batched"] + abl["full"]
+    bad = [r["label"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ablation rows that do not match their oracle: {bad}")
+    by_impl = {r["impl"]: r["launches"] for r in abl["batched"]}
+    only = lambda counts, i: counts[i] > 0 and not any(counts[:i] + counts[i + 1:])
+    if not (only(by_impl["flash"], 0) and only(by_impl["flash_fused"], 4)
+            and not any(by_impl["reference"] + by_impl["dense"])
+            and not any(c for r in abl["full"] for c in r["launches"])
+            and list(seen) == [a + b for a, b in zip(by_impl["flash"], by_impl["flash_fused"])]
+            and not any(gather.launch_counts())):
+        raise AssertionError(f"ablation launches #1, #3, #2, #4, #5, #6: rows {by_impl}, "
+                             f"run {seen}, #7 and #8 {gather.launch_counts()}")
+    for r in rows:
+        pad = "" if r["pad"] is None else f", pad {r['pad']:.4f}x"
+        print(f"ablation row {r['label']!r}: {r['ms']:.4f} ms, {r['edges_per_s']:.4e} edges/s "
+              f"over {r['n_edges']} edges{pad}, peak {r['peak_mib']:.1f} MiB above its start, "
+              f"correct=OK, launches #1, #3, #2, #4, #5, #6 {r['launches']} ({smi})")
+
+    q, k, v, adj, _ = inputs(23, *MAIN_SHAPE, False, torch.float32)
+    flash_mask.flash_mask_fwd(q, k, v, adj)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with Timer() as timer:
+        start.record()
+        for _ in range(10):
+            flash_mask.flash_mask_fwd(q, k, v, adj)
+        end.record()
+    event_ms = start.elapsed_time(end)
+    if not (end.query() and timer.elapsed_ms >= event_ms > 0):
+        raise AssertionError(f"Timer {timer.elapsed_ms} ms against CUDA events {event_ms} ms")
+    print(f"utils.Timer around 10 launches of #1 at {MAIN_SHAPE}: {timer.elapsed_ms / 10:.4f} ms "
+          f"a launch (host clock, the card synchronised on exit) against CUDA events "
+          f"{event_ms / 10:.4f} ms ({smi})")
+    del q, k, v, adj
+    phase_done("23 ablation")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

@@ -22,14 +22,15 @@ imports torch and numpy, and never JAX or ``dfgnn_tpu``.
                                           FullGraphNet, GATNet; inproj, pooling
     dfgnn_tpu_torch/train/                Adam + StepLR, losses, train_step, metrics, parity
     dfgnn_tpu_torch/weights.py            flax params -> state_dict
-    dfgnn_tpu_torch/utils/                CUDA-event timing, CLI and YAML config,
+    dfgnn_tpu_torch/utils/                CUDA-event timing, Timer, CLI and YAML config,
                                           torch.profiler traces, checkpoints
     dfgnn_tpu_torch/scripts/              twins of train_gtconv, train_parity,
                                           test_batch_graph, test_full_graph,
                                           train_gatconv, shmoo, microbench_gather,
                                           train_sampled, train_batch_graph_timing,
-                                          train_full_graph_timing, test_gt_graphworld;
-                                          a train-step profile
+                                          train_full_graph_timing, test_gt_graphworld,
+                                          ablation, train_real, graph_stats,
+                                          plot_results; a train-step profile
     dfgnn_tpu_torch/csrc/                 hand-written CUDA kernels (sm_90a)
 
 Entry points build on the card unless the caller asks for the CPU.

@@ -281,7 +281,11 @@ def _load_digits(name: str) -> BatchedGraphDataset:
     only: where it is missing (the card's machine has none) this raises
     ``ImportError``.
     """
-    from sklearn import datasets as skd
+    try:
+        from sklearn import datasets as skd
+    except ImportError as e:
+        raise ImportError(f"dataset {name!r} loads through scikit-learn, which is not "
+                          "installed") from e
 
     d = skd.load_digits()
     images = d.images  # [1797, 8, 8] float (0..16)

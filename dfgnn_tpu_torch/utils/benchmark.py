@@ -1,15 +1,43 @@
 """Timing on the CUDA device, and the row-wise correctness check.
 
 The reference's protocol: 3 warmup runs, then the mean of 10 timed runs,
-timed with CUDA events on the current stream.
+timed with CUDA events on the current stream.  :class:`Timer` is the
+wall-clock block timer that waits for the device on exit.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
 import torch
+
+from dfgnn_tpu_torch.device import resolve_device, synchronize
+
+
+class Timer:
+    """Wall-clock timer of a ``with`` block that waits for ``device`` on
+    exit (the reference's ``utils/util.py:368-388`` Timer) and sets
+    ``elapsed_ms``.
+
+    ``device="cuda"`` (the default) raises on entry without a card, and on
+    exit calls ``torch.cuda.synchronize`` on that device, so the block's
+    launches are in the time; work queued before the block is too, so
+    synchronise first.  ``device="cpu"`` only reads the clock.
+    """
+
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+
+    def __enter__(self) -> "Timer":
+        resolve_device(self.device)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        synchronize(self.device)
+        self.elapsed_ms = (time.perf_counter() - self.t0) * 1e3
 
 
 def benchmark(fn: Callable, *args, warmup: int = 3, iters: int = 10):

@@ -18,8 +18,10 @@ from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
 from dfgnn_tpu_torch.models import make_conv
 from dfgnn_tpu_torch.ops import dense_block, flash_mask, gather, graph_attention
 from dfgnn_tpu_torch.ops.bucket import _take
+from dfgnn_tpu_torch.scripts import ablation
 from dfgnn_tpu_torch.scripts.train_sampled import SampledNet
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+from dfgnn_tpu_torch.utils import Timer
 from dfgnn_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 pytestmark = pytest.mark.gpu
@@ -810,3 +812,34 @@ def test_checkpoint_roundtrip_on_card(cuda, tmp_path):
     for pid, st in saved["opt"]["state"].items():
         for key, t in st.items():
             assert torch.equal(restored["opt"]["state"][pid][key], t)
+
+
+def test_ablation_batched_rows_on_card_match_cpu(cuda):
+    flash_mask.reset_launch_counts()
+    on_card = ablation.batched_rows(8, 32, 2, rng=np.random.default_rng(0), device=cuda, iters=2)
+    on_cpu = ablation.batched_rows(8, 32, 2, rng=np.random.default_rng(0), device="cpu")
+    for got, want in zip(on_card, on_cpu):
+        assert got["impl"] == want["impl"] and got["ok"] and want["ok"]
+        assert got["ms"] > 0 and got["peak_mib"] >= 0 and got["n_edges"] == want["n_edges"]
+        np.testing.assert_allclose(got["out"], want["out"], rtol=1e-3, atol=1e-4)
+    # 3 warmups and 2 timed calls a row, each one launch of the row's kernel
+    launches = {r["impl"]: r["launches"] for r in on_card}
+    assert launches == {"reference": [0] * 6, "dense": [0] * 6, "flash": [5, 0, 0, 0, 0, 0],
+                        "flash_fused": [0, 0, 0, 0, 5, 0]}
+    assert flash_mask.launch_counts() == (5, 0, 0, 0, 5, 0)
+
+
+def test_timer_waits_for_a_launched_kernel(cuda):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with Timer(device=cuda) as waited:
+        start.record()
+        torch.cuda._sleep(100_000_000)  # a spin kernel of about 50 ms
+        end.record()
+    assert end.query()  # the Timer synchronised: the kernel is done
+    kernel_ms = start.elapsed_time(end)
+    assert kernel_ms > 10.0 and waited.elapsed_ms >= kernel_ms
+    with Timer(device="cpu") as enqueued:
+        torch.cuda._sleep(100_000_000)
+    torch.cuda.synchronize()
+    assert enqueued.elapsed_ms < kernel_ms / 2  # the clock alone sees only the launch

@@ -122,12 +122,15 @@ def test_new_modules_import_no_jax():
             "dfgnn_tpu_torch.utils.checkpoint, dfgnn_tpu_torch.scripts.train_sampled, "
             "dfgnn_tpu_torch.scripts.train_batch_graph_timing, "
             "dfgnn_tpu_torch.scripts.train_full_graph_timing, "
-            "dfgnn_tpu_torch.scripts.test_gt_graphworld\n"
+            "dfgnn_tpu_torch.scripts.test_gt_graphworld, dfgnn_tpu_torch.scripts.ablation, "
+            "dfgnn_tpu_torch.scripts.train_real, dfgnn_tpu_torch.scripts.graph_stats, "
+            "dfgnn_tpu_torch.scripts.plot_results\n"
             "from dfgnn_tpu_torch import CSCAux, formats\n"
+            "from dfgnn_tpu_torch.utils import Timer, benchmark, check_correct\n"
             "from dfgnn_tpu_torch.ops import sddmm_dot, sddmm_add, edge_softmax, spmm, "
             "graph_attention_reference\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dfgnn_tpu', "
-            "'tabulate')]\n"
+            "'tabulate', 'matplotlib', 'sklearn')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
