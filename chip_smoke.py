@@ -82,10 +82,18 @@ six launch counts set to 0 just before it and read just after:
   stand-in at quarter scale: the oracle and the five bucket layouts), every
   row held against its oracle, the flash row's #1 and the flash_fused row's
   #5 launches asserted; then one ``utils.Timer`` block around launches of
-  #1, against CUDA events.
-The bucket path is torch ops, so the full-graph and sampled phases launch
-none of the hand-written kernels, and they assert that.  Prints progress and each
-phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
+  #1, against CUDA events;
+- the edge-partitioned plan (``parallel.partition_graph``): the
+  ``bench_partition_build`` twin's rows on the reddit stand-in at 4 and 8
+  devices, with and without the halo plan (build seconds, padded-edge
+  factor, ``max_halo``); then three 4-device plans (the balanced all-gather
+  plan with its transpose, the halo plan, and the bfs-reordered halo plan
+  at dropout 0.1) through every shard's local forward, one shard at a time
+  on this card on the source table its exchange would deliver, held
+  against the unpartitioned bucket forward, each shard's forward timed.
+The bucket path is torch ops, so the full-graph, sampled and partitioned
+phases launch none of the hand-written kernels, and they assert that.
+Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
 and last a ``{"ok": true, ...}`` line.  Exits
 non-zero, with no result line, when there is no CUDA device or any check
 fails.  Imports no JAX.
@@ -170,6 +178,13 @@ GRAPHWORLD_ARGS = ["--dim", "64"]
 FULL_TRAIN_ARGS = ["--dataset", "arxiv", "--dim", "64", "--heads", "4", "--n-layers", "2",
                    "--epochs", "5", "--lr", "1e-2"]
 GRAD_SUB_EDGES, GRAD_TOL = 1_000_000, dict(rtol=1e-3, atol=1e-4)
+PLAN_DEVICES, SHARD_DEVICES = [4, 8], 4  # the plan-build rows; the shard loops
+# The reddit stand-in has rows wider than split_width (256), so its default
+# plan deals them as shared segments, whose forward merges across devices
+# (item 10b); with the transpose the balanced all-gather plan keeps them per
+# device, and each shard's forward stands alone.
+SHARD_PLANS = [({"with_transpose": True}, 0.0), ({"halo": True}, 0.0),
+               ({"reorder": "bfs", "halo": True}, 0.1)]
 GAT_HIDDEN, GAT_LAYERS = 64, 2
 N_REQUESTS, BATCH, NP_PAD, HIDDEN, LAYERS = 3, 1024, 128, 128, 8
 TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", str(LAYERS),
@@ -313,7 +328,9 @@ def main() -> int:
     from dfgnn_tpu_torch.data.datasets import load_batched
     from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
     from dfgnn_tpu_torch.ops import _cuda, flash_mask, gather
-    from dfgnn_tpu_torch.scripts import (ablation, microbench_gather, profile_train_step, shmoo,
+    from dfgnn_tpu_torch.parallel import partition, partition_graph
+    from dfgnn_tpu_torch.scripts import (ablation, bench_partition_build, microbench_gather,
+                                         profile_train_step, shmoo,
                                          test_batch_graph, test_full_graph, test_gt_graphworld,
                                          train_batch_graph_timing, train_full_graph_timing,
                                          train_gatconv, train_gtconv, train_parity,
@@ -1851,6 +1868,84 @@ def main() -> int:
           f"{event_ms / 10:.4f} ms ({smi})")
     del q, k, v, adj
     phase_done("23 ablation")
+
+    # 24. the edge-partitioned plan (item 10a): the bench_partition_build
+    #     twin's rows on the reddit stand-in, then every shard's local forward
+    #     of three 4-device plans, one shard at a time on this card, held
+    #     against the unpartitioned bucket forward
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    ds = load_full_graph("reddit", quiet=True)
+    g = Graph.from_coo(ds.rows, ds.cols, ds.n_nodes, device="cpu")
+    del ds
+    print(f"plan builds on the reddit stand-in (n={g.n_nodes}, e={g.n_edges}; host clock on "
+          f"the card's machine, numpy):")
+    for r in bench_partition_build.plan_rows(g, PLAN_DEVICES):
+        print(f"plan P={r['devices']} halo={r['halo']}: build {r['build_s']} s, padded-edge "
+              f"factor {r['pad']}, max_halo {r['max_halo']} (halo fraction {r['halo_frac']} "
+              f"of n_local {r['n_local']})")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = (torch.randn((g.n_nodes, 1, HIDDEN), device="cuda", generator=gen)
+               for _ in range(3))
+    # the unpartitioned layout on the plan's bucket ladder and segment split:
+    # each row then sums the same lanes in the same order as in its shard
+    # (on build_buckets' default split of 64 the sums over the stand-in's
+    # rows of thousands of edges round differently, up to 1.8e-5)
+    full_bg = formats.build_buckets(g.to("cuda"), min_width=8, split_width=256, ladder="x1.5")
+    for kw, rate in SHARD_PLANS:
+        t0 = time.perf_counter()
+        pg = partition_graph(g, SHARD_DEVICES, **kw)
+        build_s = time.perf_counter() - t0
+        seed = edge_dropout.seed_from_generator(torch.Generator().manual_seed(DROP_SEED))
+        want = bucket.bucket_graph_attention(
+            full_bg, q, k, v, dropout_rate=rate,
+            dropout_generator=torch.Generator().manual_seed(DROP_SEED))
+        qp, kp, vp = (x[pg.node_perm.cuda()] if pg.node_perm is not None else x
+                      for x in (q, k, v))
+        qp, kp, vp = (partition._pad_nodes(x, pg.n_local * SHARD_DEVICES) for x in (qp, kp, vp))
+        L = pg.n_local
+        local = lambda x, d: x[d * L: (d + 1) * L]
+        if pg.halo is None:
+            tables = [(kp, vp)] * SHARD_DEVICES
+        else:  # the halo exchange's two local halves around the all-to-all
+            sent = [(partition._halo_send_rows(pg, e, local(kp, e)),
+                     partition._halo_send_rows(pg, e, local(vp, e)))
+                    for e in range(SHARD_DEVICES)]
+            tables = [tuple(partition._halo_source_table(
+                pg, local(x, d), torch.stack([s_[i][d] for s_ in sent]))
+                for i, x in enumerate((kp, vp))) for d in range(SHARD_DEVICES)]
+        outs, lines = [], []
+        for d, (tk, tv) in enumerate(tables):
+            bg_d = partition._local_bg(pg, d, "cuda")
+            drop_d = partition._local_drop(pg, d, seed, rate, "cuda")
+            q_d = local(qp, d)
+            shard_fn = lambda: bucket._forward_tabs(
+                bg_d, q_d, None, bucket._make_tabs(tk, tv, None, "dot", None), torch.float32,
+                HIDDEN, "dot", 0.2, 2048, drop=drop_d)[0]
+            out_d, ms = benchmark(shard_fn)
+            outs.append(out_d)
+            real = sum(int(b.emask.sum()) for b in bg_d.buckets) + (
+                0 if bg_d.segments is None else int(bg_d.segments.emask.sum()))
+            lines.append(f"  shard {d}: {ms:.4f} ms, {bg_d.padded_edges} padded lanes, "
+                         f"{real} edges, source table {tuple(tk.shape)}")
+        got = torch.cat(outs)[: pg.n_nodes]
+        if pg.node_rank is not None:
+            got = got[pg.node_rank.cuda()]
+        e = max_err(got, want, FP32_TOL)
+        if rate:  # the masks agree: a mask off by one edge moves an output by O(1)
+            undropped = bucket.bucket_graph_attention(full_bg, q, k, v)
+            if float((got - undropped).abs().max()) < 0.1:
+                raise AssertionError("the dropout plan's outputs do not show its mask")
+        no_kernel_launches(f"the shard loop of plan {kw}")
+        print(f"plan {kw} at P={SHARD_DEVICES}, GT dot score, dim {HIDDEN}, h=1, fp32, dropout "
+              f"{rate} (built in {build_s} s, host): shard loop within {e:.3e} of the "
+              f"unpartitioned bucket forward; each shard's local forward (one card running one "
+              f"shard at a time, the exchange not included; CUDA events, mean of 10 after 3 "
+              f"warmups; {smi}):")
+        print("\n".join(lines))
+        del pg, tables, outs, got, want
+    del g, q, k, v, full_bg
+    phase_done("24 edge-partitioned plan")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

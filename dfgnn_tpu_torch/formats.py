@@ -210,6 +210,7 @@ def bucket_rows_numpy(
     n_cols_space: int,
     widths: Sequence[int],
     edge_chunk: int = _EDGE_CHUNK,
+    row_pad_to: Optional[dict] = None,
     edge_index_map=None,
 ):
     """Host-side core of :func:`build_buckets` over raw CSR arrays: one
@@ -217,7 +218,10 @@ def bucket_rows_numpy(
     the previous width and at most this one.
 
     ``n_rows_space`` / ``n_cols_space`` are the sentinel pad indices of the
-    row-id and neighbour-id spaces.  ``edge_index_map`` (when given) turns on
+    row-id and neighbour-id spaces.  ``row_pad_to`` (when given) forces
+    ``{width: r_pad}``, so that the partitions of one graph come out in the
+    same shapes; a width it lacks or maps to 0 gets no bucket.
+    ``edge_index_map`` (when given) turns on
     per-lane edge ids: a ``(vals, sentinel)`` pair where lane (i, j) records
     ``vals[local_csr_edge]`` (``vals=None``: CSR edge order) and padded lanes
     carry ``sentinel``.  Returns a list of Buckets holding numpy arrays.
@@ -232,9 +236,15 @@ def bucket_rows_numpy(
         # cap the chunk at the (rounded) real row count: tiny buckets must
         # not round up to a full compute chunk of sentinel rows
         chunk = max(8, min(edge_chunk // w, _round_up(max(r, 1), 8)))
-        if r == 0:
-            continue
-        r_pad = _round_up(r, chunk)
+        if row_pad_to is not None:
+            r_pad = row_pad_to.get(w, 0)
+            if r_pad == 0:
+                continue
+            assert r <= r_pad, (r, r_pad)
+        else:
+            if r == 0:
+                continue
+            r_pad = _round_up(r, chunk)
         row_ids = np.full(r_pad, n_rows_space, dtype=np.int32)
         row_ids[:r] = sel
         nbr = np.full((r_pad, w), n_cols_space, dtype=np.int32)
@@ -289,20 +299,27 @@ def segment_rows_numpy(
     n_rows_space: int,
     n_cols_space: int,
     edge_chunk: int = _EDGE_CHUNK,
+    s_pad_to: Optional[int] = None,
+    r_pad_to: Optional[int] = None,
     edge_index_map=None,
 ) -> Optional[SegmentBucket]:
     """Lay the rows in ``sel`` out as fixed-``width`` edge segments; padded
-    segments carry the bin ``len(sel)`` and the ``n_rows_space`` sentinel."""
-    if sel.size == 0:
+    segments carry the bin ``r_pad`` (``len(sel)`` by default) and the
+    ``n_rows_space`` sentinel.  ``s_pad_to`` / ``r_pad_to`` force the padded
+    segment and row counts, so that the partitions of one graph come out in
+    the same shapes; padded rows carry the ``n_rows_space`` sentinel."""
+    if sel.size == 0 and s_pad_to is None:
         return None
     deg = (indptr[1:] - indptr[:-1])[sel]
     R = int(sel.size)
+    R_pad = R if r_pad_to is None else int(r_pad_to)
     nseg = -(-deg // width)
     S = int(nseg.sum())
     chunk = max(8, edge_chunk // width)
-    s_pad = _round_up(S, chunk)
+    s_pad = _round_up(S, chunk) if s_pad_to is None else int(s_pad_to)
+    assert S <= s_pad and R <= R_pad, (S, s_pad, R, R_pad)
 
-    seg_id = np.full(s_pad, R, dtype=np.int32)
+    seg_id = np.full(s_pad, R_pad, dtype=np.int32)
     seg_id[:S] = np.repeat(np.arange(R, dtype=np.int32), nseg)
     seg_dst = np.full(s_pad, n_rows_space, dtype=np.int32)
     seg_dst[:S] = np.repeat(sel.astype(np.int32), nseg)
@@ -328,9 +345,11 @@ def segment_rows_numpy(
         seid = np.full((s_pad, width), esent, dtype=np.int32)
         seid[seg_of_edge, lane] = (
             edge_idx if evals is None else evals[edge_idx]).astype(np.int32)
+    wide_rows = np.full(R_pad, n_rows_space, dtype=np.int32)
+    wide_rows[:R] = sel
     return SegmentBucket(
         nbr=nbr, emask=emask, seg_id=seg_id, seg_dst=seg_dst,
-        wide_rows=sel.astype(np.int32), val=bval, edge_ids=seid,
+        wide_rows=wide_rows, val=bval, edge_ids=seid,
         width=int(width), n_rows=R, n_segments=S, row_chunk=int(chunk),
     )
 

@@ -68,7 +68,9 @@ class _Drop(NamedTuple):
     agrees bitwise across bucket, segment, blocked and transposed walks of
     the same edge.  ``row_map`` (optional), when set, replaces the row-side
     derivation: hash row id = ``row_map[dst]``.  The last four serve the
-    edge-partitioned layouts (ROADMAP.md queue 1 item 10).
+    edge-partitioned layouts: ``parallel.partition._local_drop`` sets
+    ``row_base``, ``src_map`` and ``id_perm``; ``row_map`` serves the shared
+    segments' cross-device merge (ROADMAP.md queue 1 item 10b).
     """
 
     seed: int

@@ -84,7 +84,8 @@ def graph_attention(
     if not isinstance(g, DenseBatch):
         raise NotImplementedError(
             f"graph layout {type(g).__name__} is not ported yet: the edge-partitioned "
-            "graph comes with ROADMAP.md queue 1 item 10.")
+            "forward needs the collectives of ROADMAP.md queue 1 item 10b (the plan, "
+            "dfgnn_tpu_torch.parallel.partition_graph, is item 10a).")
     if method == "auto":
         method = "flash" if flash_mask.flash_takes(score, g.np_pad, v.shape[-1]) else "dense"
     if method == "flash" and not return_weights:

@@ -58,7 +58,8 @@ def main(argv=None) -> dict:
         fmts = [resolve_format(args.format)]
     if "dist" in fmts:
         raise NotImplementedError("--format dist runs the edge-partitioned multi-device path, "
-                                  "which is not ported yet: ROADMAP.md queue 1 item 10")
+                                  "whose collectives are not ported yet: ROADMAP.md queue 1 "
+                                  "item 10b")
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -17,12 +17,15 @@ from dfgnn_tpu_torch.data.sampling import NeighborSampler, sampled_block_attenti
 from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
 from dfgnn_tpu_torch.models import make_conv
 from dfgnn_tpu_torch.ops import dense_block, flash_mask, gather, graph_attention
-from dfgnn_tpu_torch.ops.bucket import _take
+from dfgnn_tpu_torch.ops.bucket import _take, bucket_graph_attention
+from dfgnn_tpu_torch.ops.edge_dropout import seed_from_generator
+from dfgnn_tpu_torch.parallel import partition_graph
 from dfgnn_tpu_torch.scripts import ablation
 from dfgnn_tpu_torch.scripts.train_sampled import SampledNet
 from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
 from dfgnn_tpu_torch.utils import Timer
 from dfgnn_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from partition_shard_loop import shard_loop
 
 pytestmark = pytest.mark.gpu
 
@@ -794,6 +797,32 @@ def test_sampled_path_on_card_matches_cpu(cuda):
     assert flash_mask.launch_counts() == (0,) * 6  # the bucket path is torch ops
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_partition_shard_loop_on_card(cuda):
+    """Every shard's local forward of three plans (all-gather, halo, bfs
+    reorder with halo and dropout) on the card: equal to the unpartitioned
+    bucket forward there and to the same loop on the CPU."""
+    rng = np.random.default_rng(8)
+    n = 700
+    rows = np.repeat(np.arange(n), rng.integers(0, 20, n))
+    cols = rng.integers(0, n, rows.size)
+    g = Graph.from_coo(rows, cols, n, device="cpu")
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, 2, 16)).astype(np.float32))
+               for _ in range(3))
+    seed = seed_from_generator(torch.Generator().manual_seed(4))
+    flash_mask.reset_launch_counts()
+    for kw, rate in ((dict(), 0.0), (dict(halo=True), 0.0),
+                     (dict(reorder="bfs", halo=True), 0.1)):
+        pg = partition_graph(g, 4, **kw)
+        got = shard_loop(pg, q.cuda(), k.cuda(), v.cuda(), seed=seed, rate=rate)
+        want = bucket_graph_attention(formats.build_buckets(g.to(cuda)), q.cuda(), k.cuda(),
+                                      v.cuda(), dropout_rate=rate,
+                                      dropout_generator=torch.Generator().manual_seed(4))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got.cpu(), shard_loop(pg, q, k, v, seed=seed, rate=rate),
+                                   rtol=1e-4, atol=1e-5)
+    assert flash_mask.launch_counts() == (0,) * 6  # the bucket path is torch ops
 
 
 def test_checkpoint_roundtrip_on_card(cuda, tmp_path):
