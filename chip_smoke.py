@@ -90,7 +90,15 @@ six launch counts set to 0 just before it and read just after:
   plan with its transpose, the halo plan, and the bfs-reordered halo plan
   at dropout 0.1) through every shard's local forward, one shard at a time
   on this card on the source table its exchange would deliver, held
-  against the unpartitioned bucket forward, each shard's forward timed.
+  against the unpartitioned bucket forward, each shard's forward timed;
+- the multi-GPU layer (``parallel.dist_graph_attention``): a gloo world of
+  four processes sharing this card runs the default plan (shared segments),
+  the halo plan, the balanced plan with its transpose (the fused
+  distributed backward) and bfs + halo at dropout 0.1, each gathered output
+  and gradient held against the unpartitioned bucket path (disputed nodes
+  in fp64), each timed on the slowest rank; then the dryrun twin's data-,
+  partition- and head-parallel steps against one process (#1 and #3
+  launched in the DP and TP steps), and a world of one process over NCCL.
 The bucket path is torch ops, so the full-graph, sampled and partitioned
 phases launch none of the hand-written kernels, and they assert that.
 Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -107,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -181,10 +190,20 @@ GRAD_SUB_EDGES, GRAD_TOL = 1_000_000, dict(rtol=1e-3, atol=1e-4)
 PLAN_DEVICES, SHARD_DEVICES = [4, 8], 4  # the plan-build rows; the shard loops
 # The reddit stand-in has rows wider than split_width (256), so its default
 # plan deals them as shared segments, whose forward merges across devices
-# (item 10b); with the transpose the balanced all-gather plan keeps them per
-# device, and each shard's forward stands alone.
+# (dist_graph_attention, phase 25); with the transpose the balanced all-gather
+# plan keeps them per device, and each shard's forward stands alone.
 SHARD_PLANS = [({"with_transpose": True}, 0.0), ({"halo": True}, 0.0),
                ({"reorder": "bfs", "halo": True}, 0.1)]
+# Phase 25: a gloo world of DIST_RANKS processes on this one card, each plan
+# (name, partition_graph keywords, dropout rate) through dist_graph_attention;
+# the default plan has shared segments, the balanced one its transpose (the
+# fused distributed backward).  Each time is the slowest rank's, CUDA events
+# over DIST_ITERS runs after DIST_WARMUP.
+DIST_RANKS, DIST_WARMUP, DIST_ITERS = 4, 1, 2
+DIST_PLANS = [("default", {}, 0.0), ("halo", {"halo": True}, 0.0),
+              ("balanced+transpose", {"with_transpose": True}, 0.0),
+              ("bfs+halo", {"reorder": "bfs", "halo": True}, 0.1)]
+DIST_NCCL_SCALE = 0.25  # the NCCL world of one process: reddit at quarter scale
 GAT_HIDDEN, GAT_LAYERS = 64, 2
 N_REQUESTS, BATCH, NP_PAD, HIDDEN, LAYERS = 3, 1024, 128, 128, 8
 TRAIN_ARGS = ["--dataset", "ogbg-molhiv", "--dim", str(HIDDEN), "--n-layers", str(LAYERS),
@@ -198,14 +217,20 @@ BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 TF32X3_FLOPS = 495e12 / 3
 
 
-def max_err(got, want, tol):
-    """Max |got - want|; raises when an element is outside atol + rtol*|want|."""
+def err_and_bad(got, want, tol):
+    """(max |got - want|, elements outside atol + rtol*|want| or not finite)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bad = err > tol["atol"] + tol["rtol"] * want.abs()
-    if not torch.isfinite(got).all() or bad.any():
-        raise AssertionError(f"{int(bad.sum())} elements outside {tol}; max err {float(err.max())}")
-    return float(err.max())
+    bad = (err > tol["atol"] + tol["rtol"] * want.abs()) | ~torch.isfinite(got)
+    return float(err.max()), int(bad.sum())
+
+
+def max_err(got, want, tol):
+    """Max |got - want|; raises when an element is outside atol + rtol*|want|."""
+    err, bad = err_and_bad(got, want, tol)
+    if bad:
+        raise AssertionError(f"{bad} elements outside {tol}; max err {err}")
+    return err
 
 
 def bwd_bf16_tol(want):
@@ -306,6 +331,301 @@ def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
 
 
 _PHASE_START = [time.perf_counter()]
+
+
+def _slowest_ms(fn, group):
+    """CUDA-event ms of ``fn`` (DIST_ITERS runs after DIST_WARMUP, after a
+    barrier), the slowest rank's."""
+    import torch.distributed as dist
+
+    from dfgnn_tpu_torch.parallel import comm
+
+    for _ in range(DIST_WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DIST_ITERS):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = torch.tensor([start.elapsed_time(end) / DIST_ITERS], device="cuda")
+    return float(comm.all_reduce_max(ms, group)[0])
+
+
+def _unpartitioned(g, q, k, v, rate, device):
+    """The unpartitioned bucket path on the plans' ladder and split (min_width
+    8, x1.5, 256) for the loss sum(out ** 2): out, and the gradients of q, k,
+    v through its custom backward (held against autograd through the oracle
+    in phase 19; autograd through this forward would hold some 20 GB of
+    gathered rows, beside four ranks' own)."""
+    from dfgnn_tpu_torch import formats
+    from dfgnn_tpu_torch.ops import bucket
+
+    bg = formats.build_buckets(g.to(device), min_width=8, split_width=256, ladder="x1.5",
+                               with_transpose=True)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = bucket.bucket_graph_attention(
+        bg, *xs, dropout_rate=rate, dropout_generator=torch.Generator().manual_seed(DROP_SEED))
+    (out ** 2).sum().backward()
+    return out.detach(), [x.grad for x in xs]
+
+
+def _exact_at(g, rows, cols, q, k, v, seed, rate, max_edges=1 << 19):
+    """out and dq at the nodes ``rows``, dk and dv at the nodes ``cols``, of
+    the loss sum(out ** 2), in fp64 by the segment-op oracle.  The loss is a
+    sum over rows, so it runs on the rows these depend on (``rows`` and every
+    row with an edge to ``cols``, each with all its edges), ``max_edges``
+    edges at a time, summing the gradients; dropout by the edge hash on the
+    normalised weights."""
+    from dfgnn_tpu_torch.graph import Graph
+    from dfgnn_tpu_torch.ops import edge_softmax, sddmm_dot, spmm
+    from dfgnn_tpu_torch.ops.edge_dropout import keep_scale
+
+    indptr = g.indptr.numpy()
+    er, ec = g.rows[: g.n_edges].numpy(), g.cols[: g.n_edges].numpy()
+    need = np.union1d(rows, er[np.isin(ec, cols)])
+    group = np.cumsum(indptr[need + 1] - indptr[need]) // max_edges
+    xs = [x.double().requires_grad_() for x in (q, k, v)]
+    out = torch.zeros_like(xs[2], requires_grad=False)
+    grads = [torch.zeros_like(x, requires_grad=False) for x in xs]
+    heads = torch.arange(q.shape[1], device=q.device)[None, :]
+    for gi in np.unique(group):
+        rs = need[group == gi]
+        es = np.concatenate([np.arange(indptr[i], indptr[i + 1]) for i in rs])
+        sub = Graph.from_coo(er[es], ec[es], g.n_nodes, device=q.device)
+        w = edge_softmax(sub, sddmm_dot(sub, xs[0], xs[1]))
+        if rate:
+            w = w * keep_scale(seed, sub.rows[:, None], sub.cols[:, None], heads, rate).double()
+        o = spmm(sub, w, xs[2])
+        for acc, d in zip(grads, torch.autograd.grad((o ** 2).sum(), xs)):
+            acc += d
+        at = torch.from_numpy(rs).to(q.device)
+        out[at] = o[at].detach()
+        del sub, w, o
+    return (out, *grads)
+
+
+def _outside(got, want, tol):
+    """Node ids (dim 0) holding an element of ``got`` outside ``tol`` of ``want``."""
+    bad = (got - want).abs() > tol["atol"] + tol["rtol"] * want.abs()
+    return bad.reshape(bad.shape[0], -1).any(1).nonzero()[:, 0].cpu().numpy()
+
+
+def _hold(g, q, k, v, seed, rate, got, grads, want):
+    """Rank 0's checks of one plan against :func:`_unpartitioned`'s ``want``,
+    the gathered output at FP32_TOL, each gradient at GRAD_TOL.  The nodes
+    with elements outside are evaluated in fp64 (:func:`_exact_at`), and
+    there the plan must be within the same bar of the exact values, or no
+    further from them than the single-device fp32 path is: on rows and
+    columns of thousands of edges, in sums that cancel, fp32 summation order
+    alone moves a gradient by up to about 2e-3, past GRAD_TOL (PERF.md
+    section 6), while a lost or doubled contribution moves it by the size
+    of a term."""
+    names, tols = ("out", "dq", "dk", "dv"), [FP32_TOL] + [GRAD_TOL] * 3
+    gots, wants = [got, *grads], [want[0], *want[1]]
+    row = {"checks": {}}
+    nodes = {}
+    for name, a, b, tol in zip(names, gots, wants, tols):
+        err, bad = err_and_bad(a, b, tol)
+        row["checks"][name] = dict(err=err, bad=bad, nodes=0, err64=0.0, bad64=0, ref64=0.0)
+        if bad:
+            nodes[name] = _outside(a, b, tol)
+    if nodes:
+        rows = np.union1d(nodes.get("out", []), nodes.get("dq", [])).astype(np.int64)
+        cols = np.union1d(nodes.get("dk", []), nodes.get("dv", [])).astype(np.int64)
+        exact = _exact_at(g, rows, cols, q, k, v, seed, rate)
+        for i, (name, a, b, tol) in enumerate(zip(names, gots, wants, tols)):
+            if name in nodes:
+                at = torch.from_numpy(nodes[name]).to(a.device)
+                c = row["checks"][name]
+                c["nodes"] = int(at.numel())
+                c["err64"], c["bad64"] = err_and_bad(a[at].double(), exact[i][at], tol)
+                c["ref64"] = float((b[at].double() - exact[i][at]).abs().max())
+    row["ok"] = all(c["bad64"] == 0 or c["err64"] <= c["ref64"]
+                    for c in row["checks"].values())
+    return row
+
+
+def _hold_line(row):
+    parts = []
+    for name, c in row["checks"].items():
+        part = f"{name} within {c['err']:.3e} ({c['bad']} outside"
+        if c["nodes"]:
+            part += (f"; at those {c['nodes']} nodes in fp64 this path is within "
+                     f"{c['err64']:.3e} ({c['bad64']} outside), the reference within "
+                     f"{c['ref64']:.3e}")
+        parts.append(part + ")")
+    return (f"against the unpartitioned bucket path (out at {FP32_TOL}, gradients at "
+            f"{GRAD_TOL}): " + ", ".join(parts))
+
+
+def _dist_rank(rank, world_size, device="cuda", scale=1.0):
+    """Phase 25 on one rank of the gloo world (every rank on this card): each
+    of DIST_PLANS on the reddit stand-in, its gathered output and gradients
+    held by rank 0 against the unpartitioned bucket path, and timed; then the
+    dryrun twin's three steps.  Returns rank 0's readings.  ``device`` and
+    ``scale`` (of the stand-in) let the phase be rehearsed off the card."""
+    import torch.distributed as dist
+
+    from dfgnn_tpu_torch.data.datasets import load_full_graph
+    from dfgnn_tpu_torch.graph import Graph
+    from dfgnn_tpu_torch.ops import bucket, edge_dropout, flash_mask
+    from dfgnn_tpu_torch.parallel import (dist_graph_attention, gather_nodes, make_mesh,
+                                          partition, partition_graph, shard_nodes)
+    from dfgnn_tpu_torch.parallel.dist import mesh_group_rank
+    from dfgnn_tpu_torch.scripts import dryrun_multichip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash_mask.reset_launch_counts()
+    ds = load_full_graph("reddit", scale=scale, quiet=True)
+    g = Graph.from_coo(ds.rows, ds.cols, ds.n_nodes, device="cpu")
+    del ds
+    mesh = make_mesh(world_size, device=device)
+    group, r = mesh_group_rank(mesh)
+    gen = torch.Generator(device=device).manual_seed(25)
+    q, k, v = (torch.randn((g.n_nodes, 1, HIDDEN), device=device, generator=gen)
+               for _ in range(3))
+    want = {}
+    if rank == 0:
+        want = {rate: _unpartitioned(g, q, k, v, rate, device)
+                for rate in sorted({rate for *_, rate in DIST_PLANS})}
+    res, pending = {"plans": []}, []
+    for name, kw, rate in DIST_PLANS:
+        t0 = time.perf_counter()
+        pg = partition_graph(g, world_size, mesh=mesh, **kw)
+        build_s = time.perf_counter() - t0
+        seed = (edge_dropout.seed_from_generator(torch.Generator().manual_seed(DROP_SEED))
+                if rate else None)
+        xs = [shard_nodes(pg, x, r).detach().requires_grad_() for x in (q, k, v)]
+        attend = lambda: dist_graph_attention(pg, mesh, *xs, dropout_rate=rate,
+                                              dropout_seed=seed)
+        out = attend()
+        (out ** 2).sum().backward()
+        got = gather_nodes(pg, out.detach(), mesh)
+        grads = [gather_nodes(pg, x.grad, mesh) for x in xs]
+        row = dict(name=name, kw=kw, rate=rate, build_s=build_s, n_local=pg.n_local,
+                   max_halo=None if pg.halo is None else pg.halo.max_halo,
+                   shared=pg.shared_segments is not None, transpose=pg.transpose is not None)
+        if rank == 0:  # held once every rank is done with the card (_hold)
+            pending.append((row, seed, rate, got, grads))
+        del out
+
+        def step():
+            for x in xs:
+                x.grad = None
+            (attend() ** 2).sum().backward()
+        with torch.no_grad():
+            row["fwd_ms"] = _slowest_ms(attend, group)
+        row["step_ms"] = _slowest_ms(step, group)
+        sh = partition._shard(pg, r, q.device)
+        (table,) = bucket._make_tabs(xs[1].detach(), xs[2].detach(), None, "dot", None)
+        exchange = partition._exchange(pg, sh, group)
+        row["exchange_ms"] = _slowest_ms(lambda: exchange(table), group)
+        # an exchange sends each peer this rank's rows (all-gather) or the
+        # rows that peer needs (halo): comm_rows_per_device rows in all
+        row["sent_mb"] = pg.comm_rows_per_device() * table[0].numel() * 4 / 1e6
+        res["plans"].append(row)
+        del pg, xs, sh, table, exchange
+        if device == "cuda":  # the four ranks share the card's memory
+            torch.cuda.empty_cache()
+    no_launch = flash_mask.launch_counts()
+    if any(no_launch):
+        raise AssertionError(f"the partitioned plans launched kernels: {no_launch}")
+    res["steps"] = dryrun_multichip.dryrun_multichip(device)
+    if rank == 0:
+        res["single"] = dryrun_multichip.single_process(world_size, device)
+        for row, seed, rate, got, grads in pending:
+            row.update(_hold(g, q, k, v, seed, rate, got, grads, want[rate]))
+            row["vs_undropped"] = float((got - want[0.0][0]).abs().max())
+    return res
+
+
+def _nccl_world_of_one(smi):
+    """A world of this one process over NCCL: the default plan and the
+    transposed plan (fused backward) of the quarter-scale reddit stand-in
+    through dist_graph_attention, against the unpartitioned bucket path."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dfgnn_tpu_torch.data.datasets import load_full_graph
+    from dfgnn_tpu_torch.graph import Graph
+    from dfgnn_tpu_torch.parallel import (dist_graph_attention, gather_nodes, make_mesh,
+                                          partition_graph, shard_nodes)
+    from dfgnn_tpu_torch.parallel.multihost import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        ds = load_full_graph("reddit", scale=DIST_NCCL_SCALE, quiet=True)
+        g = Graph.from_coo(ds.rows, ds.cols, ds.n_nodes, device="cpu")
+        mesh = make_mesh(1, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        q, k, v = (torch.randn((g.n_nodes, 1, HIDDEN), device="cuda", generator=gen)
+                   for _ in range(3))
+        want = _unpartitioned(g, q, k, v, 0.0, "cuda")
+        for kw in ({}, {"with_transpose": True}):
+            pg = partition_graph(g, 1, mesh=mesh, **kw)
+            ls = [shard_nodes(pg, x, 0).detach().requires_grad_() for x in (q, k, v)]
+            out = dist_graph_attention(pg, mesh, *ls)
+            (out ** 2).sum().backward()
+            row = _hold(g, q, k, v, None, 0.0, gather_nodes(pg, out.detach(), mesh),
+                        [gather_nodes(pg, x.grad, mesh) for x in ls], want)
+            print(f"NCCL world of 1 ({dist.get_backend()}), reddit stand-in at scale "
+                  f"{DIST_NCCL_SCALE} (n={g.n_nodes}, e={g.n_edges}), plan {kw or 'default'}: "
+                  f"{_hold_line(row)} ({smi})")
+            if not row["ok"]:
+                raise AssertionError(f"the NCCL world's plan {kw} disagrees")
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_phase(smi):
+    """Phase 25, the multi-GPU layer: a gloo world of DIST_RANKS processes
+    sharing this card runs each of DIST_PLANS through dist_graph_attention
+    and the dryrun twin's three steps (:func:`_dist_rank`); then a world of
+    this one process over NCCL (:func:`_nccl_world_of_one`)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from dist_world import start_world
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = start_world(_dist_rank, DIST_RANKS, backend="gloo", timeout=600).results()
+    print(f"the gloo world ran in {time.perf_counter() - t0:.2f} s")
+    print(f"gloo world of {DIST_RANKS} processes on this one card (backend gloo; CUDA tensors "
+          f"straight to gloo), reddit stand-in, GT dot score, dim {HIDDEN}, h=1, fp32; "
+          f"times are the slowest rank's, CUDA events, mean of {DIST_ITERS} after "
+          f"{DIST_WARMUP} warmup, with {DIST_RANKS} ranks sharing one card ({smi}):")
+    for row in res["plans"]:
+        print(f"plan {row['name']} {row['kw']} dropout {row['rate']} (shared segments "
+              f"{row['shared']}, transpose {row['transpose']}; built in {row['build_s']:.2f} s, "
+              f"host; n_local {row['n_local']}, max_halo {row['max_halo']}): {_hold_line(row)}; "
+              f"forward {row['fwd_ms']:.4f} ms, forward + backward {row['step_ms']:.4f} ms, "
+              f"exchange {row['exchange_ms']:.4f} ms, {row['sent_mb']:.2f} MB sent per rank "
+              f"per exchange")
+    for row in res["plans"]:
+        if not row["ok"]:
+            raise AssertionError(f"plan {row['name']} disagrees with the unpartitioned path")
+        if row["rate"] and row["vs_undropped"] < 0.1:  # a mask moves outputs by O(1)
+            raise AssertionError(f"plan {row['name']}'s outputs do not show its dropout mask")
+    steps, single = res["steps"], res["single"]
+    launches = steps.pop("launches")
+    for key, losses in steps.items():
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"dryrun step {key}: losses {losses}")
+        np.testing.assert_allclose(losses, single[key], rtol=1e-4, err_msg=key)
+    for key in ("dp", "tp"):
+        if min(launches[key]) < 1:
+            raise AssertionError(f"dryrun step {key} launched #1, #3 {launches[key]} times")
+    print(f"dryrun twin in the same world, losses of 2 steps against one process: "
+          + "; ".join(f"{key} {steps[key]} (one process {single[key]})" for key in steps)
+          + f"; rank 0's launches of #1, #3: {launches}")
+    t0 = time.perf_counter()
+    _nccl_world_of_one(smi)
+    print(f"the NCCL world of one ran in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_done(name: str) -> None:
@@ -1946,6 +2266,10 @@ def main() -> int:
         del pg, tables, outs, got, want
     del g, q, k, v, full_bg
     phase_done("24 edge-partitioned plan")
+
+    # 25. the multi-GPU layer (item 10b)
+    dist_phase(smi)
+    phase_done("25 multi-GPU layer")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

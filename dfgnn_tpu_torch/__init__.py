@@ -17,7 +17,11 @@ imports torch and numpy, and never JAX or ``dfgnn_tpu``.
     dfgnn_tpu_torch/ops/gather.py         the gather probe's CUDA kernels
     dfgnn_tpu_torch/ops/_cuda.py          builds and loads the CUDA library
     dfgnn_tpu_torch/ops/dispatch.py       graph_attention (DenseBatch, Graph, the bucketed
-                                          layouts, SampledBlock)
+                                          layouts, SampledBlock, EdgePartitionedGraph)
+    dfgnn_tpu_torch/parallel/             the multi-device layer over torch.distributed:
+                                          the edge-partitioned plan and its distributed
+                                          forward and backward, collectives, meshes, data
+                                          and head parallelism, torchrun set-up
     dfgnn_tpu_torch/models/               GT, GAT, AGNN, DotGAT convs; Model, GTModel,
                                           FullGraphNet, GATNet; inproj, pooling
     dfgnn_tpu_torch/train/                Adam + StepLR, losses, train_step, metrics, parity
@@ -30,7 +34,9 @@ imports torch and numpy, and never JAX or ``dfgnn_tpu``.
                                           train_sampled, train_batch_graph_timing,
                                           train_full_graph_timing, test_gt_graphworld,
                                           ablation, train_real, graph_stats,
-                                          plot_results; a train-step profile
+                                          plot_results, bench_partition_build,
+                                          bench_scaling, dryrun_multichip; a
+                                          train-step profile
     dfgnn_tpu_torch/csrc/                 hand-written CUDA kernels (sm_90a)
 
 Entry points build on the card unless the caller asks for the CPU.

@@ -70,7 +70,7 @@ class _Drop(NamedTuple):
     derivation: hash row id = ``row_map[dst]``.  The last four serve the
     edge-partitioned layouts: ``parallel.partition._local_drop`` sets
     ``row_base``, ``src_map`` and ``id_perm``; ``row_map`` serves the shared
-    segments' cross-device merge (ROADMAP.md queue 1 item 10b).
+    segments' cross-device merge (``parallel.partition._shared_forward``).
     """
 
     seed: int

@@ -1,9 +1,10 @@
 """Single entry point dispatching on graph layout.
 
-The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  The :class:`DenseBatch`,
-:class:`Graph`, :class:`BucketedGraph`, :class:`BlockedBucketedGraph` and
-:class:`SampledBlock` layouts are ported; ``method`` names the same
-implementations as in the JAX package.
+The counterpart of :mod:`dfgnn_tpu.ops.dispatch`.  Every layout is ported:
+:class:`DenseBatch`, :class:`Graph`, :class:`BucketedGraph`,
+:class:`BlockedBucketedGraph`, :class:`SampledBlock` and the
+edge-partitioned graph; ``method`` names the same implementations as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from dfgnn_tpu_torch.ops import bucket as _bucket
 from dfgnn_tpu_torch.ops import dense_block as _dense
 from dfgnn_tpu_torch.ops import flash_mask
 from dfgnn_tpu_torch.ops import reference as _ref
+from dfgnn_tpu_torch.ops.edge_dropout import seed_from_generator
 
 
 def graph_attention(
@@ -51,7 +53,12 @@ def graph_attention(
     bucket path (:mod:`dfgnn_tpu_torch.ops.bucket`).  On a
     :class:`SampledBlock`, ``auto``, ``sampled`` and ``bucket`` run
     :func:`sampled_block_attention`, which has neither dropout nor
-    ``return_weights`` (both raise).
+    ``return_weights`` (both raise).  On an
+    :class:`~dfgnn_tpu_torch.parallel.EdgePartitionedGraph` placed on a mesh
+    (``partition_graph(..., mesh=...)``), ``auto`` and ``dist`` run
+    :func:`~dfgnn_tpu_torch.parallel.dist_graph_attention` on this rank's
+    block of rows (dropout seeded from ``dropout_generator``, which must give
+    the same seed on every rank); ``return_weights`` raises.
     The ``DFGNN_TPU_FORCE_METHOD`` environment variable overrides
     ``method="auto"``.
     """
@@ -81,11 +88,24 @@ def graph_attention(
             return sampled_block_attention(g, q, k, v, score=score, e_row=e_row, e_col=e_col,
                                            negative_slope=negative_slope)
         raise ValueError(f"method {method!r} invalid for SampledBlock")
+    from dfgnn_tpu_torch.parallel.partition import EdgePartitionedGraph, dist_graph_attention
+
+    if isinstance(g, EdgePartitionedGraph):
+        if return_weights:
+            raise NotImplementedError("return_weights is not available on the distributed path")
+        if g.mesh is None:
+            raise ValueError("EdgePartitionedGraph needs mesh= set "
+                             "(partition_graph(..., mesh=mesh))")
+        if method in ("auto", "dist"):
+            seed = (seed_from_generator(dropout_generator)
+                    if dropout_rate > 0.0 and dropout_generator is not None else None)
+            return dist_graph_attention(g, g.mesh, q, k, v, score=score, e_row=e_row,
+                                        e_col=e_col, negative_slope=negative_slope,
+                                        axis=g.axis, dropout_rate=dropout_rate,
+                                        dropout_seed=seed)
+        raise ValueError(f"method {method!r} invalid for EdgePartitionedGraph")
     if not isinstance(g, DenseBatch):
-        raise NotImplementedError(
-            f"graph layout {type(g).__name__} is not ported yet: the edge-partitioned "
-            "forward needs the collectives of ROADMAP.md queue 1 item 10b (the plan, "
-            "dfgnn_tpu_torch.parallel.partition_graph, is item 10a).")
+        raise TypeError(f"unsupported graph layout {type(g)!r}")
     if method == "auto":
         method = "flash" if flash_mask.flash_takes(score, g.np_pad, v.shape[-1]) else "dense"
     if method == "flash" and not return_weights:

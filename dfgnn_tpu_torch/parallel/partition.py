@@ -1,10 +1,11 @@
-"""The edge-partitioned plan of one full graph across several devices.
+"""The edge-partitioned full graph across several devices.
 
-The counterpart of :mod:`dfgnn_tpu.parallel.partition` up to the point where
-a collective is needed.  One large graph's edges are partitioned by
-**destination row block**: device ``d`` owns rows ``[d * n_local, (d + 1) *
-n_local)``, so edge-softmax stays on the device that owns the row, and only
-source-side rows (k, v, or GAT's ``e_col``) travel between devices.
+The counterpart of :mod:`dfgnn_tpu.parallel.partition`.  One large graph's
+edges are partitioned by **destination row block**: device ``d`` owns rows
+``[d * n_local, (d + 1) * n_local)``, so edge-softmax stays on the device that
+owns the row, and only source-side rows (k, v, or GAT's ``e_col``) travel
+between devices: an all-gather, or with a halo plan an all-to-all of the
+boundary rows.  This is the graph analog of sequence parallelism.
 
 Every device of a step runs the same shapes, so the plan is *harmonised*:
 one widths list, the same padded row count per bucket
@@ -12,17 +13,18 @@ one widths list, the same padded row count per bucket
 the same padded segment count (``segment_rows_numpy(s_pad_to=...)``).
 
 The plan is built on the host in numpy, as the JAX package builds it, and
-kept as CPU tensors with ``.to(device)``.  Its id arrays are int64 (the
-index type of torch's gathers); their values equal the JAX package's
-int32 arrays.
+kept as CPU tensors; a rank moves only its own slice to its device
+(:func:`_shard`, once per plan).  Its id arrays are int64 (the index type of
+torch's gathers); their values equal the JAX package's int32 arrays.
 
-What runs per shard without a collective is here too: :func:`_local_bg`
-(shard ``d``'s layout slice), :func:`_local_drop` (its dropout context) and
-the two local halves of the halo exchange, :func:`_halo_send_rows` and
-:func:`_halo_source_table`.  The shard index ``d`` is an argument wherever
-the JAX package reads ``jax.lax.axis_index``.  The exchanges themselves,
-the shared-segment merge across devices and the distributed forward and
-backward need ``torch.distributed`` (ROADMAP.md queue 1 item 10b).
+:func:`dist_graph_attention` is an SPMD program over ``torch.distributed``,
+one process per device: where the JAX function takes and returns global
+node-sharded arrays, it takes and returns **this rank's block**, ``[n_local,
+h, f]`` rows in plan order, and every rank computes only its own rows.
+:func:`shard_nodes` and :func:`gather_nodes` convert from and to the global
+order.  Autograd runs through the forward and the collectives of
+:mod:`.comm`; a plan built with ``with_transpose=True`` trains through the
+fused distributed backward (:class:`_DistFused`) instead.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from dfgnn_tpu_torch.device import resolve_device
 from dfgnn_tpu_torch.formats import (
@@ -41,8 +45,11 @@ from dfgnn_tpu_torch.formats import (
     segment_rows_numpy,
 )
 from dfgnn_tpu_torch.graph import Graph, _round_up
+from dfgnn_tpu_torch.ops import bucket as _bk
 from dfgnn_tpu_torch.ops.bucket import _Drop, _take
+from dfgnn_tpu_torch.parallel import comm
 from dfgnn_tpu_torch.parallel.balance import balance_perm
+from dfgnn_tpu_torch.parallel.dist import mesh_group_rank
 from dfgnn_tpu_torch.parallel.reorder import bfs_reorder, lpa_reorder, reorder_graph
 
 
@@ -85,7 +92,7 @@ class SharedSegments:
     row may live on any device: the per-segment softmax states (m, l, acc)
     are reduced per wide row on each device and merged across devices by
     their logsumexps (the reference tiling kernel's rescale algebra,
-    ``fused_gtconv_tiling.cu:72-86``), a collective of item 10b.
+    ``fused_gtconv_tiling.cu:72-86``) in :func:`_shared_forward`.
     """
 
     nbr: torch.Tensor        # [n_devices, s_loc, width] global (permuted) ids
@@ -115,7 +122,8 @@ class EdgePartitionedGraph:
     blocks (the fused distributed backward's CSC direction).  A plan built
     with a node permutation (``balance``, ``reorder``) takes its features
     permuted (``x[node_perm]``) and returns outputs in the original order
-    (``out[node_rank]``).
+    (``out[node_rank]``).  ``mesh`` is the 1-D device mesh the plan runs on
+    (``partition_graph(..., mesh=...)``), or None for a plan not yet placed.
     """
 
     buckets: Tuple[Bucket, ...]
@@ -129,9 +137,15 @@ class EdgePartitionedGraph:
     transpose: Optional["EdgePartitionedGraph"] = None
     node_perm: Optional[torch.Tensor] = None  # [n] old ids in new order
     node_rank: Optional[torch.Tensor] = None  # [n] rank[old] = new
+    mesh: Optional[DeviceMesh] = None
 
     def to(self, device) -> "EdgePartitionedGraph":
         return _to(self, device)
+
+    @property
+    def axis(self) -> Optional[str]:
+        """The name of the mesh's dim (JAX's ``axis``), None without a mesh."""
+        return None if self.mesh is None else self.mesh.mesh_dim_names[0]
 
     def comm_rows_per_device(self) -> int:
         """Rows each device receives per exchanged operand per layer: the
@@ -174,6 +188,8 @@ def partition_graph(
     split_width: int = 256,
     reorder: Optional[str] = None,
     balance: Optional[bool] = None,
+    mesh: Optional[DeviceMesh] = None,
+    axis: str = "data",
 ) -> EdgePartitionedGraph:
     """Host-side: split rows into ``n_devices`` contiguous blocks and build
     shape-harmonised per-device buckets; returned as CPU tensors.
@@ -195,12 +211,21 @@ def partition_graph(
     not grow with the device count.  It destroys id locality.  An explicit
     ``balance=True`` always applies, after any locality reorder.
 
-    The JAX package's ``mesh`` and ``axis`` have no counterpart here: the
-    process group comes with the distributed forward (item 10b).
+    ``mesh`` (a :class:`DeviceMesh`; a 2-D one is cut to its dim ``axis``)
+    is the mesh :func:`~dfgnn_tpu_torch.ops.graph_attention` runs the plan on;
+    the plan stays on the CPU either way.
     """
-    return _partition(g, n_devices, min_width=min_width, widths=widths, halo=halo,
-                      with_transpose=with_transpose, split_width=split_width,
-                      reorder=reorder, balance=balance).to("cpu")
+    if mesh is not None:
+        if mesh.ndim > 1:
+            mesh = mesh[axis]
+        if mesh.mesh_dim_names != (axis,):
+            raise ValueError(f"mesh dims {mesh.mesh_dim_names} lack axis {axis!r}")
+        if mesh.size() != n_devices:
+            raise ValueError(f"mesh of {mesh.size()} ranks for a plan of {n_devices} devices")
+    pg = _partition(g, n_devices, min_width=min_width, widths=widths, halo=halo,
+                    with_transpose=with_transpose, split_width=split_width,
+                    reorder=reorder, balance=balance).to("cpu")
+    return pg if mesh is None else dataclasses.replace(pg, mesh=mesh)
 
 
 def _partition(g, n_devices, *, min_width, widths, halo, with_transpose, split_width,
@@ -470,6 +495,14 @@ def _perm_arg(pg: EdgePartitionedGraph) -> Optional[torch.Tensor]:
     return torch.cat([pg.node_perm, pg.node_perm.new_full((1,), pg.n_nodes)])
 
 
+def _drop_maps(pg: EdgePartitionedGraph, d: int, dev) -> dict:
+    """The id maps of shard ``d``'s dropout context on ``dev``."""
+    perm = _perm_arg(pg)
+    return dict(row_base=d * pg.n_local,
+                src_map=None if pg.halo is None else pg.halo.table_global[d].to(dev),
+                id_perm=None if perm is None else perm.to(dev))
+
+
 def _local_drop(pg: EdgePartitionedGraph, d: int, seed: int, rate: float,
                 device="cuda") -> Optional[_Drop]:
     """Shard ``d``'s dropout context on ``device``: rows rebased to global
@@ -480,11 +513,7 @@ def _local_drop(pg: EdgePartitionedGraph, d: int, seed: int, rate: float,
     (see ``ops.bucket._Drop``)."""
     if rate == 0.0:
         return None
-    dev = resolve_device(device)
-    src_map = None if pg.halo is None else pg.halo.table_global[d].to(dev)
-    perm = _perm_arg(pg)
-    return _Drop(seed, rate, row_base=d * pg.n_local, src_map=src_map,
-                 id_perm=None if perm is None else perm.to(dev))
+    return _Drop(seed, rate, **_drop_maps(pg, d, resolve_device(device)))
 
 
 def _halo_send_rows(pg: EdgePartitionedGraph, d: int, x_l: torch.Tensor) -> torch.Tensor:
@@ -502,3 +531,256 @@ def _halo_source_table(pg: EdgePartitionedGraph, x_l: torch.Tensor,
     nd, H = pg.n_devices, pg.halo.max_halo
     zero = x_l.new_zeros((1, *x_l.shape[1:]))
     return torch.cat([x_l, recv.reshape(nd * H, *x_l.shape[1:]), zero])
+
+
+# ---------------------------------------------------------------------------
+# The distributed forward and backward over torch.distributed
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _Shard:
+    """One rank's slice of a plan on its device (see :func:`_shard`)."""
+
+    bg: BucketedGraph                  # the rank's buckets and per-device segments
+    drop_maps: dict                    # the id maps of its dropout context
+    send: Optional[torch.Tensor]       # [n_devices, max_halo] rows it sends (halo plans)
+    shared: Optional[tuple]            # its share (seg_id, nbr, emask, val) of the shared segments
+    wide_rows: Optional[torch.Tensor]  # [R] the shared segments' rows
+    drop_rows: Optional[torch.Tensor]  # [R + 1] their dropout-hash ids
+
+    def drop(self, seed: int, rate: float) -> Optional[_Drop]:
+        return None if rate == 0.0 else _Drop(seed, rate, **self.drop_maps)
+
+
+def _shard(pg: EdgePartitionedGraph, rank: int, device) -> _Shard:
+    """Rank ``rank``'s slice of ``pg`` on ``device``: built at its first use
+    and kept on the plan object, so a rank moves only its own slice to its
+    device, once."""
+    memo = pg.__dict__.setdefault("_shards", {})
+    key = (rank, str(device))
+    if key not in memo:
+        dev = torch.device(device)
+        ss = pg.shared_segments
+        shared = None
+        if ss is not None:
+            shared = tuple(None if x is None else x[rank].to(dev)
+                           for x in (ss.seg_id, ss.nbr, ss.emask, ss.val))
+        memo[key] = _Shard(
+            bg=_local_bg(pg, rank, dev), drop_maps=_drop_maps(pg, rank, dev),
+            send=None if pg.halo is None else pg.halo.send_local[rank].to(dev),
+            shared=shared,
+            wide_rows=None if ss is None else ss.wide_rows.to(dev),
+            drop_rows=None if ss is None else ss.drop_rows.to(dev))
+    return memo[key]
+
+
+def _exchange(pg: EdgePartitionedGraph, sh: _Shard, group):
+    """The source-row exchange of one rank, local rows -> source table: the
+    halo all-to-all between :func:`_halo_send_rows`' take and
+    :func:`_halo_source_table` when the plan has a halo, else the
+    all-gather of every rank's rows."""
+    if pg.halo is None:
+        return lambda x_l: comm.all_gather(x_l, group)
+    return lambda x_l: _halo_source_table(pg, x_l, comm.all_to_all(_take(x_l, sh.send), group))
+
+
+def _source_table(pg, sh, group, b, v, score):
+    """The exchanged packed source table (k||v for dot, e_col||v for add)."""
+    dot = score == "dot"
+    (local,) = _bk._make_tabs(b if dot else None, v, None if dot else b, score, None)
+    return (_exchange(pg, sh, group)(local),)
+
+
+def _forward_local(pg, sh, group, a, b, v, score, slope, drop):
+    """This rank's rows: (out [n_local, h, f], lse [n_local, h]) and the
+    exchanged source table."""
+    dot = score == "dot"
+    tabs = _source_table(pg, sh, group, b, v, score)
+    res = _bk._forward_tabs(sh.bg, a if dot else None, None if dot else a, tabs, v.dtype,
+                            v.shape[2], score, slope, 2048, drop=drop)
+    return res, tabs
+
+
+def _shared_forward(pg, sh, group, rank, a, tabs, f, score, slope, drop, out):
+    """This rank's share of the global segment walk and the cross-device
+    online-softmax combine; the merged wide rows are written into this rank's
+    rows of ``out`` (see :class:`SharedSegments`)."""
+    R, L = pg.shared_segments.n_rows, pg.n_local
+    h = tabs[0].shape[1]
+    idx = sh.wide_rows - rank * L
+    valid = (idx >= 0) & (idx < L)
+    cidx = idx.clamp(0, L - 1)
+
+    # the wide rows' destination-side operand, replicated: the owner
+    # contributes, the sum all-reduce broadcasts; the zero row appended is
+    # the padded segments' sentinel
+    t = a[cidx]
+    t = torch.where(valid.view(R, *(1,) * (t.ndim - 1)), t, torch.zeros_like(t))
+    aw = torch.cat([comm.all_reduce_sum(t, group), t.new_zeros((1, *t.shape[1:]))])
+
+    dot = score == "dot"
+    seg_id, nbr, emask, val = sh.shared
+    chunk = _bk._pick_chunk(nbr.shape[0], nbr.shape[1], _bk._tabs_row_bytes(tabs))
+    (sid, *_), (m_s, l_s, acc_s) = _bk._map_chunks(
+        lambda args: _bk._segment_partials(args, aw if dot else None, None if dot else aw,
+                                           tabs, f, score, slope, drop),
+        (seg_id, nbr, emask, val), (R, pg.n_nodes, False, 0.0), chunk)
+    bins = R + 1  # the last bin takes the padded segments
+    m_loc = torch.full((bins, h), _bk.NEG_BIG, device=m_s.device).scatter_reduce(
+        0, sid[:, None].expand(-1, h), m_s, reduce="amax", include_self=True)
+    scale = torch.exp(m_s - m_loc[sid])
+    l_loc = _bk._segsum(l_s * scale, sid, bins)
+    acc_loc = _bk._segsum(acc_s * scale[..., None], sid, bins)
+    # the cross-device combine (the reference tiling kernel's rescale algebra,
+    # fused_gtconv_tiling.cu:72-86); the shared max is a pure shift, outside
+    # autograd
+    resc = torch.exp(m_loc - comm.all_reduce_max(m_loc, group))
+    l_g = comm.all_reduce_sum(l_loc * resc, group)
+    acc_g = comm.all_reduce_sum(acc_loc * resc[..., None], group)
+    live = l_g[..., None] > 0
+    out_r = torch.where(live, acc_g / torch.where(live, l_g[..., None], 1.0), 0.0)
+    tgt = torch.where(valid, idx, L)  # rows of other ranks land in a dropped row
+    out = torch.cat([out, out.new_zeros((1, *out.shape[1:]))])
+    return out.index_copy(0, tgt, out_r[:R].to(out.dtype))[:L]
+
+
+class _DistFused(torch.autograd.Function):
+    """The distributed forward with the fused distributed backward, on a plan
+    built with ``with_transpose=True`` (the multi-device form of
+    ``ops.bucket._BucketFused``).  Saves (a, b, v, out, lse) of this rank's
+    rows.  The CSR direction (dQ or d e_row) walks this rank's rows with the
+    forward's exchange of b||v; the CSC direction (dK or d e_col, and dV)
+    walks the transposed layout, the same node blocks partitioned by source,
+    with the reverse exchange of the packed a||dO||lse||delta rows.  Both are
+    gathers: no reduce-scatter and no atomics.  ``a, b`` are (q, k) for dot
+    and (e_row, e_col) for add."""
+
+    @staticmethod
+    def forward(ctx, a, b, v, pg, rank, group, meta):
+        score, slope, rate, seed = meta
+        sh = _shard(pg, rank, v.device)
+        (out, lse), _ = _forward_local(pg, sh, group, a, b, v, score, slope,
+                                       sh.drop(seed, rate))
+        ctx.save_for_backward(a, b, v, out, lse)
+        ctx.pg, ctx.rank, ctx.group, ctx.meta = pg, rank, group, meta
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        a, b, v, out, lse = ctx.saved_tensors
+        pg, rank, group = ctx.pg, ctx.rank, ctx.group
+        score, slope, rate, seed = ctx.meta
+        dot = score == "dot"
+        h, f = v.shape[1], v.shape[2]
+        sh, shT = _shard(pg, rank, v.device), _shard(pg.transpose, rank, v.device)
+        do = do.float()
+        delta = torch.einsum("nhf,nhf->nh", do, out.float())
+
+        tabs = _source_table(pg, sh, group, b, v, score)
+        drop = sh.drop(seed, rate)
+        (da,) = _bk._walk_backward(
+            sh.bg, lambda args: _bk._bwd_csr_chunk(args, a, do, lse, delta, tabs, f, score,
+                                                   slope, drop),
+            [(h, f)] if dot else [(h,)], _bk._tabs_row_bytes(tabs), v.device)
+
+        # the plan and its transpose share one node permutation, so the
+        # dropout hash keys on the same original ids in both directions
+        a3 = a if dot else a[..., None]
+        local_T = torch.cat([a3.float(), do, torch.stack([lse, delta], dim=-1)], dim=-1)
+        tabsT = (_exchange(pg.transpose, shT, group)(local_T),)
+        dropT = shT.drop(seed, rate)
+        db, dv = _bk._walk_backward(
+            shT.bg, lambda args: _bk._bwd_csc_chunk(args, b, v, tabsT, f, score, slope, dropT),
+            [(h, f), (h, f)] if dot else [(h,), (h, f)], _bk._tabs_row_bytes(tabsT), v.device)
+        return da.to(a.dtype), db.to(b.dtype), dv.to(v.dtype), None, None, None, None
+
+
+def dist_graph_attention(
+    pg: EdgePartitionedGraph,
+    mesh: DeviceMesh,
+    q: Optional[torch.Tensor],
+    k: Optional[torch.Tensor],
+    v: torch.Tensor,
+    *,
+    score: str = "dot",
+    e_row: Optional[torch.Tensor] = None,
+    e_col: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.2,
+    axis: str = "data",
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused attention over a row-partitioned graph, one rank's share.
+
+    Every rank of ``mesh``'s dim ``axis`` calls it at once.  ``q, k, v``
+    (``[n_local, h, f]``) or ``e_row, e_col`` (``[n_local, h]``) and ``v`` are
+    this rank's block of rows in plan order (:func:`shard_nodes`), on its
+    device; the result is this rank's rows of the output, ``[n_local, h, f]``
+    (:func:`gather_nodes` assembles the graph's).  The source-side operands
+    travel by the plan's exchange (all-gather, or the halo all-to-all), each
+    rank runs the bucket path's walk over its rows, and the shared segments
+    of super-wide rows merge across ranks.  On a plan with a transpose,
+    training runs the fused distributed backward (:class:`_DistFused`);
+    otherwise autograd runs through the forward and the collectives.
+
+    ``dropout_rate > 0`` drops attention weights as the single-device bucket
+    path does for the same ``dropout_seed``, a uint32 given identically on
+    every rank (``edge_dropout.seed_from_generator``): the edge hash keys on
+    global original (dst, src) ids, rebased per rank and mapped back through
+    the halo table and the plan's node permutation, so the mask is bitwise
+    the single-device one.
+    """
+    rate = float(dropout_rate)
+    if rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if rate > 0.0 and pg.halo is not None and pg.halo.table_global is None:
+        # without the inverse map every lane would hash to one id
+        # (correlated whole-row drops): refuse instead
+        raise ValueError(
+            "dropout on a halo-compressed partition requires the plan's table_global map; "
+            "rebuild with partition_graph(...) (HaloExchange.table_global is None)")
+    if score not in ("dot", "add"):
+        raise ValueError(f"unknown score mode {score!r}")
+    group, rank = mesh_group_rank(mesh, axis)
+    if dist.get_world_size(group) != pg.n_devices:
+        raise ValueError(f"a plan of {pg.n_devices} devices on a group of "
+                         f"{dist.get_world_size(group)} ranks")
+    a, b = (q, k) if score == "dot" else (e_row, e_col)
+    if a.shape[0] != pg.n_local or v.shape[0] != pg.n_local:
+        raise ValueError(f"takes this rank's block of {pg.n_local} rows (shard_nodes), "
+                         f"got {a.shape[0]} and {v.shape[0]}")
+    seed = int(dropout_seed) if rate > 0.0 else 0
+    if pg.transpose is not None:
+        return _DistFused.apply(a, b, v, pg, rank, group,
+                                (score, float(negative_slope), rate, seed))
+    sh = _shard(pg, rank, v.device)
+    (out, _), tabs = _forward_local(pg, sh, group, a, b, v, score, negative_slope,
+                                    sh.drop(seed, rate))
+    if pg.shared_segments is not None:
+        drop_sh = None if rate == 0.0 else _Drop(
+            seed, rate, id_perm=sh.drop_maps["id_perm"], row_map=sh.drop_rows)
+        out = _shared_forward(pg, sh, group, rank, a, tabs, v.shape[2], score,
+                              negative_slope, drop_sh, out)
+    return out
+
+
+def shard_nodes(pg: EdgePartitionedGraph, x: Optional[torch.Tensor],
+                rank: int) -> Optional[torch.Tensor]:
+    """Rank ``rank``'s block of a node array ``x`` [n, ...] in the original
+    order: permuted into plan order (``x[node_perm]``), padded to ``n_devices
+    * n_local`` rows and cut.  Differentiable."""
+    if x is None:
+        return None
+    if pg.node_perm is not None:
+        x = x[pg.node_perm.to(x.device)]
+    L = pg.n_local
+    return _pad_nodes(x, L * pg.n_devices)[rank * L: (rank + 1) * L]
+
+
+def gather_nodes(pg: EdgePartitionedGraph, out_l: torch.Tensor, mesh: DeviceMesh,
+                 axis: Optional[str] = None) -> torch.Tensor:
+    """Every rank's block of rows assembled into the graph's ``[n, ...]`` in
+    the original order (an all-gather; its backward reduce-scatters)."""
+    group, _ = mesh_group_rank(mesh, axis)
+    out = comm.all_gather(out_l, group)[: pg.n_nodes]
+    return out if pg.node_rank is None else out[pg.node_rank.to(out.device)]

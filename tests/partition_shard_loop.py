@@ -2,8 +2,9 @@
 after another in one process, on the source table the plan's exchange would
 deliver.  Imports torch and the port only, so the card's tests use it too.
 
-The loop is a test of the plan, not a feature: the distributed forward runs
-each shard on its own device and moves the rows by collectives.
+The loop is a test of the plan, not a feature: the distributed forward
+(``parallel.dist_graph_attention``) runs each shard in its own process and
+moves the rows by collectives.
 """
 
 import torch
@@ -53,7 +54,9 @@ def shard_loop(pg, q, k, v, *, score="dot", e_row=None, e_col=None, negative_slo
     """The concatenated shard outputs, cut to ``n`` rows and returned in the
     original node order: equal to the unpartitioned forward."""
     if pg.shared_segments is not None:
-        raise ValueError("shared segments merge across devices (item 10b)")
+        # the loop is one process: the shared segments' cross-device merge
+        # runs in dist_graph_attention, over torch.distributed
+        raise ValueError("shared segments merge across devices in dist_graph_attention")
     device = v.device
     a, b = (q, k) if score == "dot" else (e_row, e_col)
     a, b, v = shard_inputs(pg, a, b, v)

@@ -872,3 +872,31 @@ def test_timer_waits_for_a_launched_kernel(cuda):
         torch.cuda._sleep(100_000_000)
     torch.cuda.synchronize()
     assert enqueued.elapsed_ms < kernel_ms / 2  # the clock alone sees only the launch
+
+
+def test_dist_plans_on_card_match_unpartitioned(cuda):
+    """A 4-rank gloo world on this one card: every plan flavour's gathered
+    output and gradients of sum(out ** 2) against the unpartitioned bucket
+    path (the default plan deals its 400-wide row as shared segments)."""
+    from dist_world import CARD_PLANS, card_plans, start_world
+
+    res = start_world(card_plans, 4, timeout=300).results()
+    assert set(res) == {name for name, *_ in CARD_PLANS} and res["default"]["shared"]
+    for name, r in res.items():
+        for i, (got, want) in enumerate(zip(r["got"], r["want"])):
+            tol = dict(rtol=1e-4, atol=1e-5) if i == 0 else dict(rtol=1e-3, atol=1e-4)
+            np.testing.assert_allclose(got, want, **tol, err_msg=f"{name} [{i}]")
+
+
+def test_gloo_collectives_on_card_match_cpu(cuda):
+    """The collectives of parallel.comm under gloo on CUDA tensors give what
+    they give on the same CPU tensors, forward and backward."""
+    from dist_world import card_collectives, start_world
+
+    res = start_world(card_collectives, 4, timeout=120).results()
+    for name, pair in res.items():
+        if name == "all_reduce_max":
+            np.testing.assert_array_equal(pair[0], pair[1])
+            continue
+        for a, b in zip(*pair):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6, err_msg=name)

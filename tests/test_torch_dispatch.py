@@ -62,7 +62,7 @@ def test_unknown_method_raises():
 @pytest.mark.parametrize("layout", [(), {"rows": [0]}, "graph"])
 def test_layouts_not_ported_raise(layout):
     _, q, k, v = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="unsupported graph layout"):
         graph_attention(layout, q, k, v)
 
 

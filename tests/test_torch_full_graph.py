@@ -177,7 +177,8 @@ def test_run_parity_full_twin():
 
 def test_full_graph_twins_on_cpu(capsys):
     """The test_full_graph twin checks the bucket path against the oracle (on a
-    subsample above the edge cap) and refuses ``--format dist``; the
+    subsample above the edge cap) and runs ``--format dist`` as a world of one
+    process, its gathered output against the oracle; the
     train_gatconv twin trains GATNet on the bucketed training layout; the
     train_parity twin runs its full-graph half."""
     for conv, cap in (("gt", "4000000"), ("gat", "5000")):
@@ -186,8 +187,9 @@ def test_full_graph_twins_on_cpu(capsys):
                                     "--oracle-edge-cap", cap])
         assert res["bucket"]["ok"] is True and res["bucket"]["ms"] is None
     assert "correctness vs oracle: OK" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        test_full_graph.main(["--dataset", "cora", "--format", "dist", "--device", "cpu"])
+    res = test_full_graph.main(["--dataset", "cora", "--dim", "16", "--heads", "2", "--format",
+                                "dist", "--device", "cpu"])
+    assert res["dist"]["ok"] is True and res["dist"]["ms"] is None
     res = train_gatconv.main(["--dataset", "cora", "--dim", "8", "--heads", "2", "--n-layers",
                               "2", "--epochs", "6", "--lr", "1e-2", "--device", "cpu"])
     assert res["losses"][-1] < res["losses"][0] and res["peak_mib"] is None
