@@ -98,7 +98,17 @@ six launch counts set to 0 just before it and read just after:
   and gradient held against the unpartitioned bucket path (disputed nodes
   in fp64), each timed on the slowest rank; then the dryrun twin's data-,
   partition- and head-parallel steps against one process (#1 and #3
-  launched in the DP and TP steps), and a world of one process over NCCL.
+  launched in the DP and TP steps), and a world of one process over NCCL;
+- head dims past 256 and the precision switch (phase 26): GTModel at
+  hidden 512 with one head (head dim 512) serving through #1 (8 launches)
+  and 3 Adam steps through #1 and #3 (8 + 8 a step), held against
+  ``method="dense"``; GAT's fig-1 ``Model`` at hidden 512 through #2, and
+  a step through #2 and #4; #1 to #4 at f = 257, 384, 512, 1024 and P =
+  26, 128, 300, 2048 (fp32 and bf16, edge values, dropout) against their
+  plain versions, and timed at f = 512 beside their bounds and SDPA; #1 to
+  #6 at ``precision="default"`` against their TF32-rounded plain versions
+  (a TF32 step of each tensor's largest element), timed against
+  ``"highest"``, which must equal the call without precision bitwise.
 The bucket path is torch ops, so the full-graph, sampled and partitioned
 phases launch none of the hand-written kernels, and they assert that.
 Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -215,6 +225,18 @@ BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 # fp32 products run as 3xTF32 on the tensor cores (#1 to #6): three TF32
 # products each, so a third of the 495 TFLOP/s TF32 peak
 TF32X3_FLOPS = 495e12 / 3
+# Phase 26: #1 to #4 past f = 256 at these head dims and node counts, (B, h)
+# small at the large P; the wide GT and GAT models at one head of WIDE_HIDDEN;
+# #1 to #4 timed at the table's shape at f = 512
+WIDE_F, WIDE_P = (257, 384, 512, 1024), (26, 128, 300, 2048)
+WIDE_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 2048: (1, 1)}
+WIDE_HIDDEN, WIDE_TABLE = 512, (1024, 1, 128, 512)
+TF32_STEP = 2.0 ** -10  # a TF32 step (10 mantissa bits) near 1: the "default" bar
+# 3xTF32 drops each product's lo x lo term (about 2**-21 of it, where fp32
+# rounds a product at 2**-24), so on sums long enough that fp32 itself
+# misses BWD_FP32_TOL the kernel's error may exceed the fp32 plain version's:
+# up to 1.52x of it over phase 26's grid (the factor set after that reading)
+FP32_GRAD_SPREAD = 2.0
 
 
 def err_and_bad(got, want, tol):
@@ -626,6 +648,334 @@ def dist_phase(smi):
     t0 = time.perf_counter()
     _nccl_world_of_one(smi)
     print(f"the NCCL world of one ran in {time.perf_counter() - t0:.2f} s")
+
+
+def tf32_tol(want):
+    """The bar of a kernel at precision="default" against its TF32-rounded
+    plain version: both round the same operands to TF32 and multiply them
+    exactly, so they differ by the order of their fp32 sums and by the TF32
+    rounding of the intermediates (ex, ds, p * keep) that those sums move
+    across a rounding boundary: a TF32 step (2**-10) of each tensor's
+    largest element."""
+    return dict(rtol=0.0, atol=TF32_STEP * float(want.float().abs().max()))
+
+
+def hold_fp32_grad(got, want64, want32):
+    """An fp32 gradient against its plain version evaluated in fp64: within
+    BWD_FP32_TOL, or, where fp32 arithmetic cannot meet that bar on these
+    inputs, within FP32_GRAD_SPREAD times the fp32 plain version's largest
+    error (at P = 2048 with edge values |dq| reaches 1e2, and the fp32 plain
+    version itself lands 3.6e-4 from fp64).  Returns the kernel's and the
+    fp32 plain version's largest errors."""
+    err = (got.double() - want64).abs()
+    plain = float((want32.double() - want64).abs().max())
+    bad = (err > BWD_FP32_TOL["atol"] + BWD_FP32_TOL["rtol"] * want64.abs()) | ~torch.isfinite(got)
+    if bool(bad.any()) and not float(err.max()) <= FP32_GRAD_SPREAD * plain:
+        raise AssertionError(f"{int(bad.sum())} elements outside {BWD_FP32_TOL} of fp64; max err "
+                             f"{float(err.max())}, the fp32 plain version's {plain}")
+    return float(err.max()), plain
+
+
+def wide_kernel_case(fm, seed, P, f, dtype):
+    """#1 to #4 at head dim ``f`` past 256 against their plain versions on
+    ``attention_inputs``: fp32 forwards at FP32_TOL, the fp32 gradients
+    against the plain versions evaluated in fp64 (hold_fp32_grad), bf16 at
+    the bf16 bars.  Edge values at f = 257 and 512, dropout at P = 26 and
+    300.  Returns the printed line."""
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+
+    B, h = WIDE_BH[P]
+    with_val, rate = f in (257, 512), (0.4 if P in (26, 300) else 0.0)
+    q, k, v, adj, val = (torch.from_numpy(a).cuda()
+                         for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    val = val if with_val else None
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda().to(dtype)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
+                    for _ in range(2))
+    kw = dict(seed=DROP_SEED, rate=rate)
+    fp32 = dtype == torch.float32
+    tol = FP32_TOL if fp32 else BF16_TOL
+    errs = {}
+    out, lse = fm.flash_mask_fwd(q, k, v, adj, val, want_lse=True, **kw)
+    got = fm.flash_mask_bwd(q, k, v, adj, val, out, lse, do, **kw)
+    aout, alse = fm.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    agot = fm.flash_add_bwd(e_row, e_col, v, adj, val, aout, alse, do, **kw)
+    torch.cuda.synchronize()
+    d = lambda t: None if t is None else t.double()
+
+    def grads(names, plain, args, out_lse, got):
+        """the gradients against ``plain`` on ``args`` (+ lse, do, delta)"""
+        want = plain(*args, out_lse[1], do, fm.bwd_delta(do, out_lse[0]), **kw)
+        if fp32:  # against the fp64 evaluation, beside the fp32 one's error
+            want64 = plain(*map(d, args[:3]), args[3], d(args[4]), d(out_lse[1]), d(do),
+                           fm.bwd_delta(d(do), d(out_lse[0])), **kw)
+            for n, g, w64, w in zip(names, got, want64, want):
+                errs[n], errs[n + " (fp32 plain)"] = hold_fp32_grad(g, w64, w)
+        else:
+            for n, g, w in zip(names, got, want):
+                errs[n] = max_err(g, w, bwd_bf16_tol(w))
+
+    want = fm.flash_mask_fwd_plain(q, k, v, adj, val, **kw)
+    errs["out"], errs["lse"] = max_err(out, want[0], tol), max_err(lse, want[1], FP32_TOL)
+    grads(("dq", "dk", "dv"), fm.flash_mask_bwd_plain, (q, k, v, adj, val), want, got)
+    want = fm.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+    errs["add out"], errs["add lse"] = max_err(aout, want[0], tol), max_err(alse, want[1],
+                                                                            FP32_TOL)
+    grads(("d e_row", "d e_col", "add dv"), fm.flash_add_bwd_plain,
+          (e_row, e_col, v, adj, val), want, agot)
+    return (f"  f={f} P={P} B={B} h={h} {dtype} val={with_val} rate={rate}: max abs err "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+
+
+def wide_phase(smi):
+    """Phase 26: head dims past 256 (#1 to #4) and the precision switch (#1
+    to #6).  The wide GT model (GTModel at hidden 512, one head: head dim
+    512) serves a PATTERN-like bs=1024 request through #1 and takes 3 Adam
+    steps on ogbg-molhiv bs=1024 through #1 and #3, each against
+    method="dense"; the fig-1 GAT Model at hidden 512 serves through #2 and
+    takes a step through #2 and #4, against dense; #1 to #4 at f = 257, 384,
+    512, 1024 and P = 26, 128, 300, 2048 against their plain versions; #1 to
+    #4 timed at the table's shape at f = 512 beside their bounds and SDPA;
+    #1 to #6 at precision="default" against their TF32-rounded plain
+    versions at the table's shape, timed against "highest", and "highest"
+    bitwise equal to no precision."""
+    import torch.nn.functional as F
+
+    from dfgnn_tpu_torch import DenseBatch, GTModel
+    from dfgnn_tpu_torch.data.collate import batch_iterator
+    from dfgnn_tpu_torch.data.datasets import load_batched
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
+    from dfgnn_tpu_torch.models import Model
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    def counts_must_be(what, want):
+        torch.cuda.synchronize()
+        if fm.launch_counts() != want:
+            raise AssertionError(f"{what} launched #1, #3, #2, #4, #5, #6 {fm.launch_counts()}, "
+                                 f"expected {want}")
+
+    # the wide GT model, serving: one forward through #1, against dense
+    L = LAYERS
+    rng = np.random.default_rng(40)
+    batch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+    gt = GTModel("PATTERN", out_size=2, hidden_size=WIDE_HIDDEN, num_layers=L, num_heads=1,
+                 generator=torch.Generator().manual_seed(40)).eval()
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        logits = gt(batch, x)
+        counts_must_be("the wide GT forward", (L, 0, 0, 0, 0, 0))
+        if logits.shape != (BATCH, 2) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"wide GT logits {tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        e = max_err(logits, gt(batch, x, impl="dense"), MODEL_TOL)
+        auto_ms, dense_ms = in_turns(benchmark, lambda: gt(batch, x, impl="dense"),
+                                     lambda: gt(batch, x), names=("dense", "auto"))
+    print(f"wide GT serving (GTModel PATTERN, hidden {WIDE_HIDDEN}, 1 head: head dim "
+          f"{WIDE_HIDDEN}, {L} layers, bs={BATCH}, {batch.n_edges} edges): {L} #1 launches, none "
+          f"of the others; auto vs dense logits max abs err {e:.3e} (tol {MODEL_TOL}); forward "
+          f"({smi}): auto {auto_ms:.4f} ms, dense {dense_ms:.4f} ms")
+    del gt, logits
+
+    # the wide GT model, training: 3 Adam steps through auto (8 #1 + 8 #3 a
+    # step) and through dense (none), the same weights and batches
+    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
+    batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
+    per_step = {"auto": (L, L, 0, 0, 0, 0), "dense": (0,) * 6}
+    models = {name: GTModel("ogbg-molhiv", out_size=1, hidden_size=WIDE_HIDDEN, num_layers=L,
+                            method=name, generator=torch.Generator().manual_seed(41))
+              for name in per_step}
+    models["dense"].load_state_dict(models["auto"].state_dict())
+    losses, states = {}, {}
+    for name, m in models.items():
+        states[name] = (TrainState.create(m, lr=1e-3, step_lr_every=20),
+                        make_loss_fn(m, ds.task, ds.num_classes))
+        losses[name] = []
+        for b in batches:
+            fm.reset_launch_counts()
+            losses[name].append(float(train_step(*states[name], *b)[1]))
+            counts_must_be(f"a wide GT {name} step", per_step[name])
+    for i, (a, d) in enumerate(zip(losses["auto"], losses["dense"])):
+        if not (math.isfinite(a) and abs(a - d) <= TRAJECTORY_RTOL * abs(d)):
+            raise AssertionError(f"wide GT Adam step {i}: loss auto {a} vs dense {d}")
+    step_ms = {name: benchmark(lambda s=s: train_step(*s, *batches[0]))[1]
+               for name, s in states.items()}
+    print(f"wide GT training (GTModel ogbg-molhiv, hidden {WIDE_HIDDEN}, 1 head, {L} layers, "
+          f"bs={BATCH}): {TRAJECTORY_STEPS} Adam steps, {L} #1 + {L} #3 launches a step through "
+          f"auto, none through dense; losses auto {[round(v, 7) for v in losses['auto']]}, "
+          f"dense {[round(v, 7) for v in losses['dense']]} (rtol {TRAJECTORY_RTOL}); a step "
+          f"({smi}): auto {step_ms['auto']:.4f} ms, dense {step_ms['dense']:.4f} ms")
+    del models, states, batches, ds
+
+    # the wide GAT model (fig-1 Model, hidden 512): a forward through #2 and
+    # a step through #2 and #4, against dense
+    rng = np.random.default_rng(42)
+    sbatch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    sx = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+    mask = sbatch.node_mask.reshape(-1, 1).float()
+    gat = Model("PATTERN", "gat", WIDE_HIDDEN, generator=torch.Generator().manual_seed(42))
+    target = torch.from_numpy(rng.standard_normal((BATCH * NP_PAD, WIDE_HIDDEN))
+                              .astype(np.float32)).cuda()
+    params = list(gat.parameters())
+
+    def gat_step(impl):
+        gat.zero_grad()
+        loss = (((gat(sbatch, sx, impl=impl) - target) ** 2) * mask).mean()
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        out = gat(sbatch, sx)
+        counts_must_be("the wide GAT forward", (0, 0, 1, 0, 0, 0))
+        e = max_err(out, gat(sbatch, sx, impl="dense"), MODEL_TOL)
+    fm.reset_launch_counts()
+    loss_a, grads_a = gat_step(None)
+    counts_must_be("the wide GAT step", (0, 0, 1, 1, 0, 0))
+    loss_d, grads_d = gat_step("dense")
+    if not abs(loss_a - loss_d) <= TRAJECTORY_RTOL * abs(loss_d):
+        raise AssertionError(f"wide GAT loss auto {loss_a} vs dense {loss_d}")
+    # the gradients: rtol 1e-3 and atol 1e-4 of each tensor's largest element
+    ge = max(max_err(a, d, dict(rtol=1e-3, atol=1e-4 * float(d.abs().max())))
+             / float(d.abs().max()) for a, d in zip(grads_a, grads_d))
+    opt = torch.optim.Adam(params, lr=1e-3)
+    fm.reset_launch_counts()
+    gat_step(None)
+    opt.step()
+    counts_must_be("the wide GAT Adam step", (0, 0, 1, 1, 0, 0))
+    with torch.inference_mode():
+        gat_ms = benchmark(lambda: gat(sbatch, sx))[1]
+    print(f"wide GAT (fig-1 Model PATTERN gat, hidden {WIDE_HIDDEN}, 1 head, bs={BATCH}, "
+          f"{sbatch.n_edges} edges): forward one #2 launch, auto vs dense max abs err {e:.3e} "
+          f"(tol {MODEL_TOL}); a step one #2 and one #4: loss auto {loss_a:.7f}, dense "
+          f"{loss_d:.7f}; gradients within {ge:.2e} of their largest element of dense's (bar "
+          f"rtol 1e-3, atol 1e-4 of it); forward {gat_ms:.4f} ms ({smi})")
+    del gat, out, grads_a, grads_d, opt
+
+    # #1 to #4 past f = 256 against their plain versions
+    n = 0
+    for f in WIDE_F:
+        for P in WIDE_P:
+            for dtype in (torch.float32, torch.bfloat16):
+                print(wide_kernel_case(fm, 50 + n, P, f, dtype))
+                n += 1
+    print(f"#1 to #4 held against their plain versions at {n} points (f in {WIDE_F}, P in "
+          f"{WIDE_P}, fp32 and bf16): fp32 forwards {FP32_TOL}; fp32 gradients against the "
+          f"plain versions in fp64 at {BWD_FP32_TOL}, or within {FP32_GRAD_SPREAD}x the fp32 "
+          f"plain version's error (printed beside); bf16 {BF16_TOL} and a bf16 step of each "
+          f"gradient")
+
+    # #1 to #4 at the table's shape at f = 512: times beside bounds and SDPA
+    B, h, P, f = WIDE_TABLE
+    q, k, v, adj, _ = (torch.from_numpy(a).cuda()
+                       for a in attention_inputs(np.random.default_rng(60), B, h, P, f))
+    rng = np.random.default_rng(61)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda()
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
+                    for _ in range(2))
+    out, lse = fm.flash_mask_fwd(q, k, v, adj, want_lse=True)
+    aout, alse = fm.flash_add_fwd(e_row, e_col, v, adj, want_lse=True)
+    mask = adj[:, None].bool()
+    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=1.0)
+    lib_fwd = benchmark(sdpa)[1]
+    lib_bwd = benchmark(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
+                                                    do.transpose(1, 2)))[1] - lib_fwd
+    pre = e_row.permute(0, 2, 1)[..., None] + e_col.permute(0, 2, 1)[..., None, :]
+    mask_g = torch.where(mask, F.leaky_relu(pre, 0.2), fm.NEG_BIG).requires_grad_(True)
+    zq = torch.zeros(B, h, P, 8, device="cuda")
+    vg2 = v.transpose(1, 2).detach().requires_grad_(True)
+    asdpa = lambda: F.scaled_dot_product_attention(zq, zq, vg2, attn_mask=mask_g)
+    alib_fwd = benchmark(asdpa)[1]
+    alib_bwd = benchmark(lambda: torch.autograd.grad(asdpa(), (mask_g, vg2),
+                                                     do.transpose(1, 2)))[1] - alib_fwd
+    cases = [
+        ("#1", lambda: fm.flash_mask_fwd_plain(q, k, v, adj),
+         lambda: fm.flash_mask_fwd(q, k, v, adj),
+         padded_attention_bound(2, adj, h, f, 4, False, TF32X3_FLOPS)[:2], lib_fwd),
+        ("#3", lambda: fm.flash_mask_bwd_plain(q, k, v, adj, None, lse, do,
+                                               fm.bwd_delta(do, out)),
+         lambda: fm.flash_mask_bwd(q, k, v, adj, None, out, lse, do),
+         padded_attention_bound(5, adj, h, f, 4, True, TF32X3_FLOPS)[:2], lib_bwd),
+        ("#2", lambda: fm.flash_add_fwd_plain(e_row, e_col, v, adj),
+         lambda: fm.flash_add_fwd(e_row, e_col, v, adj),
+         attention_bound(1, adj, h, f, add_bytes(B, h, P, f, 4)[0], TF32X3_FLOPS)[:2],
+         alib_fwd),
+        ("#4", lambda: fm.flash_add_bwd_plain(e_row, e_col, v, adj, None, alse, do,
+                                              fm.bwd_delta(do, aout)),
+         lambda: fm.flash_add_bwd(e_row, e_col, v, adj, None, aout, alse, do),
+         attention_bound(2, adj, h, f, add_bytes(B, h, P, f, 4)[1], TF32X3_FLOPS)[:2],
+         alib_bwd),
+    ]
+    for name, plain_fn, kernel_fn, (bound_ms, bound_by), lib_ms in cases:
+        ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
+        print(f"  {name} at {WIDE_TABLE}, fp32 ({smi}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; peak "
+              f"{peak_name(TF32X3_FLOPS)}), SDPA {lib_ms:.4f} ms")
+    print("  (SDPA: #1, #3 with the boolean mask, backward timed as (fwd+bwd) - fwd; #2, #4 "
+          "with q = k = 0 of width 8 and the masked leaky scores as a float mask, backward to "
+          "the mask and v; the backward times include delta = rowsum(dO * out))")
+    del q, k, v, adj, do, out, lse, aout, alse, qg, kg, vg, mask_g, vg2, cases
+
+    # #1 to #6 at precision="default" against their TF32-rounded plain
+    # versions at the table's shape, timed against "highest"; "highest"
+    # bitwise equal to the default precision of fp32 inputs
+    B, h, P, f = MAIN_SHAPE
+    q, k, v, adj, _ = (torch.from_numpy(a).cuda()
+                       for a in attention_inputs(np.random.default_rng(62), B, h, P, f))
+    rng = np.random.default_rng(63)
+    t = lambda *shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s)
+                                               .astype(np.float32)).cuda()
+    do, e_row, e_col = t(B, P, h, f), t(B, P, h), t(B, P, h)
+    x, bias = t(B, P, f), [t(h, f, s=0.1) for _ in range(3)]
+    ws = [t(h, f, f, s=f ** -0.5) for _ in range(3)]
+    lse = {p: fm.flash_mask_fwd(q, k, v, adj, want_lse=True, precision=p)
+           for p in fm.PRECISIONS}
+    alse = {p: fm.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, precision=p)
+            for p in fm.PRECISIONS}
+    calls = {  # name: (kernel(precision), plain(precision))
+        "#1": (lambda p: fm.flash_mask_fwd(q, k, v, adj, precision=p)[0],
+               lambda p: fm.flash_mask_fwd_plain(q, k, v, adj, precision=p)[0]),
+        "#3": (lambda p: fm.flash_mask_bwd(q, k, v, adj, None, *lse[p or "highest"], do,
+                                           precision=p),
+               lambda p: fm.flash_mask_bwd_plain(q, k, v, adj, None, lse[p][1], do,
+                                                 fm.bwd_delta(do, lse[p][0]), precision=p)),
+        "#2": (lambda p: fm.flash_add_fwd(e_row, e_col, v, adj, precision=p)[0],
+               lambda p: fm.flash_add_fwd_plain(e_row, e_col, v, adj, precision=p)[0]),
+        "#4": (lambda p: fm.flash_add_bwd(e_row, e_col, v, adj, None, *alse[p or "highest"],
+                                          do, precision=p),
+               lambda p: fm.flash_add_bwd_plain(e_row, e_col, v, adj, None, alse[p][1], do,
+                                                fm.bwd_delta(do, alse[p][0]), precision=p)),
+        "#5": (lambda p: fm.flash_layer_dot_fwd(x, ws[0], bias[0], ws[1], bias[1], ws[2],
+                                                bias[2], adj, scale=f ** -0.5, precision=p),
+               lambda p: fm.flash_layer_dot_fwd_plain(x, ws[0], bias[0], ws[1], bias[1], ws[2],
+                                                      bias[2], adj, scale=f ** -0.5,
+                                                      precision=p)),
+        "#6": (lambda p: fm.flash_layer_add_fwd(x, ws[0], bias[0], bias[1], bias[2], adj,
+                                                seed=DROP_SEED, rate=0.4, precision=p),
+               lambda p: fm.flash_layer_add_fwd_plain(x, ws[0], bias[0], bias[1], bias[2], adj,
+                                                      seed=DROP_SEED, rate=0.4, precision=p)),
+    }
+    tuple_of = lambda r: r if isinstance(r, tuple) else (r,)
+    for name, (kernel_fn, plain_fn) in calls.items():
+        got, want = tuple_of(kernel_fn("default")), tuple_of(plain_fn("default"))
+        torch.cuda.synchronize()
+        errs = [max_err(g, w, tf32_tol(w)) / float(w.abs().max()) for g, w in zip(got, want)]
+        if not all(torch.equal(a, b) for a, b in zip(tuple_of(kernel_fn("highest")),
+                                                     tuple_of(kernel_fn(None)))):
+            raise AssertionError(f"{name}: precision='highest' differs from None on fp32")
+        one, three = in_turns(benchmark, lambda: kernel_fn("highest"),
+                              lambda: kernel_fn("default"), names=("highest", "default"))
+        print(f"  {name} at {MAIN_SHAPE} (din {f}), fp32 ({smi}): 'default' against its "
+              f"TF32-rounded plain version within {max(errs):.2e} of the largest element (bar "
+              f"a TF32 step, {TF32_STEP:.3g}); 'highest' bitwise no precision; 'default' "
+              f"{one:.4f} ms, 'highest' {three:.4f} ms")
 
 
 def phase_done(name: str) -> None:
@@ -2270,6 +2620,10 @@ def main() -> int:
     # 25. the multi-GPU layer (item 10b)
     dist_phase(smi)
     phase_done("25 multi-GPU layer")
+
+    # 26. head dims past 256 (#1 to #4) and the precision switch (#1 to #6)
+    wide_phase(smi)
+    phase_done("26 wide heads and precision")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

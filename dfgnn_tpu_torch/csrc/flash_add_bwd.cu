@@ -16,9 +16,10 @@
 //   dv   = round_to<T>(p * keep)^T . dO
 // e_row, e_col and the sums d e_row, d e_col are fp32 whatever v's type, as
 // the Pallas kernel reads the scalars; v, dO and dv are fp32 or bf16, any f
-// from 1 to 256 (tiles zero past f up to the instantiated width 32, 64, 128
-// or 256), P <= 2048.  keep is regenerated from the seed with the hash of
-// flash_common.cuh, bitwise the forward's.
+// >= 1 (tiles zero past f up to the instantiated width 32, 64, 128 or 256),
+// P <= 2048.  keep is regenerated from the seed with the hash of
+// flash_common.cuh, bitwise the forward's.  fp32 products as 3xTF32, or one
+// TF32 pass with `one` (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs two
 // products, dO . v^T and p^T . dO, only on the edges: 4*f operations per
@@ -52,9 +53,15 @@
 //   edge into the block's keys is neither loaded nor computed, a key group
 //   with no edge in a tile is skipped by its warp, and keys without an edge
 //   get dv = 0, d e_col = 0; a block without an edge writes zeros.
+// - Wide heads (f > 256): a grid axis over chunks of 256 columns, the block
+//   of chunk c writing dv's columns [256 c, 256 c + 256) (chunk 0's blocks
+//   also d e_row and d e_col).  Per row tile it sums dp over every chunk,
+//   staging V's and dO's columns of each through the FI = 256 buffers, its
+//   own chunk last, so that dO of its dv columns is in place for pn^T . dO:
+//   the block and its per-row state do not grow, and each chunk re-forms p.
 // Shared memory at f = 128 in fp32: V 67.6 KB, the dO ring 16.9 KB, the pn
 // tile 8.4 KB, adj's edge bits 16 B a row (2 KB at P = 128): 97 KB, two
-// blocks an SM; at f = 256, P = 2048: 208 KB.
+// blocks an SM; at f = 256 (and past it), P = 2048: 208 KB.
 
 #include "flash_mma.cuh"
 
@@ -93,7 +100,7 @@ __device__ __forceinline__ float entry_dpre(float dp, float pre, float lse, floa
   return pre >= 0.f ? ds : ds * slope;
 }
 
-template <typename T, int FI>
+template <typename T, int FI, bool ONE>
 __global__ void __launch_bounds__(kThreads, FI <= 128 ? 2 : 1)
 flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ e_col,
                      const T* __restrict__ v, const uint8_t* __restrict__ adj,
@@ -129,6 +136,13 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
   const int n_rt = (P + kRT - 1) / kRT;
   // d e_row, or this key block's share of it
   float* rows_out = n_kb == 1 ? der : der_part + long(kb) * B * P * H;
+  // wide heads: blockIdx.y is the block's chunk of FI columns of dv, fw its
+  // width; chunk 0's blocks write the scalars' gradients
+  constexpr bool kWide = FI == 256;
+  const int nc = kWide ? (f + FI - 1) / FI : 1;
+  const int col0 = int(blockIdx.y) * FI, fw = min(FI, f - col0);
+  const long obase = base + col0;
+  const bool scalars = col0 == 0;
 
   for (int i = tid; i < n_rt; i += kThreads) flags[i] = 0u;
   for (int i = tid; i < P * kKeyGroups; i += kThreads) rbits[i] = 0;
@@ -146,32 +160,39 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
   for (int i = 0; i < n_rt; ++i) colmask |= flags[i];
 
   // rows without an edge into the block's keys sum to 0
-  for (int r = tid; r < P; r += kThreads)
+  for (int r = tid; r < P && scalars; r += kThreads)
     if (flags[r / kRT] == 0u) rows_out[sbase + long(r) * H] = 0.f;
   if (colmask == 0u) {
-    for (int i = tid; i < kKeys * f; i += kThreads) {
-      const int key = c0 + i / f;
+    for (int i = tid; i < kKeys * fw; i += kThreads) {
+      const int key = c0 + i / fw;
       if (key >= P) continue;
-      dv[base + long(key) * row_stride + i % f] = from_f32<T>(0.f);
-      if (i % f == 0) dec[sbase + long(key) * H] = 0.f;
+      dv[obase + long(key) * row_stride + i % fw] = from_f32<T>(0.f);
+      if (scalars && i % fw == 0) dec[sbase + long(key) * H] = 0.f;
     }
     return;
   }
 
   const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
   auto next_live = [&](int i) {
     while (i < n_rt && flags[i] == 0u) ++i;
     return i;
   };
-  auto stage_tile = [&](int i, int st) {
-    stage_rows<T, FI>(dout, base, row_stride, i * kRT, kRT, P, f, vec, 1u,
+  // dO of row tile i, columns [cb - base, + fc), into ring slot st
+  auto stage_tile = [&](int i, int st, long cb, int fc) {
+    stage_rows<T, FI>(dout, cb, row_stride, i * kRT, kRT, P, fc, vec, 1u,
                       dr + size_t(st) * kRT * C::ld, C::ld, tid, kThreads);
   };
-  stage_rows<T, FI>(v, base, row_stride, c0, kKeys, P, f, vec, colmask, vs, C::ld, tid,
-                    kThreads);
+  // V of the block's keys, the same columns
+  auto stage_v = [&](long cb, int fc) {
+    stage_rows<T, FI>(v, cb, row_stride, c0, kKeys, P, fc, vec, colmask, vs, C::ld, tid,
+                      kThreads);
+  };
   int i = next_live(0);
-  stage_tile(i, 0);
+  if (nc == 1) {
+    stage_v(base, f);
+    stage_tile(i, 0, base, f);
+  }
   cp_async_commit();
 
   float dva[NTO][4];
@@ -181,19 +202,39 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
   int st = 0;
   while (i < n_rt) {
     const int in = next_live(i + 1);
-    if (in < n_rt) stage_tile(in, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
     const bool mine = (flags[i] >> warp) & 1u;
     const T* dt = dr + size_t(st) * kRT * C::ld;
+    float dp[2][4];
+    zero_acc(dp);
+    if (nc > 1) {
+      // wide: dp summed over the chunks of FI columns, the block's own chunk
+      // last, so that dO of its dv columns is in place for pn^T . dO
+      for (int n = 1; n <= nc; ++n) {
+        const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
+        stage_v(base + long(cc) * FI, fc);
+        stage_tile(i, 0, base + long(cc) * FI, fc);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (mine)
+          for (int k0 = 0; k0 < fc; k0 += KS)
+            mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0,
+                                          0xffffffffu);
+        if (n < nc) __syncthreads();  // the buffers are free for the next chunk
+      }
+    } else {
+      if (in < n_rt) stage_tile(in, st ^ 1, base, f);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (mine)
+        for (int k0 = 0; k0 < kf; k0 += KS)
+          mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0,
+                                        0xffffffffu);
+    }
     const int row0 = i * kRT;
     float rs[2] = {0.f, 0.f};  // rows g and g + 8: the lane's share of the warp's row sums
     if (mine) {
-      float dp[2][4];
-      zero_acc(dp);
-      for (int k0 = 0; k0 < kf; k0 += KS)
-        mma_step<2, false, true>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0);
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
         const int rr = g + 8 * e2, row = row0 + rr;
@@ -223,7 +264,7 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
       __syncwarp();  // the warp's own pn columns are written
 #pragma unroll
       for (int k0 = 0; k0 < kRT; k0 += KS)
-        mma_step<NTO, true, false>(dva, pns + kw, C::ldd, dt, C::ld, k0, 0, fmask);
+        mma_step<NTO, true, false, ONE>(dva, pns + kw, C::ldd, dt, C::ld, k0, 0, fmask);
     }
 #pragma unroll
     for (int e2 = 0; e2 < 2; ++e2) {
@@ -232,14 +273,14 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
       if (t == 0) rsum[warp * kRT + g + 8 * e2] = rs[e2];
     }
     __syncthreads();  // the row sums are in; this ring slot and pn are free again
-    if (tid < kRT && row0 + tid < P) {
+    if (scalars && tid < kRT && row0 + tid < P) {
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += rsum[w * kRT + tid];
       rows_out[sbase + long(row0 + tid) * H] = s;
     }
     i = in;
-    st ^= 1;
+    if (nc == 1) st ^= 1;
   }
 
   // d e_col: the warp's keys summed over the quads' rows (lanes of one t)
@@ -252,7 +293,7 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
       s += __shfl_xor_sync(0xffffffffu, s, 8);
       s += __shfl_xor_sync(0xffffffffu, s, 16);
       const int key = c0 + kw + jj * 8 + 2 * t + e1;
-      if (g == 0 && key < P) dec[sbase + long(key) * H] = s;
+      if (scalars && g == 0 && key < P) dec[sbase + long(key) * H] = s;
     }
   // dv staged in the V rows (free after the last tile) and stored coalesced
 #pragma unroll
@@ -262,7 +303,7 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
       store_pair<T>(vs + size_t(kw + g + 8 * e2) * C::ld + jj * 8 + 2 * t, dva[jj][2 * e2],
                     dva[jj][2 * e2 + 1]);
   __syncthreads();
-  store_tile<T>(vs, C::ld, dv, base, row_stride, c0, kKeys, P, f, vec, tid, kThreads);
+  store_tile<T>(vs, C::ld, dv, obase, row_stride, c0, kKeys, P, fw, vec, tid, kThreads);
 }
 
 // d e_row = the key blocks' partial sums [n_kb][n], added in key-block order.
@@ -285,22 +326,25 @@ struct Args {
   int B, P, H, f;
   float slope;
   Dropout drop;
+  bool one;
   cudaStream_t stream;
 };
 
-template <typename T, int FI>
+template <typename T, int FI, bool ONE>
 cudaError_t launch_fi(const Args& a) {
   using C = BwdCfg<T, FI>;
   const size_t bytes = C::bytes(a.P);
   if (bytes > 232448) return cudaErrorInvalidValue;
-  auto kernel = flash_add_bwd_kernel<T, FI>;
+  auto kernel = flash_add_bwd_kernel<T, FI, ONE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
   const int n_kb = (a.P + kKeys - 1) / kKeys;
   const long n_blocks = long(a.B) * a.H * n_kb;
-  if (n_blocks > 0x7fffffffL || (n_kb > 1 && a.der_part == nullptr)) return cudaErrorInvalidValue;
-  kernel<<<unsigned(n_blocks), kThreads, bytes, a.stream>>>(
+  const int nc = (a.f + FI - 1) / FI;  // chunks of FI columns: 1 but for wide heads
+  if (n_blocks > 0x7fffffffL || nc > 65535 || (n_kb > 1 && a.der_part == nullptr))
+    return cudaErrorInvalidValue;
+  kernel<<<dim3(unsigned(n_blocks), unsigned(nc)), kThreads, bytes, a.stream>>>(
       a.e_row, a.e_col, static_cast<const T*>(a.v), a.adj, a.val, a.lse, a.delta,
       static_cast<const T*>(a.dout), a.der, a.der_part, a.dec, static_cast<T*>(a.dv), a.B, a.P,
       a.H, a.f, fill_bytes<T>(a.f), a.slope, a.drop);
@@ -312,12 +356,21 @@ cudaError_t launch_fi(const Args& a) {
   return cudaGetLastError();
 }
 
+// launch_fi with the products' precision: one TF32 pass only for fp32
+template <typename T, int FI>
+cudaError_t launch_prec(const Args& a) {
+  if constexpr (sizeof(T) == 4) {
+    if (a.one) return launch_fi<T, FI, true>(a);
+  }
+  return launch_fi<T, FI, false>(a);
+}
+
 template <typename T>
 cudaError_t dispatch_f(const Args& a) {
-  if (a.f <= 32) return launch_fi<T, 32>(a);
-  if (a.f <= 64) return launch_fi<T, 64>(a);
-  if (a.f <= 128) return launch_fi<T, 128>(a);
-  return launch_fi<T, 256>(a);
+  if (a.f <= 32) return launch_prec<T, 32>(a);
+  if (a.f <= 64) return launch_prec<T, 64>(a);
+  if (a.f <= 128) return launch_prec<T, 128>(a);
+  return launch_prec<T, 256>(a);
 }
 
 }  // namespace
@@ -325,24 +378,24 @@ cudaError_t dispatch_f(const Args& a) {
 extern "C" {
 
 // dtype (of v, dout and dv): 0 = fp32, 1 = bf16.  e_row, e_col, der, dec:
-// fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous, 1 <= F <=
-// 256; adj: [B, P, P] uint8, 1 <= P <= 2048; val: [B, P, P] fp32 or null;
-// lse, delta: [H, B, P] fp32; der_part: fp32 scratch of ceil(P / 128) * B * P
-// * H floats when P > 128 (null otherwise).  drop, seed, threshold and scale
-// as dfgnn_flash_add_fwd's.  Launches one kernel (two when P > 128) on
-// `stream`, allocates nothing, and returns the first CUDA error (0 when all
-// launched).
+// fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous, F >= 1;
+// adj: [B, P, P] uint8, 1 <= P <= 2048; val: [B, P, P] fp32 or null; lse,
+// delta: [H, B, P] fp32; der_part: fp32 scratch of ceil(P / 128) * B * P * H
+// floats when P > 128 (null otherwise).  drop, seed, threshold, scale and
+// one_pass as dfgnn_flash_add_fwd's.  Launches one kernel (two when P > 128)
+// on `stream`, allocates nothing, and returns the first CUDA error (0 when
+// all launched).
 int dfgnn_flash_add_bwd(int dtype, const void* e_row, const void* e_col, const void* v,
                         const void* adj, const void* val, const void* lse, const void* delta,
                         const void* dout, void* der, void* der_part, void* dec, void* dv, int B,
                         int P, int H, int F, float slope, int drop, unsigned seed,
-                        unsigned threshold, float scale, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1 || F > 256) return int(cudaErrorInvalidValue);
+                        unsigned threshold, float scale, int one_pass, void* stream) {
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1) return int(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(e_row), static_cast<const float*>(e_col), v, dout,
                static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<float*>(der), static_cast<float*>(der_part), static_cast<float*>(dec),
-               dv, B, P, H, F, slope, Dropout{drop != 0, seed, threshold, scale},
+               dv, B, P, H, F, slope, Dropout{drop != 0, seed, threshold, scale}, one_pass != 0,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return int(dispatch_f<float>(a));
   if (dtype == 1) return int(dispatch_f<__nv_bfloat16>(a));

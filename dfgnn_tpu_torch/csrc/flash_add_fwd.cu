@@ -15,8 +15,9 @@
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the dropout factor of flash_common.cuh (1 without dropout): l sums
 // the undropped ex and lse does not see dropout, as in the Pallas kernel.
-// fp32 or bf16 v and out, any head dim f from 1 to 256; fp32 softmax and
-// sums.
+// fp32 or bf16 v and out, any head dim f >= 1 (past 256 in chunks of 256,
+// flash_fwd.cuh); fp32 softmax and sums; ex . v in fp32 as 3xTF32, or one
+// TF32 pass (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs one
 // product, ex . v, only on the edges: 2*f operations per edge and head.  At
@@ -43,24 +44,27 @@
 extern "C" {
 
 // dtype (of v and out): 0 = fp32, 1 = bf16.  e_row, e_col: fp32 [B, P, H]
-// contiguous; v, out: [B, P, H, F] contiguous, 1 <= F <= 256; adj:
-// [B, P, P] uint8; val: [B, P, P] fp32 or null; lse: [H, B, P] fp32 or
-// null.  drop != 0 applies dropout with the hash's seed and threshold and
-// the fp32 scale 1 / (1 - rate).  Launches on `stream`, allocates nothing,
-// and returns cudaGetLastError().
+// contiguous; v, out: [B, P, H, F] contiguous, F >= 1; adj: [B, P, P]
+// uint8; val: [B, P, P] fp32 or null; lse: [H, B, P] fp32 or null.  drop != 0
+// applies dropout with the hash's seed and threshold and the fp32 scale
+// 1 / (1 - rate); one_pass != 0 runs fp32 products as one TF32 pass.
+// Launches on `stream`, allocates nothing, and returns cudaGetLastError().
 int dfgnn_flash_add_fwd(int dtype, const void* e_row, const void* e_col, const void* v,
                         const void* adj, const void* val, void* out, void* lse, int B, int P,
                         int H, int F, float slope, int drop, unsigned seed, unsigned threshold,
-                        float scale, void* stream) {
+                        float scale, int one_pass, void* stream) {
   const AddScore sc{static_cast<const float*>(e_row), static_cast<const float*>(e_col), slope};
   const auto* a = static_cast<const uint8_t*>(adj);
   const auto* ev = static_cast<const float*>(val);
   auto* l = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   const Dropout dr{drop != 0, seed, threshold, scale};
-  if (dtype == 0) return int(flash_fwd<AddScore, float>(sc, v, a, ev, out, l, B, P, H, F, dr, s));
+  if (dtype == 0)
+    return int(flash_fwd<AddScore, float>(sc, v, a, ev, out, l, B, P, H, F, dr, one_pass != 0,
+                                          s));
   if (dtype == 1)
-    return int(flash_fwd<AddScore, __nv_bfloat16>(sc, v, a, ev, out, l, B, P, H, F, dr, s));
+    return int(flash_fwd<AddScore, __nv_bfloat16>(sc, v, a, ev, out, l, B, P, H, F, dr, false,
+                                                  s));
   return int(cudaErrorInvalidValue);
 }
 

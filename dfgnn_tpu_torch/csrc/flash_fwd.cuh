@@ -11,10 +11,18 @@
 //   out = (round_to<T>(ex * keep) . v) * (l > 0 ? 1 / l : 0)
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the edge-hash dropout factor of flash_common.cuh (1 without
-// dropout).  v and out keep the JAX layout [B, P, h, f], any f from 1 to
-// 256: the staged tiles are zero past f up to the instantiated width FI (32,
-// 64, 128 or 256), which adds only 0 * 0 terms, and only f columns are
-// stored.  fp32 or bf16 v; fp32 softmax and sums.
+// dropout).  v and out keep the JAX layout [B, P, h, f], any f >= 1 for #1
+// and #2 (1 to 256 for #5 and #6): the staged tiles are zero past f up to the
+// instantiated width FI (32, 64, 128 or 256), which adds only 0 * 0 terms,
+// and only f columns are stored.  Past 256 the head dim goes in chunks of
+// FI = 256 columns (the last zero past f): a grid axis over the chunks, the
+// block of chunk c writing out's columns [256 c, 256 c + 256) (chunk 0's
+// blocks also lse), the dot score's q . k^T summed over every chunk, each
+// staged through the same Q rows and K tile, so shared memory stays that of
+// FI = 256.  Every chunk re-forms the scores, and the dropout keep factor,
+// a hash of global ids, is the same in each.  fp32 or bf16 v; fp32 softmax
+// and sums; fp32 products as 3xTF32, or one TF32 pass with `one`
+// (precision "default").
 //
 // The score policies:
 // - DotScore (#1): s = q . k^T, q pre-scaled, q and k of v's type and shape.
@@ -81,7 +89,7 @@
 //     every output column.  Dot fp32 at FI = 128: 189 KB; at FI = 256: 211
 //     KB.  Add fp32 at FI = 128: 110 KB.
 // - Outputs leave through shared memory, 16 bytes a thread.
-// - The supported set: P <= 2048, f <= 256.
+// - The supported set: P <= 2048; any f for #1 and #2, f <= 256 for #5, #6.
 #pragma once
 
 #include <type_traits>
@@ -170,7 +178,7 @@ struct FwdCfg {
       sizeof(uint16_t) * kBitWords + sizeof(float) * kLRows;
 };
 
-template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
+template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE, bool ONE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ adj,
                  const float* __restrict__ val, T* __restrict__ out, float* __restrict__ lse,
@@ -209,6 +217,15 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const int n_tiles = (P + KT - 1) / KT;
   const int n_groups = (P + kGroup - 1) / kGroup;
+  // wide heads (#1 and #2 past f = FI, the stream block): blockIdx.y is the
+  // block's chunk of FI columns of v and out, fv its width; chunk 0's blocks
+  // write lse
+  constexpr bool kWide = !WHOLE && !C::kProject;
+  const int nc = kWide ? (f + FI - 1) / FI : 1;
+  const int col0 = kWide ? int(blockIdx.y) * FI : 0;
+  const int fv = kWide ? min(FI, f - col0) : f;
+  const long vbase = base + col0;
+  if (col0 != 0) lse = nullptr;
 
   if constexpr (!kDot && !C::kProject)
     for (int c = tid; c < P; c += C::kThreads) ecs[c] = sc.e_col[sbase + long(c) * H];
@@ -237,9 +254,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     wlive[tid] = m != 0u;
   }
   if (!__syncthreads_or(any)) {  // no edge in the block's rows: out = 0, lse = -1e30
-    for (int i = tid; i < C::kRows * f; i += C::kThreads) {
-      const int r = r0 + i / f;
-      if (r < P) out[base + long(r) * row_stride + i % f] = from_f32<T>(0.f);
+    for (int i = tid; i < C::kRows * fv; i += C::kThreads) {
+      const int r = r0 + i / fv;
+      if (r < P) out[vbase + long(r) * row_stride + i % fv] = from_f32<T>(0.f);
     }
     if (lse != nullptr)
       for (int r = r0 + tid; r < min(P, r0 + C::kRows); r += C::kThreads)
@@ -259,7 +276,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       const long wbase = long(hh) * sc.din * f;
       const T* w = which == 0 ? sc.wq : which == 1 ? sc.wk : sc.wv;
       const float* bias = (which == 0 ? sc.bq : which == 1 ? sc.bk : sc.bv) + long(hh) * f;
-      project_tile<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK>(
+      project_tile<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK, ONE>(
           sc.x, long(b) * P * sc.din, sc.din, sc.xvec, w + wbase, f, vec, bias,
           which == 0 ? sc.scale : 1.f, n0, P, live, dst, ld, pxs, pws, tid);
     }
@@ -270,15 +287,16 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
                        float* ecol) {
     if constexpr (C::kProject && !kDot) {
       const long hf = long(hh) * f;
-      project_tile_scores<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK>(
+      project_tile_scores<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK, ONE>(
           sc.x, long(b) * P * sc.din, sc.din, sc.xvec, sc.w + hf * sc.din, f, vec,
           sc.bias + hf, sc.a_l + hf, sc.a_r + hf, n0, P, live, dst, ld, pxs, pws, erow, ecol,
           tid);
     }
   };
   using KRows = std::integral_constant<int, KT>;
-  // dot: K, and V too unless whole; add: V; layer add: z as V and its e_col
-  // (whole: every node live as a row or a key, with e_row too)
+  // dot: K (wide: staged chunk by chunk with Q, stage_qk), and V too unless
+  // whole; add: V; layer add: z as V and its e_col (whole: every node live
+  // as a row or a key, with e_row too)
   auto stage_kv = [&](int j, int st, bool with_v) {
     if constexpr (C::kProject && !kDot) {
       project_z(KRows{}, j * KT, WHOLE ? tmask[j] | qlive : tmask[j], vs, C::ldv,
@@ -287,11 +305,13 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk);
       if (with_v) project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv);
     } else {
-      if constexpr (kDot)
-        stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
-                          ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
+      if constexpr (kDot) {
+        if (nc == 1)
+          stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+                            ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
+      }
       if (with_v || !kDot)
-        stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+        stage_rows<T, FI>(v, vbase, row_stride, j * KT, KT, P, fv, vec, tmask[j],
                           vs + size_t(st) * KT * C::ldv, C::ldv, tid, C::kThreads);
     }
   };
@@ -300,7 +320,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const int row_w = r0 + warp * 16;  // the warp's first query row
   const int kf = (f + KS - 1) / KS * KS;  // dot: depth of q . k^T past which q, k are 0
   const uint32_t fmask = (NTO >= 32 ? 0xffffffffu : (1u << NTO) - 1u) &
-                         ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+                         ((fv + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fv + 7) / 8)) - 1u);
   // ex . v: a warp of the stream block owns its 16 rows and every output
   // column; in the whole block, the warp pair (2p, 2p + 1) shares its 32 rows
   // and warp 2p + c owns output columns [c FI / 2, (c + 1) FI / 2) of both
@@ -329,9 +349,11 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     project(std::integral_constant<int, C::kRows>{}, 0, r0, qlive, qs, C::ldq);
   else if constexpr (C::kProject && !WHOLE)
     project_z(std::integral_constant<int, C::kRows>{}, r0, qlive, qs, C::ldq, ers, nullptr);
-  else if constexpr (kDot)
-    stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq, tid,
-                      C::kThreads);
+  else if constexpr (kDot) {
+    if (nc == 1)
+      stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq,
+                        tid, C::kThreads);
+  }
   int j = next_live(0);
   stage_kv(j, 0, !WHOLE);
   cp_async_commit();
@@ -361,13 +383,33 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     const T* vt = vs + size_t(st) * KT * C::ldv;
     T* qw = qs + size_t(warp) * 16 * C::ldq;
     T* pw = ps + size_t(warp) * 16 * C::ldp;
+    const uint32_t nm = ntile_mask(gm);
+    float s[NTS][4];
+    if constexpr (kDot) zero_acc(s);
+    if constexpr (kWide && kDot) {
+      // wide: q . k^T summed over the chunks of FI columns, each chunk's Q
+      // rows and K tile staged into the one Q buffer and this stage's K tile
+      for (int cc = 0; cc < (nc > 1 ? nc : 0); ++cc) {
+        const int fc = min(FI, f - cc * FI);
+        stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
+                          qs, C::ldq, tid, C::kThreads);
+        stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec, tmask[j],
+                          ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (gm != 0u)
+          for (int k0 = 0; k0 < fc; k0 += KS)
+            mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
+        __syncthreads();  // the Q rows and the K tile are free again
+      }
+    }
     if (gm != 0u) {
-      float s[NTS][4];
-      if constexpr (kDot) zero_acc(s);
-      const uint32_t nm = ntile_mask(gm);
-      if constexpr (kDot)
-        for (int k0 = 0; k0 < kf; k0 += KS)
-          mma_step<NTS, false, true>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
+      if constexpr (kDot) {
+        if (nc == 1)
+          for (int k0 = 0; k0 < kf; k0 += KS)
+            mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
+      }
       // score, mask, scale by val, running max of rows g and g + 8.  Whole: the
       // block's one tile starts at key 0, and rows g and g + 8 keep their
       // edge bits in registers, 32 keys a word (rows and keys past P have
@@ -485,7 +527,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         if (mts == 0u) continue;
 #pragma unroll
         for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-          mma_step2<NTW>(o, pp, C::ldp, vt, C::ldv, k0, half * (FI / 2), hmask, mts);
+          mma_step2<NTW, ONE>(o, pp, C::ldp, vt, C::ldv, k0, half * (FI / 2), hmask, mts);
       }
     } else if (gm != 0u) {
 #pragma unroll 1
@@ -493,7 +535,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         if (!((gm >> gi) & 1u)) continue;
 #pragma unroll
         for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-          mma_step<NTO, false, false>(o[0], pw, C::ldp, vt, C::ldv, k0, 0, fmask);
+          mma_step<NTO, false, false, ONE>(o[0], pw, C::ldp, vt, C::ldv, k0, 0, fmask);
       }
     }
     __syncthreads();  // this stage's K, V and the ex tiles are free again
@@ -546,53 +588,71 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   } else {
     __syncwarp();
   }
-  store_tile<T>(qw, C::ldq, out, base, row_stride, row_w, 16, P, f, vec, lane, 32);
+  store_tile<T>(qw, C::ldq, out, vbase, row_stride, row_w, 16, P, fv, vec, lane, 32);
 }
 
-template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
-cudaError_t launch(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
-                   float* lse, int B, int P, int H, int f, Dropout drop, cudaStream_t stream) {
+template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE, bool ONE>
+cudaError_t launch_as(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
+                      float* lse, int B, int P, int H, int f, Dropout drop,
+                      cudaStream_t stream) {
   using C = FwdCfg<Score, T, FI, WARPS, KT, WHOLE>;
   static_assert(C::bytes <= 232448, "a block's shared memory must fit 227 KB");
-  auto kernel = flash_fwd_kernel<Score, T, FI, WARPS, KT, WHOLE>;
+  auto kernel = flash_fwd_kernel<Score, T, FI, WARPS, KT, WHOLE, ONE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::bytes));
   if (err != cudaSuccess) return err;
   const long n_blocks = long(B) * H * ((P + C::kRows - 1) / C::kRows);
-  if (n_blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  const int nc = (f + FI - 1) / FI;  // chunks of FI columns: 1 but for wide #1 and #2
+  if (n_blocks > 0x7fffffffL || nc > 65535 || ((WHOLE || C::kProject) && nc > 1))
+    return cudaErrorInvalidValue;
   const int vec = fill_bytes<T>(f);
-  kernel<<<unsigned(n_blocks), C::kThreads, C::bytes, stream>>>(
+  kernel<<<dim3(unsigned(n_blocks), unsigned(nc)), C::kThreads, C::bytes, stream>>>(
       sc, static_cast<const T*>(v), adj, val, static_cast<T*>(out), lse, B, P, H, f, vec, drop);
   return cudaGetLastError();
 }
 
+// launch_as with the products' precision: `one` (one TF32 pass) only for fp32
+template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
+cudaError_t launch(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
+                   float* lse, int B, int P, int H, int f, Dropout drop, bool one,
+                   cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (one)
+      return launch_as<Score, T, FI, WARPS, KT, WHOLE, true>(sc, v, adj, val, out, lse, B, P, H,
+                                                             f, drop, stream);
+  }
+  return launch_as<Score, T, FI, WARPS, KT, WHOLE, false>(sc, v, adj, val, out, lse, B, P, H, f,
+                                                          drop, stream);
+}
+
 template <typename Score, typename T, int FI>
 cudaError_t launch_fi(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
-                      float* lse, int B, int P, int H, int f, Dropout drop,
+                      float* lse, int B, int P, int H, int f, Dropout drop, bool one,
                       cudaStream_t stream) {
   if constexpr (FI <= 128) {
     if (P <= 128)
       return launch<Score, T, FI, 4, 128, true>(sc, v, adj, val, out, lse, B, P, H, f, drop,
-                                                stream);
+                                                one, stream);
   }
   constexpr int KT = FI == 256 ? 32 : 64;
-  return launch<Score, T, FI, 4, KT, false>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
+  return launch<Score, T, FI, 4, KT, false>(sc, v, adj, val, out, lse, B, P, H, f, drop, one,
+                                            stream);
 }
 
-// Checks the shape and launches the forward of score policy `sc` for v of
-// type T: 1 <= P <= kMaxP, 1 <= f <= 256.
+// Checks the shape and launches the forward of score policy `sc` (#1 or #2)
+// for v of type T: 1 <= P <= kMaxP, f >= 1 (past 256 in chunks of 256).
 template <typename Score, typename T>
 cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
-                      float* lse, int B, int P, int H, int f, Dropout drop,
+                      float* lse, int B, int P, int H, int f, Dropout drop, bool one,
                       cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || f > 256) return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1) return cudaErrorInvalidValue;
   if (f <= 32)
-    return launch_fi<Score, T, 32>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
+    return launch_fi<Score, T, 32>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
   if (f <= 64)
-    return launch_fi<Score, T, 64>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
+    return launch_fi<Score, T, 64>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
   if (f <= 128)
-    return launch_fi<Score, T, 128>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
-  return launch_fi<Score, T, 256>(sc, v, adj, val, out, lse, B, P, H, f, drop, stream);
+    return launch_fi<Score, T, 128>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
+  return launch_fi<Score, T, 256>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
 }
 
 // The whole-layer kernels #5 and #6 (policy LayerScore<T> or
@@ -603,29 +663,29 @@ cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* 
 // else 4 over 64, each projecting the live key tiles as it reaches them.
 template <typename Score, typename T, int FI>
 cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H,
-                         int f, Dropout drop, cudaStream_t stream) {
+                         int f, Dropout drop, bool one, cudaStream_t stream) {
   if constexpr (FI <= 128) {
     if (P <= 128)
       return launch<Score, T, FI, 8, 128, true>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
-                                                H, f, drop, stream);
+                                                H, f, drop, one, stream);
   }
   constexpr int KT = FI == 256 ? 32 : 64;
   constexpr int WARPS = FI == 64 || FI == 128 ? 8 : 4;
   return launch<Score, T, FI, WARPS, KT, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
-                                                H, f, drop, stream);
+                                                H, f, drop, one, stream);
 }
 
 // Checks the shape and launches a whole-layer kernel: 1 <= P <= kMaxP,
 // 1 <= f <= 256, din >= 1.
 template <typename Score, typename T>
 cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H, int f,
-                      Dropout drop, cudaStream_t stream) {
+                      Dropout drop, bool one, cudaStream_t stream) {
   if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || f > 256 || sc.din < 1)
     return cudaErrorInvalidValue;
-  if (f <= 32) return launch_layer<Score, T, 32>(sc, adj, out, B, P, H, f, drop, stream);
-  if (f <= 64) return launch_layer<Score, T, 64>(sc, adj, out, B, P, H, f, drop, stream);
-  if (f <= 128) return launch_layer<Score, T, 128>(sc, adj, out, B, P, H, f, drop, stream);
-  return launch_layer<Score, T, 256>(sc, adj, out, B, P, H, f, drop, stream);
+  if (f <= 32) return launch_layer<Score, T, 32>(sc, adj, out, B, P, H, f, drop, one, stream);
+  if (f <= 64) return launch_layer<Score, T, 64>(sc, adj, out, B, P, H, f, drop, one, stream);
+  if (f <= 128) return launch_layer<Score, T, 128>(sc, adj, out, B, P, H, f, drop, one, stream);
+  return launch_layer<Score, T, 256>(sc, adj, out, B, P, H, f, drop, one, stream);
 }
 
 }  // namespace

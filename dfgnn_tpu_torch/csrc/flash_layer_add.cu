@@ -16,7 +16,8 @@
 // (b * P + r, b * P + c, h); l sums the undropped ex.  out is [B, P, H, F] in
 // x's type.  No edge values and no lse, as in the Pallas kernel.  fp32 or
 // bf16, any P <= 2048, any F from 1 to 256 (tiles zero past F up to the
-// instantiated width 32, 64, 128 or 256), any din >= 1.
+// instantiated width 32, 64, 128 or 256), any din >= 1.  fp32 products as
+// 3xTF32, or one TF32 pass (precision "default"), the projection too.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the projection, 2 * din
 // * F operations per node and head, the two contractions, 2 * 2 * F, and
@@ -60,13 +61,14 @@ extern "C" {
 // dtype (of x, w and out): 0 = fp32, 1 = bf16.  x: [B, P, din] contiguous;
 // w: [H, din, F] contiguous; bias, a_l, a_r: fp32 [H, F]; adj: [B, P, P]
 // uint8; out: [B, P, H, F].  1 <= P <= 2048, 1 <= F <= 256, din >= 1.  drop,
-// seed, threshold and scale as dfgnn_flash_add_fwd's.  Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() (cudaErrorInvalidValue
-// outside that set).
+// seed, threshold, scale and one_pass as dfgnn_flash_add_fwd's.  Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError()
+// (cudaErrorInvalidValue outside that set).
 int dfgnn_flash_layer_add_fwd(int dtype, const void* x, const void* w, const void* bias,
                               const void* a_l, const void* a_r, const void* adj, void* out,
                               int B, int P, int H, int din, int F, float slope, int drop,
-                              unsigned seed, unsigned threshold, float scale, void* stream) {
+                              unsigned seed, unsigned threshold, float scale, int one_pass,
+                              void* stream) {
   const auto* a = static_cast<const uint8_t*>(adj);
   const auto* fb = static_cast<const float*>(bias);
   const auto* fl = static_cast<const float*>(a_l);
@@ -76,13 +78,14 @@ int dfgnn_flash_layer_add_fwd(int dtype, const void* x, const void* w, const voi
   if (dtype == 0) {
     const LayerAddScore<float> sc{static_cast<const float*>(x), static_cast<const float*>(w),
                                   fb, fl, fr, din, fill_bytes<float>(din), slope};
-    return int(layer_fwd<LayerAddScore<float>, float>(sc, a, out, B, P, H, F, dr, s));
+    return int(layer_fwd<LayerAddScore<float>, float>(sc, a, out, B, P, H, F, dr,
+                                                      one_pass != 0, s));
   }
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     const LayerAddScore<bf16> sc{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                                  fb, fl, fr, din, fill_bytes<bf16>(din), slope};
-    return int(layer_fwd<LayerAddScore<bf16>, bf16>(sc, a, out, B, P, H, F, dr, s));
+    return int(layer_fwd<LayerAddScore<bf16>, bf16>(sc, a, out, B, P, H, F, dr, false, s));
   }
   return int(cudaErrorInvalidValue);
 }

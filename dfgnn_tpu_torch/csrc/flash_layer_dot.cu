@@ -15,7 +15,8 @@
 // out is [B, P, H, f] in x's type (the node-major layout of kernel #1).  No
 // edge values, no dropout and no lse, as in the Pallas kernel.  fp32 or bf16,
 // any P <= 2048, any f from 1 to 256 (tiles zero past f up to the
-// instantiated width 32, 64, 128 or 256), any din >= 1.
+// instantiated width 32, 64, 128 or 256), any din >= 1.  fp32 products as
+// 3xTF32, or one TF32 pass (precision "default"), the projections too.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the three projections,
 // 3 * 2 * din * f operations per node and head, and the two attention
@@ -56,12 +57,13 @@ extern "C" {
 // dtype (of x, the weights and out): 0 = fp32, 1 = bf16.  x: [B, P, din]
 // contiguous; wq, wk, wv: [H, din, F] contiguous; bq, bk, bv: fp32 [H, F];
 // adj: [B, P, P] uint8; out: [B, P, H, F].  1 <= P <= 2048, 1 <= F <= 256,
-// din >= 1.  Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (cudaErrorInvalidValue outside that set).
+// din >= 1; one_pass != 0: fp32 products as one TF32 pass.  Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError()
+// (cudaErrorInvalidValue outside that set).
 int dfgnn_flash_layer_dot_fwd(int dtype, const void* x, const void* wq, const void* bq,
                               const void* wk, const void* bk, const void* wv, const void* bv,
                               const void* adj, void* out, int B, int P, int H, int din, int F,
-                              float scale, void* stream) {
+                              float scale, int one_pass, void* stream) {
   const auto* a = static_cast<const uint8_t*>(adj);
   const auto* fq = static_cast<const float*>(bq);
   const auto* fk = static_cast<const float*>(bk);
@@ -72,14 +74,15 @@ int dfgnn_flash_layer_dot_fwd(int dtype, const void* x, const void* wq, const vo
     const LayerScore<float> sc{static_cast<const float*>(x),  static_cast<const float*>(wq),
                                static_cast<const float*>(wk), static_cast<const float*>(wv),
                                fq, fk, fv, din, fill_bytes<float>(din), scale};
-    return int(layer_fwd<LayerScore<float>, float>(sc, a, out, B, P, H, F, no_drop, s));
+    return int(layer_fwd<LayerScore<float>, float>(sc, a, out, B, P, H, F, no_drop,
+                                                   one_pass != 0, s));
   }
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     const LayerScore<bf16> sc{static_cast<const bf16*>(x),  static_cast<const bf16*>(wq),
                               static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
                               fq, fk, fv, din, fill_bytes<bf16>(din), scale};
-    return int(layer_fwd<LayerScore<bf16>, bf16>(sc, a, out, B, P, H, F, no_drop, s));
+    return int(layer_fwd<LayerScore<bf16>, bf16>(sc, a, out, B, P, H, F, no_drop, false, s));
   }
   return int(cudaErrorInvalidValue);
 }

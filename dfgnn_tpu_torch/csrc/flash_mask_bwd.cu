@@ -14,8 +14,9 @@
 // ds and pn are rounded to the input type before the three products, as the
 // Pallas kernel casts them (.astype(k.dtype) / .astype(do.dtype)).  keep is
 // regenerated from the seed with the hash of flash_common.cuh, as kernel #4
-// does.  fp32 or bf16, layout [B, P, h, f] with any f from 1 to 256 (tiles
-// zero past f up to the instantiated width FI, as in flash_mask_fwd.cu).
+// does.  fp32 or bf16, layout [B, P, h, f] with any f >= 1 (tiles zero past
+// f up to the instantiated width FI, as in flash_mask_fwd.cu); fp32
+// products as 3xTF32, or one TF32 pass with `one` (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): at the table's shape
 // (B=1024, h=1, P=128, f=128, fp32) the bytes of q, k, v, out (for delta),
@@ -46,6 +47,14 @@
 //   Both rebuild s and dp: 7 products.  At FI = 256 the column pass runs
 //   twice, once for dk and once for dv, so each keeps one [16, 256]
 //   accumulator a warp in registers.
+// - wide heads (f > 256, the stream passes at FI = 256): a grid axis over
+//   chunks of 256 columns, the block of chunk c writing columns [256 c,
+//   256 c + 256) of dq (row pass) or of dk or dv (column passes).  Per tile
+//   it sums s and dp over every chunk, each staged through the FI = 256
+//   buffers (Q, dO and the K, V tile; K, V and the Q, dO tile), its own
+//   chunk last, so that the operands of its outputs' products are in place
+//   after the sum: shared memory stays that of FI = 256, and every chunk
+//   re-forms the scores.  No sums across blocks, so no atomics.
 // - Padding skipped, exactly, from adj itself (scan_adj): a 16-row query
 //   tile with no edge writes dq = 0 and is never loaded; a 16-key group with
 //   no edge in a tile is skipped by the warp that owns it, and keys with no
@@ -88,7 +97,7 @@ struct WholeCfg {
       sizeof(uint32_t) * 8 + sizeof(uint16_t) * kBitWords;
 };
 
-template <typename T, int FI>
+template <typename T, int FI, bool ONE>
 __global__ void __launch_bounds__(256)
 flash_mask_bwd_whole(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const uint8_t* __restrict__ adj, const float* __restrict__ val,
@@ -190,8 +199,10 @@ flash_mask_bwd_whole(const T* __restrict__ q, const T* __restrict__ k, const T* 
       zero_acc(s);
       zero_acc(dp);
       for (int k0 = 0; k0 < kf; k0 += KS) {
-        mma_step<2, false, true>(s, qt, C::ld, ks + size_t(key_w) * C::ld, C::ld, k0, 0);
-        mma_step<2, false, true>(dp, dt, C::ld, vs + size_t(key_w) * C::ld, C::ld, k0, 0);
+        mma_step<2, false, true, ONE>(s, qt, C::ld, ks + size_t(key_w) * C::ld, C::ld, k0, 0,
+                                      0xffffffffu);
+        mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(key_w) * C::ld, C::ld, k0, 0,
+                                      0xffffffffu);
       }
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
@@ -231,7 +242,7 @@ flash_mask_bwd_whole(const T* __restrict__ q, const T* __restrict__ k, const T* 
           if (!((gm >> gi) & 1u)) continue;
 #pragma unroll
           for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-            mma_step<NPW, false, false>(acc, dss, C::ldd, ks, C::ld, k0, n0);
+            mma_step<NPW, false, false, ONE>(acc, dss, C::ldd, ks, C::ld, k0, n0, 0xffffffffu);
         }
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
@@ -252,8 +263,8 @@ flash_mask_bwd_whole(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (mine) {
 #pragma unroll
       for (int k0 = 0; k0 < C::kRT; k0 += KS) {
-        mma_step<NTO, true, false>(dka, dss + key_w, C::ldd, qt, C::ld, k0, 0, fmask);
-        mma_step<NTO, true, false>(dva, pns + key_w, C::ldd, dt, C::ld, k0, 0, fmask);
+        mma_step<NTO, true, false, ONE>(dka, dss + key_w, C::ldd, qt, C::ld, k0, 0, fmask);
+        mma_step<NTO, true, false, ONE>(dva, pns + key_w, C::ldd, dt, C::ld, k0, 0, fmask);
       }
     }
     __syncthreads();  // ds, pn and this ring slot are free again
@@ -300,7 +311,7 @@ struct RowsCfg {
       sizeof(uint32_t) * (size_t(kWarps) * kMaxTiles + kMaxTiles + kWarps);
 };
 
-template <typename T, int FI, int KT>
+template <typename T, int FI, int KT, bool ONE>
 __global__ void __launch_bounds__(128)
 flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const uint8_t* __restrict__ adj, const float* __restrict__ val,
@@ -331,6 +342,12 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const long row_off = (long(hh) * B + b) * P;
   const int n_tiles = (P + KT - 1) / KT;
+  // wide heads: blockIdx.y is the block's chunk of FI columns of dq, fw its
+  // width
+  constexpr bool kWide = FI == 256;
+  const int nc = kWide ? (f + FI - 1) / FI : 1;
+  const int col0 = int(blockIdx.y) * FI, fw = min(FI, f - col0);
+  const long obase = base + col0;
 
   for (int i = tid; i < C::kWarps * n_tiles; i += C::kThreads) flags[i] = 0u;
   __syncthreads();
@@ -354,9 +371,9 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     wlive[tid] = m != 0u;
   }
   if (!__syncthreads_or(any)) {
-    for (int i = tid; i < C::kRows * f; i += C::kThreads) {
-      const int r = r0 + i / f;
-      if (r < P) dq[base + long(r) * row_stride + i % f] = from_f32<T>(0.f);
+    for (int i = tid; i < C::kRows * fw; i += C::kThreads) {
+      const int r = r0 + i / fw;
+      if (r < P) dq[obase + long(r) * row_stride + i % fw] = from_f32<T>(0.f);
     }
     return;
   }
@@ -366,23 +383,28 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     while (j < n_tiles && tmask[j] == 0u) ++j;
     return j;
   };
-  auto stage_kv = [&](int j, int st) {
-    stage_rows<T, FI>(k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+  // K and V of key tile j, columns [cb - base, + fc), into stage st
+  auto stage_kv = [&](int j, int st, long cb, int fc) {
+    stage_rows<T, FI>(k, cb, row_stride, j * KT, KT, P, fc, vec, tmask[j],
                       ks + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
-    stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+    stage_rows<T, FI>(v, cb, row_stride, j * KT, KT, P, fc, vec, tmask[j],
                       vs + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
   };
+  // the block's Q and dO rows, the same columns
+  auto stage_q = [&](long cb, int fc) {
+    stage_rows<T, FI>(q, cb, row_stride, r0, C::kRows, P, fc, vec, qlive, qs, C::ld, tid,
+                      C::kThreads);
+    stage_rows<T, FI>(dout, cb, row_stride, r0, C::kRows, P, fc, vec, qlive, dos, C::ld, tid,
+                      C::kThreads);
+  };
 
-  stage_rows<T, FI>(q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ld, tid,
-                    C::kThreads);
-  stage_rows<T, FI>(dout, base, row_stride, r0, C::kRows, P, f, vec, qlive, dos, C::ld, tid,
-                    C::kThreads);
+  if (nc == 1) stage_q(base, f);
   int j = next_live(0);
-  if (C::kStages == 2) stage_kv(j, 0);
+  if (C::kStages == 2) stage_kv(j, 0, base, f);
   cp_async_commit();
 
   const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
   const bool live_w = wlive[warp] != 0u;
   const int row_w = r0 + warp * 16;
   float lr[2], dl[2];
@@ -397,31 +419,51 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
   int st = 0;
   while (j < n_tiles) {
     const int jn = next_live(j + 1);
-    if (C::kStages == 2) {
-      if (jn < n_tiles) stage_kv(jn, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      stage_kv(j, 0);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
     const uint32_t gm = live_w ? flags[warp * n_tiles + j] : 0u;
-    if (gm != 0u) {
-      const T* kt = ks + size_t(st) * C::tile_elems;
-      const T* vt = vs + size_t(st) * C::tile_elems;
-      const T* qw = qs + size_t(warp) * 16 * C::ld;
-      const T* dw = dos + size_t(warp) * 16 * C::ld;
-      T* dsw = dss + size_t(warp) * 16 * C::ldd;
-      const uint32_t nm = ntile_mask(gm);
-      float s[NTS][4], dp[NTS][4];
-      zero_acc(s);
-      zero_acc(dp);
-      for (int k0 = 0; k0 < kf; k0 += KS) {
-        mma_step<NTS, false, true>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
-        mma_step<NTS, false, true>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
+    const T* kt = ks + size_t(st) * C::tile_elems;
+    const T* vt = vs + size_t(st) * C::tile_elems;
+    const T* qw = qs + size_t(warp) * 16 * C::ld;
+    const T* dw = dos + size_t(warp) * 16 * C::ld;
+    const uint32_t nm = ntile_mask(gm);
+    float s[NTS][4], dp[NTS][4];
+    zero_acc(s);
+    zero_acc(dp);
+    if (nc > 1) {
+      // wide: s and dp summed over the chunks of FI columns, the block's own
+      // chunk last, so that K of its dq columns is in place for ds . K
+      for (int n = 1; n <= nc; ++n) {
+        const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
+        stage_q(base + long(cc) * FI, fc);
+        stage_kv(j, 0, base + long(cc) * FI, fc);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (gm != 0u)
+          for (int k0 = 0; k0 < fc; k0 += KS) {
+            mma_step<NTS, false, true, ONE>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
+            mma_step<NTS, false, true, ONE>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
+          }
+        if (n < nc) __syncthreads();  // the buffers are free for the next chunk
       }
+    } else {
+      if (C::kStages == 2) {
+        if (jn < n_tiles) stage_kv(jn, st ^ 1, base, f);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        stage_kv(j, 0, base, f);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (gm != 0u)
+        for (int k0 = 0; k0 < kf; k0 += KS) {
+          mma_step<NTS, false, true, ONE>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
+          mma_step<NTS, false, true, ONE>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
+        }
+    }
+    if (gm != 0u) {
+      T* dsw = dss + size_t(warp) * 16 * C::ldd;
 #pragma unroll
       for (int jj = 0; jj < NTS; ++jj) {
 #pragma unroll
@@ -443,7 +485,7 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (!((gm >> gi) & 1u)) continue;
 #pragma unroll
         for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-          mma_step<NTO, false, false>(acc, dsw, C::ldd, kt, C::ld, k0, 0, fmask);
+          mma_step<NTO, false, false, ONE>(acc, dsw, C::ldd, kt, C::ld, k0, 0, fmask);
       }
     }
     __syncthreads();
@@ -462,7 +504,7 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   }
   __syncwarp();
-  store_tile<T>(qw, C::ld, dq, base, row_stride, row_w, 16, P, f, vec, lane, 32);
+  store_tile<T>(qw, C::ld, dq, obase, row_stride, row_w, 16, P, fw, vec, lane, 32);
 }
 
 // ---------------------------------------------------------------------------
@@ -485,7 +527,7 @@ struct ColsCfg {
       sizeof(uint32_t) * kMaxGroups;
 };
 
-template <typename T, int FI, bool DK, bool DV>
+template <typename T, int FI, bool DK, bool DV, bool ONE>
 __global__ void __launch_bounds__(128)
 flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const uint8_t* __restrict__ adj, const float* __restrict__ val,
@@ -517,6 +559,12 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const long row_off = (long(hh) * B + b) * P;
   const int n_rg = (P + kGroup - 1) / kGroup;
   const int n_qt = (P + C::kQT - 1) / C::kQT;
+  // wide heads: blockIdx.y is the block's chunk of FI columns of dk or dv,
+  // fw its width
+  constexpr bool kWide = FI == 256;
+  const int nc = kWide ? (f + FI - 1) / FI : 1;
+  const int col0 = int(blockIdx.y) * FI, fw = min(FI, f - col0);
+  const long obase = base + col0;
 
   for (int i = tid; i < n_rg; i += C::kThreads) flags[i] = 0u;
   __syncthreads();
@@ -536,10 +584,10 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
   __syncthreads();
   colmask = warp_cols[0] | warp_cols[1] | warp_cols[2] | warp_cols[3];
   if (colmask == 0u) {
-    for (int i = tid; i < C::kKeys * f; i += C::kThreads) {
-      const int key = c0 + i / f;
+    for (int i = tid; i < C::kKeys * fw; i += C::kThreads) {
+      const int key = c0 + i / fw;
       if (key >= P) continue;
-      const long e = base + long(key) * row_stride + i % f;
+      const long e = obase + long(key) * row_stride + i % fw;
       if (DK) dk[e] = from_f32<T>(0.f);
       if (DV) dv[e] = from_f32<T>(0.f);
     }
@@ -554,26 +602,31 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
     while (i < n_qt && tile_flags(i) == 0u) ++i;
     return i;
   };
-  auto stage_tile = [&](int i, int st) {
+  // Q and dO of query tile i, columns [cb - base, + fc), into stage st
+  auto stage_tile = [&](int i, int st, long cb, int fc) {
     const uint32_t rows_live = (flags[2 * i] ? 1u : 0u) |
                                (2 * i + 1 < n_rg && flags[2 * i + 1] ? 2u : 0u);
-    stage_rows<T, FI>(q, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
+    stage_rows<T, FI>(q, cb, row_stride, i * C::kQT, C::kQT, P, fc, vec, rows_live,
                       qr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
-    stage_rows<T, FI>(dout, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
+    stage_rows<T, FI>(dout, cb, row_stride, i * C::kQT, C::kQT, P, fc, vec, rows_live,
                       dr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
   };
-
-  stage_rows<T, FI>(k, base, row_stride, c0, C::kKeys, P, f, vec, colmask, ks, C::ld, tid,
-                    C::kThreads);
-  if (DK)
-    stage_rows<T, FI>(v, base, row_stride, c0, C::kKeys, P, f, vec, colmask, vs, C::ld, tid,
+  // the block's K (and, for dk, V) rows, the same columns
+  auto stage_keys = [&](long cb, int fc) {
+    stage_rows<T, FI>(k, cb, row_stride, c0, C::kKeys, P, fc, vec, colmask, ks, C::ld, tid,
                       C::kThreads);
+    if (DK)
+      stage_rows<T, FI>(v, cb, row_stride, c0, C::kKeys, P, fc, vec, colmask, vs, C::ld, tid,
+                        C::kThreads);
+  };
+
+  if (nc == 1) stage_keys(base, f);
   int i = next_live(0);
-  if (C::kStages == 2) stage_tile(i, 0);
+  if (C::kStages == 2) stage_tile(i, 0, base, f);
   cp_async_commit();
 
   const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
+  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
   const int key_w = warp * kGroup;  // the warp's first key, within the block
   float dka[NA][4], dva[NB][4];
   zero_acc(dka);
@@ -581,37 +634,55 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
   int st = 0;
   while (i < n_qt) {
     const int in = next_live(i + 1);
-    if (C::kStages == 2) {
-      if (in < n_qt) stage_tile(in, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      stage_tile(i, 0);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
     // the tile's 16-row groups in which the warp's keys have an edge
     const int rg = 2 * i;
     const uint32_t rmask = ((flags[rg] >> warp) & 1u) |
                            (rg + 1 < n_rg ? ((flags[rg + 1] >> warp) & 1u) << 1 : 0u);
+    const T* qt = qr + size_t(st) * C::tile_elems;
+    const T* dt = dr + size_t(st) * C::tile_elems;
+    const uint32_t nm = ntile_mask(rmask);
+    // s^T = K_w . Q^T and dp^T = V_w . dO^T: rows are keys, columns queries
+    float s[NTQ][4], dp[NTQ][4];
+    zero_acc(s);
+    zero_acc(dp);
+    auto scores = [&](int depth) {
+      for (int k0 = 0; k0 < depth; k0 += KS) {
+        mma_step<NTQ, false, true, ONE>(s, ks + size_t(key_w) * C::ld, C::ld, qt, C::ld, k0, 0,
+                                        nm);
+        if (DK)
+          mma_step<NTQ, false, true, ONE>(dp, vs + size_t(key_w) * C::ld, C::ld, dt, C::ld, k0,
+                                          0, nm);
+      }
+    };
+    if (nc > 1) {
+      // wide: s and dp summed over the chunks of FI columns, the block's own
+      // chunk last, so that Q and dO of its dk or dv columns are in place
+      for (int n = 1; n <= nc; ++n) {
+        const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
+        stage_keys(base + long(cc) * FI, fc);
+        stage_tile(i, 0, base + long(cc) * FI, fc);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (rmask != 0u) scores(fc);
+        if (n < nc) __syncthreads();  // the buffers are free for the next chunk
+      }
+    } else {
+      if (C::kStages == 2) {
+        if (in < n_qt) stage_tile(in, st ^ 1, base, f);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        stage_tile(i, 0, base, f);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (rmask != 0u) scores(kf);
+    }
     if (rmask != 0u) {
-      const T* qt = qr + size_t(st) * C::tile_elems;
-      const T* dt = dr + size_t(st) * C::tile_elems;
       T* dsw = dss + size_t(warp) * 16 * C::ldd;
       T* pnw = pns + size_t(warp) * 16 * C::ldd;
-      const uint32_t nm = ntile_mask(rmask);
-      // s^T = K_w . Q^T and dp^T = V_w . dO^T: rows are keys, columns queries
-      float s[NTQ][4], dp[NTQ][4];
-      zero_acc(s);
-      zero_acc(dp);
-      for (int k0 = 0; k0 < kf; k0 += KS) {
-        mma_step<NTQ, false, true>(s, ks + size_t(key_w) * C::ld, C::ld, qt, C::ld, k0, 0,
-                                         nm);
-        if (DK)
-          mma_step<NTQ, false, true>(dp, vs + size_t(key_w) * C::ld, C::ld, dt, C::ld, k0,
-                                           0, nm);
-      }
 #pragma unroll
       for (int jj = 0; jj < NTQ; ++jj) {
 #pragma unroll
@@ -635,8 +706,8 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (!((rmask >> gi) & 1u)) continue;
 #pragma unroll
         for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS) {
-          if (DK) mma_step<NA, false, false>(dka, dsw, C::ldd, qt, C::ld, k0, 0, fmask);
-          if (DV) mma_step<NB, false, false>(dva, pnw, C::ldd, dt, C::ld, k0, 0, fmask);
+          if (DK) mma_step<NA, false, false, ONE>(dka, dsw, C::ldd, qt, C::ld, k0, 0, fmask);
+          if (DV) mma_step<NB, false, false, ONE>(dva, pnw, C::ldd, dt, C::ld, k0, 0, fmask);
         }
       }
     }
@@ -660,8 +731,10 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   }
   __syncthreads();
-  if (DK) store_tile<T>(ks, C::ld, dk, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
-  if (DV) store_tile<T>(vs, C::ld, dv, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
+  if (DK)
+    store_tile<T>(ks, C::ld, dk, obase, row_stride, c0, C::kKeys, P, fw, vec, tid, C::kThreads);
+  if (DV)
+    store_tile<T>(vs, C::ld, dv, obase, row_stride, c0, C::kKeys, P, fw, vec, tid, C::kThreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -675,6 +748,7 @@ struct Args {
   void *dq, *dk, *dv;
   int B, P, H, f;
   Dropout drop;
+  bool one;
   cudaStream_t stream;
 };
 
@@ -684,7 +758,7 @@ cudaError_t prepare(KernelT kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-template <typename T, int FI>
+template <typename T, int FI, bool ONE>
 cudaError_t launch_fi(const Args& a) {
   const int vec = fill_bytes<T>(a.f);
   const T* q = static_cast<const T*>(a.q);
@@ -697,7 +771,7 @@ cudaError_t launch_fi(const Args& a) {
   if constexpr (FI <= 128) {
     if (a.P <= 128) {
       using C = WholeCfg<T, FI>;
-      auto kernel = flash_mask_bwd_whole<T, FI>;
+      auto kernel = flash_mask_bwd_whole<T, FI, ONE>;
       cudaError_t err = prepare(kernel, C::bytes);
       if (err != cudaSuccess) return err;
       const long n_blocks = long(a.B) * a.H;
@@ -713,36 +787,47 @@ cudaError_t launch_fi(const Args& a) {
   using CC = ColsCfg<T, FI>;
   const long blocks_r = long(a.B) * a.H * ((a.P + R::kRows - 1) / R::kRows);
   const long blocks_c = long(a.B) * a.H * ((a.P + CC::kKeys - 1) / CC::kKeys);
-  if (blocks_r > 0x7fffffffL || blocks_c > 0x7fffffffL) return cudaErrorInvalidValue;
-  auto rows = flash_mask_bwd_rows<T, FI, KT>;
+  const int nc = (a.f + FI - 1) / FI;  // chunks of FI columns: 1 but for wide heads
+  if (blocks_r > 0x7fffffffL || blocks_c > 0x7fffffffL || nc > 65535)
+    return cudaErrorInvalidValue;
+  auto rows = flash_mask_bwd_rows<T, FI, KT, ONE>;
   cudaError_t err = prepare(rows, R::bytes);
   if (err != cudaSuccess) return err;
-  rows<<<unsigned(blocks_r), R::kThreads, R::bytes, a.stream>>>(
+  rows<<<dim3(unsigned(blocks_r), unsigned(nc)), R::kThreads, R::bytes, a.stream>>>(
       q, k, v, a.adj, a.val, a.lse, a.delta, dout, dq, a.B, a.P, a.H, a.f, vec, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto run_cols = [&](auto kernel) {
     cudaError_t e = prepare(kernel, CC::bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<unsigned(blocks_c), CC::kThreads, CC::bytes, a.stream>>>(
+    kernel<<<dim3(unsigned(blocks_c), unsigned(nc)), CC::kThreads, CC::bytes, a.stream>>>(
         q, k, v, a.adj, a.val, a.lse, a.delta, dout, dk, dv, a.B, a.P, a.H, a.f, vec, a.drop);
     return cudaGetLastError();
   };
   if constexpr (FI == 256) {
-    err = run_cols(flash_mask_bwd_cols<T, FI, true, false>);
+    err = run_cols(flash_mask_bwd_cols<T, FI, true, false, ONE>);
     if (err != cudaSuccess) return err;
-    return run_cols(flash_mask_bwd_cols<T, FI, false, true>);
+    return run_cols(flash_mask_bwd_cols<T, FI, false, true, ONE>);
   } else {
-    return run_cols(flash_mask_bwd_cols<T, FI, true, true>);
+    return run_cols(flash_mask_bwd_cols<T, FI, true, true, ONE>);
   }
+}
+
+// launch_fi with the products' precision: one TF32 pass only for fp32
+template <typename T, int FI>
+cudaError_t launch_prec(const Args& a) {
+  if constexpr (sizeof(T) == 4) {
+    if (a.one) return launch_fi<T, FI, true>(a);
+  }
+  return launch_fi<T, FI, false>(a);
 }
 
 template <typename T>
 cudaError_t dispatch_f(const Args& a) {
-  if (a.f <= 32) return launch_fi<T, 32>(a);
-  if (a.f <= 64) return launch_fi<T, 64>(a);
-  if (a.f <= 128) return launch_fi<T, 128>(a);
-  return launch_fi<T, 256>(a);
+  if (a.f <= 32) return launch_prec<T, 32>(a);
+  if (a.f <= 64) return launch_prec<T, 64>(a);
+  if (a.f <= 128) return launch_prec<T, 128>(a);
+  return launch_prec<T, 256>(a);
 }
 
 }  // namespace
@@ -750,20 +835,21 @@ cudaError_t dispatch_f(const Args& a) {
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16.  q, k, v, dout, dq, dk, dv: [B, P, H, F]
-// contiguous, 1 <= F <= 256; adj: [B, P, P] uint8; val: [B, P, P] fp32 or
-// null; lse, delta: [H, B, P] fp32.  drop, seed, threshold, scale: the
-// forward's dropout.  Launches one kernel (P <= 128, F <= 128) or two (three
-// at F > 128) on `stream`, allocates nothing, and returns the first CUDA
-// error (0 when all launched).
+// contiguous, F >= 1; adj: [B, P, P] uint8; val: [B, P, P] fp32 or null;
+// lse, delta: [H, B, P] fp32.  drop, seed, threshold, scale: the forward's
+// dropout.  one_pass: fp32 products as one TF32 pass (precision "default"),
+// else 3xTF32.  Launches one kernel (P <= 128, F <= 128) or two (three at
+// F > 128) on `stream`, allocates nothing, and returns the first CUDA error
+// (0 when all launched).
 int dfgnn_flash_mask_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* adj, const void* val, const void* lse, const void* delta,
                          const void* dout, void* dq, void* dk, void* dv, int B, int P, int H,
                          int F, int drop, uint32_t seed, uint32_t threshold, float scale,
-                         void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1 || F > 256) return int(cudaErrorInvalidValue);
+                         int one_pass, void* stream) {
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
                static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
-               B, P, H, F, Dropout{drop != 0, seed, threshold, scale},
+               B, P, H, F, Dropout{drop != 0, seed, threshold, scale}, one_pass != 0,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return int(dispatch_f<float>(a));
   if (dtype == 1) return int(dispatch_f<__nv_bfloat16>(a));

@@ -12,9 +12,11 @@
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the edge-hash dropout factor of flash_common.cuh (1 without
 // dropout).  Inputs and the output keep the JAX layout [B, P, h, f], any f
-// from 1 to 256: the staged tiles are zero past f up to the instantiated
-// width FI (32, 64, 128 or 256), which adds only 0 * 0 terms, and only f
-// columns are stored.  fp32 or bf16 inputs; fp32 softmax and sums.
+// >= 1: the staged tiles are zero past f up to the instantiated width FI
+// (32, 64, 128 or 256), which adds only 0 * 0 terms, and only f columns are
+// stored; past 256 a grid axis takes the columns in chunks of 256
+// (flash_fwd.cuh).  fp32 or bf16 inputs; fp32 softmax and sums; fp32
+// products as 3xTF32, or one TF32 pass (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs its
 // two products only on the edges.  At the table's shape (B=1024, h=1, P=128,
@@ -32,15 +34,16 @@
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  q, k, v, out: [B, P, H, F] contiguous, 1 <= F
-// <= 256; adj: [B, P, P] uint8; val: [B, P, P] fp32 or null; lse: [H, B, P]
-// fp32 or null.  drop != 0 applies dropout with the hash's seed, its keep
-// threshold and the fp32 scale 1 / (1 - rate).  Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
+// dtype: 0 = fp32, 1 = bf16.  q, k, v, out: [B, P, H, F] contiguous, F >= 1;
+// adj: [B, P, P] uint8; val: [B, P, P] fp32 or null; lse: [H, B, P] fp32 or
+// null.  drop != 0 applies dropout with the hash's seed, its keep threshold
+// and the fp32 scale 1 / (1 - rate).  one_pass != 0 runs fp32 products as
+// one TF32 pass (precision "default"; bf16 ignores it).  Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError().
 int dfgnn_flash_mask_fwd(int dtype, const void* q, const void* k, const void* v,
                          const void* adj, const void* val, void* out, void* lse, int B, int P,
                          int H, int F, int drop, uint32_t seed, uint32_t threshold, float scale,
-                         void* stream) {
+                         int one_pass, void* stream) {
   const auto* a = static_cast<const uint8_t*>(adj);
   const auto* ev = static_cast<const float*>(val);
   auto* l = static_cast<float*>(lse);
@@ -48,12 +51,13 @@ int dfgnn_flash_mask_fwd(int dtype, const void* q, const void* k, const void* v,
   const Dropout d{drop != 0, seed, threshold, scale};
   if (dtype == 0) {
     const DotScore<float> sc{static_cast<const float*>(q), static_cast<const float*>(k)};
-    return int(flash_fwd<DotScore<float>, float>(sc, v, a, ev, out, l, B, P, H, F, d, s));
+    return int(flash_fwd<DotScore<float>, float>(sc, v, a, ev, out, l, B, P, H, F, d,
+                                                 one_pass != 0, s));
   }
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     const DotScore<bf16> sc{static_cast<const bf16*>(q), static_cast<const bf16*>(k)};
-    return int(flash_fwd<DotScore<bf16>, bf16>(sc, v, a, ev, out, l, B, P, H, F, d, s));
+    return int(flash_fwd<DotScore<bf16>, bf16>(sc, v, a, ev, out, l, B, P, H, F, d, false, s));
   }
   return int(cudaErrorInvalidValue);
 }

@@ -31,6 +31,14 @@
 // 22 bits of each product: rtol 1e-4 holds against fp32 on the CUDA cores.
 // The rounding is an integer add and a bitwise and on the ALUs, in place of
 // cvt.rna.tf32 on the conversion unit.
+// One pass (`one`, the wrappers' precision="default" on fp32 inputs, the
+// counterpart of one bf16 pass on the TPU's MXU): a_hi.b_hi alone,
+// accumulated straight into acc.  ONE is a template flag of the steps and of
+// the kernels, set only for fp32: as a runtime argument (a uniform branch
+// into a body of its own in each step) it left #3's 3xTF32 whole block
+// slower than before at the table's shape (PERF.md section 6), while the
+// template keeps the 3xTF32 kernels' code as it was, at the price of a
+// second fp32 instantiation of every kernel in the build.
 #pragma once
 
 #include "flash_common.cuh"
@@ -56,6 +64,8 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   hi = round_tf32(__float_as_uint(x));
   lo = round_tf32(__float_as_uint(x - __uint_as_float(hi)));
 }
+
+__device__ __forceinline__ uint32_t tf32_of(float x) { return round_tf32(__float_as_uint(x)); }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -111,17 +121,42 @@ __device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p, int ld, int r, 
 
 // acc[j] += A(rows 0..15, k0..k0+kstep) . B(k0.., n0 + 8j ..) for j < NT with
 // bit j of `nmask` set.  A points at the warp's 16 rows (element (0, 0)).
-// fp32 takes 3xTF32, and each k-step's three products sum into a fresh
+// fp32 takes 3xTF32 (one TF32 pass with ONE; bf16 ignores it), and each
+// k-step's three products sum into a fresh
 // accumulator that is then added to acc with an fp32 add: the tensor core's
 // own accumulation rounds coarser than an fp32 add, and here it sees only
 // one k-step's partial sum.  (Accumulating into acc directly left dq of the
 // backward several times further from an fp64 evaluation than cuBLAS's fp32
 // product, outside rtol 1e-4 in places; with the flush it is nearer than
 // cuBLAS's, as chip_smoke.py prints.)
+// mma_step's one TF32 pass (fp32 operands rounded to TF32, one mma).
 template <int NT, bool A_T, bool B_NM>
+__device__ __forceinline__ void mma_step_one(float (&acc)[NT][4], const float* A, int lda,
+                                             const float* Bm, int ldb, int k0, int n0,
+                                             uint32_t nmask) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t a0 = tf32_of(at<A_T>(A, lda, g, k0 + t));
+  const uint32_t a1 = tf32_of(at<A_T>(A, lda, g + 8, k0 + t));
+  const uint32_t a2 = tf32_of(at<A_T>(A, lda, g, k0 + t + 4));
+  const uint32_t a3 = tf32_of(at<A_T>(A, lda, g + 8, k0 + t + 4));
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (!((nmask >> j) & 1u)) continue;
+    const int n = n0 + 8 * j + g;
+    mma_tf32(acc[j], a0, a1, a2, a3,
+             tf32_of(B_NM ? Bm[n * ldb + k0 + t] : Bm[(k0 + t) * ldb + n]),
+             tf32_of(B_NM ? Bm[n * ldb + k0 + t + 4] : Bm[(k0 + t + 4) * ldb + n]));
+  }
+}
+
+template <int NT, bool A_T, bool B_NM, bool ONE>
 __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const float* A, int lda,
                                          const float* Bm, int ldb, int k0, int n0,
-                                         uint32_t nmask = 0xffffffffu) {
+                                         uint32_t nmask) {
+  if constexpr (ONE) {
+    mma_step_one<NT, A_T, B_NM>(acc, A, lda, Bm, ldb, k0, n0, nmask);
+    return;
+  }
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t ah[4], al[4];
   split_tf32(at<A_T>(A, lda, g, k0 + t), ah[0], al[0]);
@@ -144,10 +179,10 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const float* A, in
   }
 }
 
-template <int NT, bool A_T, bool B_NM>
+template <int NT, bool A_T, bool B_NM, bool ONE>
 __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const __nv_bfloat16* A, int lda,
                                          const __nv_bfloat16* Bm, int ldb, int k0, int n0,
-                                         uint32_t nmask = 0xffffffffu) {
+                                         uint32_t nmask) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t a0 = pair<A_T>(A, lda, g, k0 + 2 * t);
   const uint32_t a1 = pair<A_T>(A, lda, g + 8, k0 + 2 * t);
@@ -170,10 +205,42 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const __nv_bfloat1
 // A[m][k]) and j < NT with bit j of `nmask` set; B stored B[k][n].  Each B
 // fragment is loaded (and, fp32, split) once for both m-tiles; the products
 // are mma_step's.
+// mma_step2's one TF32 pass.
 template <int NT>
+__device__ __forceinline__ void mma_step2_one(float (&acc)[2][NT][4], const float* A, int lda,
+                                              const float* Bm, int ldb, int k0, int n0,
+                                              uint32_t nmask, uint32_t mts) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (!((mts >> mt) & 1u)) continue;
+    const float* Am = A + mt * 16 * lda;
+    a[mt][0] = tf32_of(Am[g * lda + k0 + t]);
+    a[mt][1] = tf32_of(Am[(g + 8) * lda + k0 + t]);
+    a[mt][2] = tf32_of(Am[g * lda + k0 + t + 4]);
+    a[mt][3] = tf32_of(Am[(g + 8) * lda + k0 + t + 4]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (!((nmask >> j) & 1u)) continue;
+    const int n = n0 + 8 * j + g;
+    const uint32_t b0 = tf32_of(Bm[(k0 + t) * ldb + n]);
+    const uint32_t b1 = tf32_of(Bm[(k0 + t + 4) * ldb + n]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if ((mts >> mt) & 1u) mma_tf32(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
+  }
+}
+
+template <int NT, bool ONE>
 __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A, int lda,
                                           const float* Bm, int ldb, int k0, int n0,
                                           uint32_t nmask, uint32_t mts) {
+  if constexpr (ONE) {
+    mma_step2_one<NT>(acc, A, lda, Bm, ldb, k0, n0, nmask, mts);
+    return;
+  }
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -205,7 +272,7 @@ __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A
   }
 }
 
-template <int NT>
+template <int NT, bool ONE>
 __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const __nv_bfloat16* A,
                                           int lda, const __nv_bfloat16* Bm, int ldb, int k0,
                                           int n0, uint32_t nmask, uint32_t mts) {
@@ -331,7 +398,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
 // 8]; W from L2, where every block reads it).  A warp owns a 32 x 8 NJ tile
 // of each pass of CW columns, the passes sized so that the WARPS warps cover
 // it once, and sums it with mma_step2 (3xTF32 in fp32: each k-step's
-// products summed apart).  Starts by writing the ring and ends after the
+// products summed apart; one TF32 pass with ONE).  Starts by writing the ring and ends after the
 // last chunk's barrier with the stores to dst, so the caller waits at a
 // barrier before reading dst.  xvec and wvec: the fill_bytes of din and f.
 // With SCORES (#6) it also forms, from the unrounded fp32 z, the row scalars
@@ -341,7 +408,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
 // that share a row, in warp order, through the ring (free once the last
 // chunk is consumed).  No atomics, so two launches agree bitwise; it ends
 // with a barrier, so the next call may refill the ring.
-template <typename T, int R, int NJ, int WARPS, int KC, bool SCORES>
+template <typename T, int R, int NJ, int WARPS, int KC, bool SCORES, bool ONE>
 __device__ __forceinline__ void project_tile_body(
     const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
     int wvec, const float* __restrict__ bias, float scale, int n0, int P, uint32_t live, T* dst,
@@ -397,7 +464,7 @@ __device__ __forceinline__ void project_tile_body(
             float part[2][NJ][4];
             zero_acc(part[0]);
             zero_acc(part[1]);
-            mma_step2<NJ>(part, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+            mma_step2<NJ, ONE>(part, xa, ldx, wb, ldw, k0, wc, nmask, mts);
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -405,7 +472,7 @@ __device__ __forceinline__ void project_tile_body(
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
           } else {
-            mma_step2<NJ>(acc, xa, ldx, wb, ldw, k0, wc, nmask, mts);
+            mma_step2<NJ, ONE>(acc, xa, ldx, wb, ldw, k0, wc, nmask, mts);
           }
         }
       }
@@ -476,27 +543,28 @@ __device__ __forceinline__ void project_tile_body(
 // or the three TF32 products of a k-step in three independent accumulators,
 // ran no faster: the products are issue-bound at one block of 8 warps an
 // SM.)
-template <typename T, int R, int NJ, int WARPS, int KC>
+template <typename T, int R, int NJ, int WARPS, int KC, bool ONE>
 __device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, int din,
                                              int xvec, const T* __restrict__ w, int f, int wvec,
                                              const float* __restrict__ bias, float scale, int n0,
                                              int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
                                              int tid) {
-  project_tile_body<T, R, NJ, WARPS, KC, false>(x, xbase, din, xvec, w, f, wvec, bias, scale,
-                                                n0, P, live, dst, ld, xs, ws, tid, nullptr,
-                                                nullptr, nullptr, nullptr);
+  project_tile_body<T, R, NJ, WARPS, KC, false, ONE>(x, xbase, din, xvec, w, f, wvec, bias,
+                                                     scale, n0, P, live, dst, ld, xs, ws, tid,
+                                                     nullptr, nullptr, nullptr, nullptr);
 }
 
 // #6's projection: z and its row scalars el, er (project_tile_body with
 // SCORES), scale 1.  Not inlined, as project_tile.
-template <typename T, int R, int NJ, int WARPS, int KC>
+template <typename T, int R, int NJ, int WARPS, int KC, bool ONE>
 __device__ __noinline__ void project_tile_scores(
     const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
     int wvec, const float* __restrict__ bias, const float* __restrict__ a_l,
     const float* __restrict__ a_r, int n0, int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
     float* el, float* er, int tid) {
-  project_tile_body<T, R, NJ, WARPS, KC, true>(x, xbase, din, xvec, w, f, wvec, bias, 1.f, n0,
-                                               P, live, dst, ld, xs, ws, tid, a_l, a_r, el, er);
+  project_tile_body<T, R, NJ, WARPS, KC, true, ONE>(x, xbase, din, xvec, w, f, wvec, bias, 1.f,
+                                                    n0, P, live, dst, ld, xs, ws, tid, a_l, a_r,
+                                                    el, er);
 }
 
 // Bit i set iff byte i of w is not 0.

@@ -208,14 +208,17 @@ def bucket_rows_numpy(
     *,
     n_rows_space: int,
     n_cols_space: int,
-    widths: Sequence[int],
+    min_width: int = 8,
     edge_chunk: int = _EDGE_CHUNK,
+    widths: Optional[Sequence[int]] = None,
     row_pad_to: Optional[dict] = None,
     edge_index_map=None,
 ):
     """Host-side core of :func:`build_buckets` over raw CSR arrays: one
     bucket per width of ``widths`` holding the rows whose degree lies above
-    the previous width and at most this one.
+    the previous width and at most this one.  ``widths=None`` takes the JAX
+    package's doubling ladder: ``min_width``, twice it, and so on up to the
+    first width at or above the largest degree.
 
     ``n_rows_space`` / ``n_cols_space`` are the sentinel pad indices of the
     row-id and neighbour-id spaces.  ``row_pad_to`` (when given) forces
@@ -227,6 +230,11 @@ def bucket_rows_numpy(
     carry ``sentinel``.  Returns a list of Buckets holding numpy arrays.
     """
     deg = indptr[1:] - indptr[:-1]
+    if widths is None:
+        max_deg = int(deg.max()) if deg.size else 0
+        widths = [min_width]
+        while widths[-1] < max_deg:
+            widths.append(2 * widths[-1])
     buckets = []
     lo = 0
     for w in widths:

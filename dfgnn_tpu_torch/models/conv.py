@@ -151,8 +151,8 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
     Both are shape rules on what the kernels take as well: ``flash_fused``
     only where kernel #5 takes the shape (:func:`layer_fits` at the head
     dim, ``out_size`` by default: any f up to 256, P up to 2048), else
-    ``flash``; ``flash`` only where kernels #1 and #3 take the head dim
-    (:func:`flash_takes`), else ``dense``.
+    ``flash``; ``flash`` only where kernels #1 and #3 take the shape
+    (:func:`flash_takes`: any head dim, P up to 2048), else ``dense``.
     """
     f = out_size if head_dim is None else head_dim
     n_tokens = g.n_graphs * g.np_pad
@@ -174,7 +174,7 @@ def _auto_bf16_gat(g: DenseBatch, head_dim: int) -> str:
     picks flash or dense).  Without, the whole-layer kernel #6 where it
     takes the shape (:func:`layer_fits`) and ``np_pad`` is at most
     ``GAT_FUSED_MAX_P``, the measured bound; else ``flash`` where kernels #2
-    and #4 take the head dim, else ``dense``."""
+    and #4 take the shape, else ``dense``."""
     if g.val is not None:
         return "auto"
     if layer_fits("add", g.np_pad, head_dim) and g.np_pad <= GAT_FUSED_MAX_P:

@@ -91,15 +91,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_mask.flash_mask_fwd(q.double(), k.double(), v.double(), adj)
     with pytest.raises(ValueError, match="uint8"):
         flash_mask.flash_mask_fwd(q, k, v, adj.bool())
-    # any head dim up to 256 runs (f = 48 is no power of two); 300 is refused
-    q48 = torch.randn(2, 64, 1, 48, device=cuda)
-    out, lse = flash_mask.flash_mask_fwd(q48, q48, q48, adj, want_lse=True)
-    want_out, want_lse = flash_mask.flash_mask_fwd_plain(q48, q48, q48, adj)
-    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
-    q300 = torch.zeros(2, 64, 1, 300, device=cuda)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_mask.flash_mask_fwd(q300, q300, q300, adj)
+    # any head dim runs (f = 48 is no power of two; f = 300 goes in two
+    # chunks of 256 columns); P = 2049 is refused, naming ROADMAP item e
+    for f in (48, 300):
+        qf = torch.randn(2, 64, 1, f, device=cuda) * f ** -0.5
+        out, lse = flash_mask.flash_mask_fwd(qf, qf, qf, adj, want_lse=True)
+        want_out, want_lse = flash_mask.flash_mask_fwd_plain(qf, qf, qf, adj)
+        torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    q2049 = torch.zeros(1, 2049, 1, 8, device=cuda)
+    adj2049 = torch.ones(1, 2049, 2049, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="item e"):
+        flash_mask.flash_mask_fwd(q2049, q2049, q2049, adj2049)
 
 
 # The tensor-core kernels #1 and #3 at head dims off the powers of two, at
@@ -153,6 +156,122 @@ def test_tensor_core_kernels_match_plain(cuda, f, P, dtype):
             assert g.dtype == torch.bfloat16
             scale = float(w.float().abs().max())
             torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+
+
+# Head dims past 256: #1 to #4 take them in chunks of 256 columns, at the
+# single-block and the streaming P, in both dtypes; edge values at f = 257
+# and 512, dropout at P = 26 and 300 (chip_smoke.py phase 26 holds the same
+# grid).
+WIDE_F = (257, 384, 512, 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", NEW_P)
+@pytest.mark.parametrize("f", WIDE_F)
+def test_wide_head_kernels_match_plain(cuda, f, P, dtype):
+    """#1 to #4 past f = 256 against their plain versions: the forwards at
+    the fp32 bar; the fp32 gradients against the plain versions evaluated
+    in fp64 at BWD_FP32_TOL, or, where fp32 arithmetic misses that bar on
+    these inputs, within twice the fp32 plain version's largest error (at
+    P = 2048 with edge values |dq| reaches 1e2 and the fp32 plain version
+    lands 3.5e-4 from fp64; 3xTF32 drops each product's lo x lo term, so its
+    error ran to 1.44x that: chip_smoke.py's FP32_GRAD_SPREAD); bf16 at the
+    bf16 bars."""
+    B, h = _BH[P]
+    q, k, v, adj, val = _inputs(40 + f + P, B, h, P, f, with_val=f in (257, 512), dtype=dtype)
+    rng = np.random.default_rng(f + P)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda().to(dtype)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
+                    for _ in range(2))
+    kw = dict(seed=0x5EED, rate=0.4 if P in (26, 300) else 0.0)
+    fp32 = dtype == torch.float32
+    fwd_tol = dict(rtol=1e-4, atol=1e-5) if fp32 else dict(rtol=0, atol=3e-2)
+
+    def hold_grads(got, plain, args, want_out, want_lse):
+        want = plain(*args, want_lse, do, flash_mask.bwd_delta(do, want_out), **kw)
+        if not fp32:
+            for g, w in zip(got, want):
+                scale = float(w.float().abs().max())
+                torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
+            return
+        want64 = plain(*_f64(*args[:3]), args[3], *_f64(args[4], want_lse, do),
+                       flash_mask.bwd_delta(*_f64(do, want_out)), **kw)
+        for g, w64, w in zip(got, want64, want):
+            err = (g.double() - w64).abs()
+            if bool((err > 1e-4 + 1e-4 * w64.abs()).any()):
+                assert float(err.max()) <= 2 * float((w.double() - w64).abs().max())
+            assert bool(torch.isfinite(g).all())
+
+    out, lse = flash_mask.flash_mask_fwd(q, k, v, adj, val, want_lse=True, **kw)
+    got = flash_mask.flash_mask_bwd(q, k, v, adj, val, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, val, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), **fwd_tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    assert all(g.dtype == dtype for g in got)
+    hold_grads(got, flash_mask.flash_mask_bwd_plain, (q, k, v, adj, val), want_out, want_lse)
+    out, lse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
+    got = flash_mask.flash_add_bwd(e_row, e_col, v, adj, val, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_mask.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), **fwd_tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    hold_grads(got, flash_mask.flash_add_bwd_plain, (e_row, e_col, v, adj, val), want_out,
+               want_lse)
+
+
+@pytest.mark.parametrize("B,h,P,f", [(64, 1, 128, 128), (4, 2, 300, 64), (2, 2, 128, 512)])
+def test_default_precision_matches_tf32_plain(cuda, B, h, P, f):
+    """precision="default" on fp32: #1 to #6 (one TF32 pass) against their
+    plain versions with every product's operands rounded to TF32, within a
+    TF32 step (2**-10) of each tensor's largest element; "highest" is
+    bitwise the call without precision; bf16 ignores the switch.  (#5 and
+    #6 only where they take f.)"""
+    q, k, v, adj, _ = _inputs(60 + f, B, h, P, f)
+    rng = np.random.default_rng(f)
+    t = lambda *shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s)
+                                               .astype(np.float32)).cuda()
+    do, e_row, e_col = t(B, P, h, f), t(B, P, h), t(B, P, h)
+    x, bias, ws = t(B, P, 48), [t(h, f, s=0.1) for _ in range(3)], [t(h, 48, f, s=0.15)
+                                                                 for _ in range(3)]
+    drop = dict(seed=0x5EED, rate=0.4)
+
+    def calls(p, plain):
+        fwd = flash_mask.flash_mask_fwd_plain if plain else flash_mask.flash_mask_fwd
+        afwd = flash_mask.flash_add_fwd_plain if plain else flash_mask.flash_add_fwd
+        out, lse = flash_mask.flash_mask_fwd(q, k, v, adj, want_lse=True, precision=p)
+        aout, alse = flash_mask.flash_add_fwd(e_row, e_col, v, adj, want_lse=True, precision=p,
+                                              **drop)
+        if plain:
+            bwd = flash_mask.flash_mask_bwd_plain(q, k, v, adj, None, lse, do,
+                                                  flash_mask.bwd_delta(do, out), precision=p)
+            abwd = flash_mask.flash_add_bwd_plain(e_row, e_col, v, adj, None, alse, do,
+                                                  flash_mask.bwd_delta(do, aout), precision=p,
+                                                  **drop)
+        else:
+            bwd = flash_mask.flash_mask_bwd(q, k, v, adj, None, out, lse, do, precision=p)
+            abwd = flash_mask.flash_add_bwd(e_row, e_col, v, adj, None, aout, alse, do,
+                                            precision=p, **drop)
+        res = [fwd(q, k, v, adj, precision=p)[0], *bwd,
+               afwd(e_row, e_col, v, adj, precision=p, **drop)[0], *abwd]
+        if flash_mask.layer_fits("dot", P, f):
+            lay = flash_mask.flash_layer_dot_fwd_plain if plain else flash_mask.flash_layer_dot_fwd
+            lay_add = (flash_mask.flash_layer_add_fwd_plain if plain
+                       else flash_mask.flash_layer_add_fwd)
+            res += [lay(x, ws[0], bias[0], ws[1], bias[1], ws[2], bias[2], adj, scale=0.15,
+                        precision=p),
+                    lay_add(x, ws[0], bias[0], bias[1], bias[2], adj, precision=p, **drop)]
+        return res
+
+    got, want = calls("default", False), calls("default", True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=2 ** -10 * float(w.abs().max()))
+    for a, b in zip(calls("highest", False), calls(None, False)):
+        assert torch.equal(a, b)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    assert torch.equal(flash_mask.flash_mask_fwd(qb, kb, vb, adj, precision="default")[0],
+                       flash_mask.flash_mask_fwd(qb, kb, vb, adj, precision="highest")[0])
 
 
 @pytest.mark.parametrize("P", [128, 300])

@@ -186,7 +186,8 @@ def test_bf16_auto_routes_on_the_whole_layer_kernels_shared_memory(conv, P, widt
 def test_whole_layer_kernels_take_one_set():
     """#6 takes what #5 takes, in fp32 and bf16: any f from 1 to 256 and P
     up to 2048.  Its argument check takes f = 48 at P = 640 and refuses
-    f = 300 and P = 2049, naming ROADMAP.md section 2."""
+    f = 300, naming ROADMAP.md section 2 item f (#5 and #6 past 256), and
+    P = 2049, naming item e."""
     for P in (1, 24, 128, 129, 640, 2048, 2049):
         for f in (1, 12, 48, 75, 128, 256, 257, 300):
             want = P <= 2048 and f <= 256
@@ -199,42 +200,49 @@ def test_whole_layer_kernels_take_one_set():
 
     check(640, 48)
     check(640, 48, torch.bfloat16)
-    for P, f in ((128, 300), (2049, 48)):
-        with pytest.raises(ValueError, match="ROADMAP.md section 2"):
+    for P, f, item in ((128, 300, "item f"), (2049, 48, "item e")):
+        with pytest.raises(ValueError, match=f"ROADMAP.md section 2 {item}"):
             check(P, f)
 
 
 def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
-    """method="auto" on a DenseBatch: the flash kernels where they take the
-    head dim, the dense formulation elsewhere; an explicit "flash" stays."""
+    """method="auto" on a DenseBatch: the flash kernels wherever they take
+    the shape, which is every head dim (past 256 in chunks), and the dense
+    formulation past P = 2048 (ROADMAP section 2 item e); an explicit
+    "flash" stays."""
     calls = []
     monkeypatch.setattr(flash_mask, "flash_graph_attention",
                         lambda *a, **kw: calls.append("flash"))
     monkeypatch.setattr(dense_block, "dense_graph_attention",
                         lambda *a, **kw: calls.append("dense"))
     monkeypatch.delenv("DFGNN_TPU_FORCE_METHOD", raising=False)
-    batch, e = _batch(2, 16), torch.zeros(2, 16, 1)
-    for score, f, want in [("dot", 12, "flash"), ("dot", 256, "flash"), ("dot", 300, "dense"),
-                           ("add", 16, "flash"), ("add", 12, "flash"), ("add", 48, "flash"),
-                           ("add", 300, "dense")]:
+    for score, P, f, want in [("dot", 16, 12, "flash"), ("dot", 16, 256, "flash"),
+                              ("dot", 16, 300, "flash"), ("dot", 16, 1024, "flash"),
+                              ("add", 16, 16, "flash"), ("add", 16, 12, "flash"),
+                              ("add", 16, 48, "flash"), ("add", 16, 300, "flash"),
+                              ("dot", 2049, 8, "dense"), ("add", 2049, 8, "dense")]:
         calls.clear()
-        v = torch.zeros(2, 16, 1, f)
+        batch, e, v = _batch(1, P), torch.zeros(1, P, 1), torch.zeros(1, P, 1, f)
         kw = dict(score="add", e_row=e, e_col=e) if score == "add" else {}
         graph_attention(batch, v, v, v, **kw)
         graph_attention(batch, v, v, v, method="flash", **kw)
-        assert calls == [want, "flash"], (score, f)
+        assert calls == [want, "flash"], (score, P, f)
 
 
 def test_explicit_flash_refuses_head_dims_the_kernels_do_not_take():
     """What the wrappers check before a launch: the kernels of either score
-    take any f up to 256; the error names ROADMAP.md section 2 item c."""
+    take any head dim (f = 48, 300, 1024) and P up to 2048; past it the
+    error names ROADMAP.md section 2 item e, and flash_takes agrees."""
     adj = torch.ones(2, 16, 16, dtype=torch.uint8)
-    flash_mask._check_block_args(torch.zeros(2, 16, 1, 48), adj, None, score="dot")
-    flash_mask._check_block_args(torch.zeros(2, 16, 1, 48), adj, None, score="add")
-    with pytest.raises(ValueError, match="item c"):
-        flash_mask._check_block_args(torch.zeros(2, 16, 1, 300), adj, None, score="add")
-    with pytest.raises(ValueError, match="item c"):
-        flash_mask._check_block_args(torch.zeros(2, 16, 1, 300), adj, None, score="dot")
+    for f in (48, 300, 1024):
+        for score in ("dot", "add"):
+            flash_mask._check_block_args(torch.zeros(2, 16, 1, f), adj, None, score=score)
+            assert flash_mask.flash_takes(score, 16, f)
+    adj2049 = torch.ones(1, 2049, 2049, dtype=torch.uint8)
+    for score in ("dot", "add"):
+        with pytest.raises(ValueError, match="item e"):
+            flash_mask._check_block_args(torch.zeros(1, 2049, 1, 8), adj2049, None, score=score)
+        assert not flash_mask.flash_takes(score, 2049, 8)
 
 
 def test_empty_rows_and_graphs_give_zero_outputs_and_gradients():

@@ -74,6 +74,28 @@ def test_build_buckets_equals_jax(kw, with_val):
     assert got.padded_edges == want.padded_edges
 
 
+@pytest.mark.parametrize("kw", [{}, {"min_width": 4, "edge_chunk": 1024}],
+                         ids=["default", "min_width=4"])
+def test_bucket_rows_numpy_default_ladder_equals_jax(kw):
+    """Without ``widths`` both packages' bucket_rows_numpy build the doubling
+    ladder from ``min_width`` (8 unless given) up to the largest degree, and
+    the same buckets on the same CSR, every array equal."""
+    rng = np.random.default_rng(1)
+    n = 300
+    rows, cols, val = random_graph_coo(rng, n, 6, super_node_deg=200, with_val=True)
+    order = np.argsort(rows, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    csr = (indptr, cols[order].astype(np.int32), val[order])
+    want = jax_formats.bucket_rows_numpy(*csr, n_rows_space=n, n_cols_space=n, **kw)
+    got = formats.bucket_rows_numpy(*csr, n_rows_space=n, n_cols_space=n, **kw)
+    assert [b.width for b in got] == [b.width for b in want]
+    assert want[-1].width >= 200 > want[-2].width  # the ladder reached the super node
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(w):
+            np.testing.assert_array_equal(np.asarray(getattr(g, f.name)),
+                                          np.asarray(getattr(w, f.name)), err_msg=f.name)
+
+
 def test_preprocess_names_the_same_layouts():
     jg, tg = _graphs(1)
     for fmt in ("reference", "bucketed", "two_phase", "bucketed_train"):
