@@ -108,7 +108,19 @@ six launch counts set to 0 just before it and read just after:
   plain versions, and timed at f = 512 beside their bounds and SDPA; #1 to
   #6 at ``precision="default"`` against their TF32-rounded plain versions
   (a TF32 step of each tensor's largest element), timed against
-  ``"highest"``, which must equal the call without precision bitwise.
+  ``"highest"``, which must equal the call without precision bitwise;
+- the whole-layer kernels past head dim 256 (phase 27): #5 and #6 at f =
+  257, 384, 512, 1024 and P = 26, 128, 300, 2048 (fp32 at both precisions
+  and bf16, #6 with dropout at P = 26 and 300) against their plain
+  versions; GTModel at hidden 512 with one head through
+  ``impl="flash_fused"``: a request through #5 (8 launches) and 3 Adam
+  steps through #5, #1 and #3 (8 + 8 + 8 a step), held against
+  ``method="dense"``; GAT's fig-1 ``Model`` at hidden 512 through #6, a
+  forward and a step (#6, #2, #4), against dense; the GAT conv in bf16 at
+  head dims 128 to 512 through #6 against fp32, timed against its
+  flash route, and ``method="auto"`` taking the route ``GAT_FUSED_MAX_F``
+  names; #5 and #6 at the wide models' shape and at P = 512 timed beside
+  their plain versions, their compositions and bounds.
 The bucket path is torch ops, so the full-graph, sampled and partitioned
 phases launch none of the hand-written kernels, and they assert that.
 Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -231,6 +243,8 @@ TF32X3_FLOPS = 495e12 / 3
 WIDE_F, WIDE_P = (257, 384, 512, 1024), (26, 128, 300, 2048)
 WIDE_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 2048: (1, 1)}
 WIDE_HIDDEN, WIDE_TABLE = 512, (1024, 1, 128, 512)
+WIDE_DIN = 72  # phase 27: #5 and #6 on the grid of WIDE_F x WIDE_P take x of this width
+WIDE_STREAM = (64, 1, 512, 512)  # phase 27: #5 and #6 timed past P = 128 at head dim 512
 TF32_STEP = 2.0 ** -10  # a TF32 step (10 mantissa bits) near 1: the "default" bar
 # 3xTF32 drops each product's lo x lo term (about 2**-21 of it, where fp32
 # rounds a product at 2**-24), so on sums long enough that fp32 itself
@@ -339,6 +353,33 @@ def layer_work(score, B, P, din, h, f, edges, itemsize):
         flops = 2 * B * P * din * h * f + 2 * 2 * B * P * h * f + 2 * edges * h * f
         weights = h * din * f * itemsize + 3 * h * f * 4
     return flops, B * P * din * itemsize + weights + B * P * P + B * P * h * f * itemsize
+
+
+def add_composition(x, w, b, al, ar, adj):
+    """#6's nearest PyTorch composition, as a function of no arguments:
+    F.linear, the two score contractions, the masked leaky scores as a
+    float attn_mask (built inside the call) and
+    scaled_dot_product_attention with q = k = 0 of width 8."""
+    import torch.nn.functional as F
+
+    from dfgnn_tpu_torch.ops.flash_mask import NEG_BIG
+
+    B, P, din = x.shape
+    h, _, f = w.shape
+    x2, w_flat = x.reshape(B * P, din), w.permute(0, 2, 1).reshape(h * f, din)
+    mask = adj[:, None].bool()
+    zq = torch.zeros(B, h, P, 8, device="cuda", dtype=x.dtype)
+
+    def run():
+        z = F.linear(x2, w_flat, b.reshape(h * f).to(x.dtype)).reshape(B, P, h, f)
+        z = z.transpose(1, 2).float()
+        el = torch.einsum("bhpf,hf->bhp", z, al)
+        er = torch.einsum("bhpf,hf->bhp", z, ar)
+        s = torch.where(mask, F.leaky_relu(el[..., None] + er[..., None, :], 0.2),
+                        NEG_BIG).to(x.dtype)
+        return F.scaled_dot_product_attention(zq, zq, z.to(x.dtype), attn_mask=s)
+
+    return run
 
 
 def in_turns(bench, plain_fn, kernel_fn, names=("plain", "kernel")):
@@ -676,6 +717,17 @@ def hold_fp32_grad(got, want64, want32):
     return float(err.max()), plain
 
 
+def counts_must_be(what, want):
+    """Raises unless kernels #1, #3, #2, #4, #5, #6 were launched ``want``
+    times since their counts were last reset."""
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+
+    torch.cuda.synchronize()
+    if fm.launch_counts() != want:
+        raise AssertionError(f"{what} launched #1, #3, #2, #4, #5, #6 {fm.launch_counts()}, "
+                             f"expected {want}")
+
+
 def wide_kernel_case(fm, seed, P, f, dtype):
     """#1 to #4 at head dim ``f`` past 256 against their plain versions on
     ``attention_inputs``: fp32 forwards at FP32_TOL, the fp32 gradients
@@ -729,6 +781,131 @@ def wide_kernel_case(fm, seed, P, f, dtype):
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
 
 
+def wide_models(smi, impl):
+    """The wide models of phases 26 and 27 through ``impl`` (None: their
+    default auto route, kernels #1 to #4; "flash_fused": #5 and #6, with #1
+    to #4 backward), each against method="dense", their launch counts
+    asserted: GTModel at hidden 512 with one head (head dim 512) serving a
+    PATTERN-like bs=1024 request and taking 3 Adam steps on ogbg-molhiv
+    bs=1024, and GAT's fig-1 Model at hidden 512, a forward and an Adam
+    step.  Returns the GAT model, its batch and its input."""
+    from dfgnn_tpu_torch import DenseBatch, GTModel
+    from dfgnn_tpu_torch.data.collate import batch_iterator
+    from dfgnn_tpu_torch.data.datasets import load_batched
+    from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+    from dfgnn_tpu_torch.models import Model
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    L, name = LAYERS, impl or "auto"
+    fused = impl == "flash_fused"
+    serve = (0, 0, 0, 0, L, 0) if fused else (L, 0, 0, 0, 0, 0)
+    step = (L, L, 0, 0, L, 0) if fused else (L, L, 0, 0, 0, 0)
+    gat_fwd = (0, 0, 0, 0, 0, 1) if fused else (0, 0, 1, 0, 0, 0)
+    gat_train = (0, 0, 1, 1, 0, 1) if fused else (0, 0, 1, 1, 0, 0)
+    counts = "launches of #1, #3, #2, #4, #5, #6"
+
+    # the GT model, serving
+    rng = np.random.default_rng(40)
+    batch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+    gt = GTModel("PATTERN", out_size=2, hidden_size=WIDE_HIDDEN, num_layers=L, num_heads=1,
+                 generator=torch.Generator().manual_seed(40)).eval()
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        logits = gt(batch, x, impl=impl)
+        counts_must_be(f"the wide GT {name} forward", serve)
+        if logits.shape != (BATCH, 2) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"wide GT logits {tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        e = max_err(logits, gt(batch, x, impl="dense"), MODEL_TOL)
+        ms, dense_ms = in_turns(benchmark, lambda: gt(batch, x, impl="dense"),
+                                lambda: gt(batch, x, impl=impl), names=("dense", name))
+    print(f"wide GT serving (GTModel PATTERN, hidden {WIDE_HIDDEN}, 1 head: head dim "
+          f"{WIDE_HIDDEN}, {L} layers, bs={BATCH}, {batch.n_edges} edges) through {name}: "
+          f"{counts} {serve}; vs dense logits max abs err {e:.3e} (tol {MODEL_TOL}); forward "
+          f"({smi}): {name} {ms:.4f} ms, dense {dense_ms:.4f} ms")
+    del gt, logits
+
+    # the GT model, training: 3 Adam steps through impl and through dense,
+    # the same weights and batches
+    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
+    batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
+    per_step = {name: step, "dense": (0,) * 6}
+    models = {m: GTModel("ogbg-molhiv", out_size=1, hidden_size=WIDE_HIDDEN, num_layers=L,
+                         method=m, generator=torch.Generator().manual_seed(41))
+              for m in per_step}
+    models["dense"].load_state_dict(models[name].state_dict())
+    losses, states = {}, {}
+    for m, model in models.items():
+        states[m] = (TrainState.create(model, lr=1e-3, step_lr_every=20),
+                     make_loss_fn(model, ds.task, ds.num_classes))
+        losses[m] = []
+        for b in batches:
+            fm.reset_launch_counts()
+            losses[m].append(float(train_step(*states[m], *b)[1]))
+            counts_must_be(f"a wide GT {m} step", per_step[m])
+    for i, (a, d) in enumerate(zip(losses[name], losses["dense"])):
+        if not (math.isfinite(a) and abs(a - d) <= TRAJECTORY_RTOL * abs(d)):
+            raise AssertionError(f"wide GT Adam step {i}: loss {name} {a} vs dense {d}")
+    step_ms = {m: benchmark(lambda s=s: train_step(*s, *batches[0]))[1]
+               for m, s in states.items()}
+    print(f"wide GT training (GTModel ogbg-molhiv, hidden {WIDE_HIDDEN}, 1 head, {L} layers, "
+          f"bs={BATCH}): {TRAJECTORY_STEPS} Adam steps, {counts} {step} a step through {name}, "
+          f"none through dense; losses {name} {[round(v, 7) for v in losses[name]]}, dense "
+          f"{[round(v, 7) for v in losses['dense']]} (rtol {TRAJECTORY_RTOL}); a step ({smi}): "
+          f"{name} {step_ms[name]:.4f} ms, dense {step_ms['dense']:.4f} ms")
+    del models, states, batches, ds
+
+    # the GAT model: a forward and a step, against dense
+    rng = np.random.default_rng(42)
+    sbatch = DenseBatch.from_graph_list(
+        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+    sx = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+    mask = sbatch.node_mask.reshape(-1, 1).float()
+    gat = Model("PATTERN", "gat", WIDE_HIDDEN, generator=torch.Generator().manual_seed(42))
+    target = torch.from_numpy(rng.standard_normal((BATCH * NP_PAD, WIDE_HIDDEN))
+                              .astype(np.float32)).cuda()
+    params = list(gat.parameters())
+
+    def gat_loss(i):
+        gat.zero_grad()
+        loss = (((gat(sbatch, sx, impl=i) - target) ** 2) * mask).mean()
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        out = gat(sbatch, sx, impl=impl)
+        counts_must_be(f"the wide GAT {name} forward", gat_fwd)
+        e = max_err(out, gat(sbatch, sx, impl="dense"), MODEL_TOL)
+        gat_ms, gdense_ms = in_turns(benchmark, lambda: gat(sbatch, sx, impl="dense"),
+                                     lambda: gat(sbatch, sx, impl=impl), names=("dense", name))
+    fm.reset_launch_counts()
+    loss_a, grads_a = gat_loss(impl)
+    counts_must_be(f"the wide GAT {name} step", gat_train)
+    loss_d, grads_d = gat_loss("dense")
+    if not abs(loss_a - loss_d) <= TRAJECTORY_RTOL * abs(loss_d):
+        raise AssertionError(f"wide GAT loss {name} {loss_a} vs dense {loss_d}")
+    # the gradients: rtol 1e-3 and atol 1e-4 of each tensor's largest element
+    ge = max(max_err(a, d, dict(rtol=1e-3, atol=1e-4 * float(d.abs().max())))
+             / float(d.abs().max()) for a, d in zip(grads_a, grads_d))
+    opt = torch.optim.Adam(params, lr=1e-3)
+    fm.reset_launch_counts()
+    gat_loss(impl)
+    opt.step()
+    counts_must_be(f"the wide GAT {name} Adam step", gat_train)
+    print(f"wide GAT (fig-1 Model PATTERN gat, hidden {WIDE_HIDDEN}, 1 head, bs={BATCH}, "
+          f"{sbatch.n_edges} edges) through {name}: a forward {counts} {gat_fwd}, vs dense max "
+          f"abs err {e:.3e} (tol {MODEL_TOL}); a step {gat_train}: loss {loss_a:.7f}, "
+          f"dense {loss_d:.7f}; gradients within {ge:.2e} of their largest element of dense's "
+          f"(bar rtol 1e-3, atol 1e-4 of it); forward ({smi}): {name} {gat_ms:.4f} ms, dense "
+          f"{gdense_ms:.4f} ms")
+    return gat, sbatch, sx
+
+
 def wide_phase(smi):
     """Phase 26: head dims past 256 (#1 to #4) and the precision switch (#1
     to #6).  The wide GT model (GTModel at hidden 512, one head: head dim
@@ -743,120 +920,12 @@ def wide_phase(smi):
     bitwise equal to no precision."""
     import torch.nn.functional as F
 
-    from dfgnn_tpu_torch import DenseBatch, GTModel
-    from dfgnn_tpu_torch.data.collate import batch_iterator
-    from dfgnn_tpu_torch.data.datasets import load_batched
-    from dfgnn_tpu_torch.data.synthetic import attention_inputs, pattern_like_batch
-    from dfgnn_tpu_torch.models import Model
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
     from dfgnn_tpu_torch.ops import flash_mask as fm
-    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
-    def counts_must_be(what, want):
-        torch.cuda.synchronize()
-        if fm.launch_counts() != want:
-            raise AssertionError(f"{what} launched #1, #3, #2, #4, #5, #6 {fm.launch_counts()}, "
-                                 f"expected {want}")
-
-    # the wide GT model, serving: one forward through #1, against dense
-    L = LAYERS
-    rng = np.random.default_rng(40)
-    batch = DenseBatch.from_graph_list(
-        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
-    x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
-    gt = GTModel("PATTERN", out_size=2, hidden_size=WIDE_HIDDEN, num_layers=L, num_heads=1,
-                 generator=torch.Generator().manual_seed(40)).eval()
-    with torch.inference_mode():
-        fm.reset_launch_counts()
-        logits = gt(batch, x)
-        counts_must_be("the wide GT forward", (L, 0, 0, 0, 0, 0))
-        if logits.shape != (BATCH, 2) or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"wide GT logits {tuple(logits.shape)}, finite "
-                                 f"{bool(torch.isfinite(logits).all())}")
-        e = max_err(logits, gt(batch, x, impl="dense"), MODEL_TOL)
-        auto_ms, dense_ms = in_turns(benchmark, lambda: gt(batch, x, impl="dense"),
-                                     lambda: gt(batch, x), names=("dense", "auto"))
-    print(f"wide GT serving (GTModel PATTERN, hidden {WIDE_HIDDEN}, 1 head: head dim "
-          f"{WIDE_HIDDEN}, {L} layers, bs={BATCH}, {batch.n_edges} edges): {L} #1 launches, none "
-          f"of the others; auto vs dense logits max abs err {e:.3e} (tol {MODEL_TOL}); forward "
-          f"({smi}): auto {auto_ms:.4f} ms, dense {dense_ms:.4f} ms")
-    del gt, logits
-
-    # the wide GT model, training: 3 Adam steps through auto (8 #1 + 8 #3 a
-    # step) and through dense (none), the same weights and batches
-    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
-    batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
-    per_step = {"auto": (L, L, 0, 0, 0, 0), "dense": (0,) * 6}
-    models = {name: GTModel("ogbg-molhiv", out_size=1, hidden_size=WIDE_HIDDEN, num_layers=L,
-                            method=name, generator=torch.Generator().manual_seed(41))
-              for name in per_step}
-    models["dense"].load_state_dict(models["auto"].state_dict())
-    losses, states = {}, {}
-    for name, m in models.items():
-        states[name] = (TrainState.create(m, lr=1e-3, step_lr_every=20),
-                        make_loss_fn(m, ds.task, ds.num_classes))
-        losses[name] = []
-        for b in batches:
-            fm.reset_launch_counts()
-            losses[name].append(float(train_step(*states[name], *b)[1]))
-            counts_must_be(f"a wide GT {name} step", per_step[name])
-    for i, (a, d) in enumerate(zip(losses["auto"], losses["dense"])):
-        if not (math.isfinite(a) and abs(a - d) <= TRAJECTORY_RTOL * abs(d)):
-            raise AssertionError(f"wide GT Adam step {i}: loss auto {a} vs dense {d}")
-    step_ms = {name: benchmark(lambda s=s: train_step(*s, *batches[0]))[1]
-               for name, s in states.items()}
-    print(f"wide GT training (GTModel ogbg-molhiv, hidden {WIDE_HIDDEN}, 1 head, {L} layers, "
-          f"bs={BATCH}): {TRAJECTORY_STEPS} Adam steps, {L} #1 + {L} #3 launches a step through "
-          f"auto, none through dense; losses auto {[round(v, 7) for v in losses['auto']]}, "
-          f"dense {[round(v, 7) for v in losses['dense']]} (rtol {TRAJECTORY_RTOL}); a step "
-          f"({smi}): auto {step_ms['auto']:.4f} ms, dense {step_ms['dense']:.4f} ms")
-    del models, states, batches, ds
-
-    # the wide GAT model (fig-1 Model, hidden 512): a forward through #2 and
-    # a step through #2 and #4, against dense
-    rng = np.random.default_rng(42)
-    sbatch = DenseBatch.from_graph_list(
-        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
-    sx = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
-    mask = sbatch.node_mask.reshape(-1, 1).float()
-    gat = Model("PATTERN", "gat", WIDE_HIDDEN, generator=torch.Generator().manual_seed(42))
-    target = torch.from_numpy(rng.standard_normal((BATCH * NP_PAD, WIDE_HIDDEN))
-                              .astype(np.float32)).cuda()
-    params = list(gat.parameters())
-
-    def gat_step(impl):
-        gat.zero_grad()
-        loss = (((gat(sbatch, sx, impl=impl) - target) ** 2) * mask).mean()
-        loss.backward()
-        return float(loss.detach()), [p.grad.clone() for p in params]
-
-    with torch.inference_mode():
-        fm.reset_launch_counts()
-        out = gat(sbatch, sx)
-        counts_must_be("the wide GAT forward", (0, 0, 1, 0, 0, 0))
-        e = max_err(out, gat(sbatch, sx, impl="dense"), MODEL_TOL)
-    fm.reset_launch_counts()
-    loss_a, grads_a = gat_step(None)
-    counts_must_be("the wide GAT step", (0, 0, 1, 1, 0, 0))
-    loss_d, grads_d = gat_step("dense")
-    if not abs(loss_a - loss_d) <= TRAJECTORY_RTOL * abs(loss_d):
-        raise AssertionError(f"wide GAT loss auto {loss_a} vs dense {loss_d}")
-    # the gradients: rtol 1e-3 and atol 1e-4 of each tensor's largest element
-    ge = max(max_err(a, d, dict(rtol=1e-3, atol=1e-4 * float(d.abs().max())))
-             / float(d.abs().max()) for a, d in zip(grads_a, grads_d))
-    opt = torch.optim.Adam(params, lr=1e-3)
-    fm.reset_launch_counts()
-    gat_step(None)
-    opt.step()
-    counts_must_be("the wide GAT Adam step", (0, 0, 1, 1, 0, 0))
-    with torch.inference_mode():
-        gat_ms = benchmark(lambda: gat(sbatch, sx))[1]
-    print(f"wide GAT (fig-1 Model PATTERN gat, hidden {WIDE_HIDDEN}, 1 head, bs={BATCH}, "
-          f"{sbatch.n_edges} edges): forward one #2 launch, auto vs dense max abs err {e:.3e} "
-          f"(tol {MODEL_TOL}); a step one #2 and one #4: loss auto {loss_a:.7f}, dense "
-          f"{loss_d:.7f}; gradients within {ge:.2e} of their largest element of dense's (bar "
-          f"rtol 1e-3, atol 1e-4 of it); forward {gat_ms:.4f} ms ({smi})")
-    del gat, out, grads_a, grads_d, opt
+    # the wide GT and GAT models through their auto route (#1 to #4)
+    wide_models(smi, None)
 
     # #1 to #4 past f = 256 against their plain versions
     n = 0
@@ -976,6 +1045,180 @@ def wide_phase(smi):
               f"TF32-rounded plain version within {max(errs):.2e} of the largest element (bar "
               f"a TF32 step, {TF32_STEP:.3g}); 'highest' bitwise no precision; 'default' "
               f"{one:.4f} ms, 'highest' {three:.4f} ms")
+
+
+def wide_layer_case(fm, seed, P, f, dtype, precision):
+    """#5 and #6 at head dim ``f`` past 256 against their plain versions on
+    x [B, P, WIDE_DIN] and random weights: fp32 at "highest" within
+    FP32_TOL, at "default" within a TF32 step of the largest element of the
+    TF32-rounded plain version (tf32_tol), bf16 within BF16_TOL; #6 with
+    dropout at P = 26 and 300; every fourth graph empty where B >= 4, and
+    every row without an edge exactly 0.  Returns the printed line."""
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+
+    B, h = WIDE_BH[P]
+    rng = np.random.default_rng(seed)
+    adj = torch.from_numpy(attention_inputs(rng, B, h, P, 8)[3]).cuda()
+    if B >= 4:
+        adj[::4] = 0
+    t = lambda shape, s: torch.from_numpy((rng.standard_normal(shape) * s)
+                                          .astype(np.float32)).cuda()
+    x = t((B, P, WIDE_DIN), 1.0).to(dtype)
+    ws = [t((h, WIDE_DIN, f), WIDE_DIN ** -0.5).to(dtype) for _ in range(3)]
+    vecs = [t((h, f), f ** -0.5) for _ in range(3)]
+    rate = 0.4 if P in (26, 300) else 0.0
+    dot = (x, ws[0], vecs[0], ws[1], vecs[1], ws[2], vecs[2], adj)
+    add = (x, ws[0], vecs[0], vecs[1], vecs[2], adj)
+    kw5 = dict(scale=f ** -0.5, precision=precision)
+    kw6 = dict(slope=0.2, seed=DROP_SEED, rate=rate, precision=precision)
+    empty = ~adj.bool().any(-1)
+    errs = {}
+    for name, kernel, plain in (
+            ("#5", lambda: fm.flash_layer_dot_fwd(*dot, **kw5),
+             lambda: fm.flash_layer_dot_fwd_plain(*dot, **kw5)),
+            ("#6", lambda: fm.flash_layer_add_fwd(*add, **kw6),
+             lambda: fm.flash_layer_add_fwd_plain(*add, **kw6))):
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        tol = (BF16_TOL if dtype == torch.bfloat16
+               else tf32_tol(want) if precision == "default" else FP32_TOL)
+        errs[name] = max_err(got, want, tol)
+        if got.shape != (B, P, h, f) or bool(got[empty].any()):
+            raise AssertionError(f"{name} f={f} P={P}: shape {tuple(got.shape)}, or a row "
+                                 f"without an edge is not 0")
+    return (f"  f={f} P={P} B={B} h={h} din={WIDE_DIN} {dtype} precision={precision} #6 "
+            f"rate={rate}: max abs err " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+
+
+def wide_layer_phase(smi):
+    """Phase 27: the whole-layer kernels past head dim 256.  #5 and #6 at f
+    = 257, 384, 512, 1024 and P = 26, 128, 300, 2048 (fp32 at both
+    precisions and bf16) against their plain versions; the wide GT model
+    (GTModel at hidden 512, one head) through impl="flash_fused": a
+    PATTERN-like bs=1024 request through #5 and 3 Adam steps on
+    ogbg-molhiv bs=1024 through #5 forward and #1 + #3 backward, against
+    method="dense"; the wide fig-1 GAT Model (hidden 512) through
+    flash_fused: a forward through #6 and a step through #6, #2 and #4,
+    against dense; the GAT conv in bf16 at head dims 128, 192, 256, 384
+    and 512 through #6 against fp32, timed in turns against its flash route
+    (the readings behind GAT_FUSED_MAX_F), and method="auto" taking the
+    route that bound names; #5 and #6 at the wide models' shape
+    (WIDE_TABLE) and past P = 128 (WIDE_STREAM), din WIDE_HIDDEN, held
+    against their plain versions at FP32_TOL and timed in turns with them,
+    beside their compositions and bounds."""
+    import torch.nn.functional as F
+
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+    from dfgnn_tpu_torch.models import conv as conv_mod, make_conv
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    # #5 and #6 past f = 256 against their plain versions
+    n = 0
+    for f in WIDE_F:
+        for P in WIDE_P:
+            for dtype, precision in ((torch.float32, "highest"), (torch.float32, "default"),
+                                     (torch.bfloat16, None)):
+                print(wide_layer_case(fm, 100 + n, P, f, dtype, precision))
+                n += 1
+    print(f"#5 and #6 held against their plain versions at {n} points (f in {WIDE_F}, P in "
+          f"{WIDE_P}; fp32 'highest' {FP32_TOL}, fp32 'default' a TF32 step of the largest "
+          f"element of the TF32-rounded plain version, bf16 {BF16_TOL})")
+
+    # the wide GT and GAT models through the whole-layer kernels
+    gat, sbatch, sx = wide_models(smi, "flash_fused")
+
+    # the GAT conv in bf16 at head dims 128 to 512 (512: the wide model's own
+    # conv): #6 against the fp32 conv, and timed in turns against the flash
+    # route, the readings behind GAT_FUSED_MAX_F; method="auto" takes the
+    # route _auto_bf16_gat names
+    with torch.inference_mode():
+        h0 = gat.inproj(sx)
+    for f in (128, 192, 256, 384, WIDE_HIDDEN):
+        conv32 = (gat.conv if f == WIDE_HIDDEN
+                  else make_conv("gat", WIDE_HIDDEN, f, 1,
+                                 generator=torch.Generator().manual_seed(f)))
+        conv16 = make_conv("gat", WIDE_HIDDEN, f, 1, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(f))
+        conv16.load_state_dict(conv32.state_dict())
+        route = conv_mod._auto_bf16_gat(sbatch, f)
+        with torch.inference_mode():
+            fm.reset_launch_counts()
+            out16 = conv16(sbatch, h0, impl="flash_fused")
+            counts_must_be(f"the bf16 GAT conv at head dim {f} through flash_fused",
+                           (0, 0, 0, 0, 0, 1))
+            want = conv32(sbatch, h0, impl="flash_fused")
+            rel16 = float((out16.float() - want).abs().max() / want.abs().max())
+            if out16.dtype != torch.bfloat16 or not rel16 < BF16_REL:
+                raise AssertionError(f"bf16 GAT at head dim {f}: {out16.dtype}, max |diff| / "
+                                     f"max |fp32| {rel16}")
+            fm.reset_launch_counts()
+            conv16(sbatch, h0)
+            counts_must_be(f"the bf16 GAT conv at head dim {f} through auto ({route})",
+                           (0, 0, 0, 0, 0, 1) if route == "flash_fused" else (0, 0, 1, 0, 0, 0))
+            fused16_ms, flash16_ms = in_turns(
+                benchmark, lambda: conv16(sbatch, h0, impl="flash"),
+                lambda: conv16(sbatch, h0, impl="flash_fused"), names=("flash", "#6"))
+        print(f"bf16 GAT conv (din {WIDE_HIDDEN}, head dim {f}, bs={BATCH}): #6 vs the fp32 conv "
+              f"max |diff| / max |fp32| {rel16:.3e} (bar {BF16_REL}); method='auto' takes "
+              f"{route} (GAT_FUSED_MAX_F {conv_mod.GAT_FUSED_MAX_F}); forward ({smi}): #6 "
+              f"{fused16_ms:.4f} ms, flash route (F.linear, the score contractions, #2) "
+              f"{flash16_ms:.4f} ms (ratio {fused16_ms / flash16_ms:.3f})")
+    del gat, sbatch, sx, conv16, conv32, out16, want, h0
+
+    # #5 and #6 at the wide models' shape, and past P = 128 (the stream
+    # blocks, whose chunk blocks re-form the scores): held against their
+    # plain versions at FP32_TOL, then timed in turns with them, beside
+    # their compositions and bounds
+    for (B, h, P, f), seed in ((WIDE_TABLE, 64), (WIDE_STREAM, 65)):
+        din = WIDE_HIDDEN
+        rng = np.random.default_rng(seed)
+        adj = torch.from_numpy(attention_inputs(rng, B, h, P, 8)[3]).cuda()
+        t = lambda shape, s: torch.from_numpy((rng.standard_normal(shape) * s)
+                                              .astype(np.float32)).cuda()
+        x = t((B, P, din), 1.0)
+        ws = [t((h, din, f), din ** -0.5) for _ in range(3)]
+        vecs = [t((h, f), f ** -0.5) for _ in range(3)]
+        dot = (x, ws[0], vecs[0], ws[1], vecs[1], ws[2], vecs[2], adj)
+        add = (x, ws[0], vecs[0], vecs[1], vecs[2], adj)
+        x2, mask = x.reshape(B * P, din), adj[:, None].bool()
+        w_cat = torch.cat([w.permute(0, 2, 1).reshape(h * f, din) for w in ws])
+        b_cat = torch.cat([v.reshape(h * f) for v in vecs])
+        heads = lambda a: a.reshape(B, P, h, f)
+
+        def linear_flash():
+            q, k, v = F.linear(x2, w_cat, b_cat).split(h * f, dim=1)
+            return fm.flash_mask_fwd((heads(q) * f ** -0.5).contiguous(),
+                                     heads(k).contiguous(), heads(v).contiguous(), adj)[0]
+
+        def linear_sdpa():
+            q, k, v = (heads(a).transpose(1, 2)
+                       for a in F.linear(x2, w_cat, b_cat).split(h * f, dim=1))
+            return F.scaled_dot_product_attention(q * f ** -0.5, k, v, attn_mask=mask,
+                                                  scale=1.0)
+
+        edges = int(adj.sum())
+        for name, score, kernel_fn, plain_fn, comps in (
+                ("#5", "dot", lambda: fm.flash_layer_dot_fwd(*dot, scale=f ** -0.5),
+                 lambda: fm.flash_layer_dot_fwd_plain(*dot, scale=f ** -0.5),
+                 (("F.linear + #1", linear_flash), ("F.linear + SDPA", linear_sdpa))),
+                ("#6", "add", lambda: fm.flash_layer_add_fwd(*add),
+                 lambda: fm.flash_layer_add_fwd_plain(*add),
+                 (("F.linear, contractions, SDPA with a float mask", add_composition(*add)),))):
+            got = kernel_fn()
+            torch.cuda.synchronize()
+            err = max_err(got, plain_fn(), FP32_TOL)
+            del got
+            ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
+            comp = ", ".join(f"{c} {benchmark(fn)[1]:.4f} ms" for c, fn in comps)
+            flops, nbytes = layer_work(score, B, P, din, h, f, edges, 4)
+            bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+            print(f"  {name} at {(B, h, P, f)}, din {din}, fp32 ({smi}): against its plain "
+                  f"version max abs err {err:.2e} (bar {FP32_TOL}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, {comp}; bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{edges} edges, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; peak "
+                  f"{peak_name(TF32X3_FLOPS)})")
 
 
 def phase_done(name: str) -> None:
@@ -1693,28 +1936,6 @@ def main() -> int:
         ws = [t(rng.standard_normal((h, din, f)) / np.sqrt(din)).to(dtype) for _ in range(3)]
         vecs = [t(rng.standard_normal((h, f)) / np.sqrt(f)) for _ in range(3)]
         return x, ws, vecs, adj
-
-    def add_composition(x, w, b, al, ar, adj):
-        """#6's nearest PyTorch composition, as a function of no arguments:
-        F.linear, the two score contractions, the masked leaky scores as a
-        float attn_mask (built inside the call) and
-        scaled_dot_product_attention with q = k = 0 of width 8."""
-        B, P, din = x.shape
-        h, _, f = w.shape
-        x2, w_flat = x.reshape(B * P, din), w.permute(0, 2, 1).reshape(h * f, din)
-        mask = adj[:, None].bool()
-        zq = torch.zeros(B, h, P, 8, device="cuda", dtype=x.dtype)
-
-        def run():
-            z = F.linear(x2, w_flat, b.reshape(h * f).to(x.dtype)).reshape(B, P, h, f)
-            z = z.transpose(1, 2).float()
-            el = torch.einsum("bhpf,hf->bhp", z, al)
-            er = torch.einsum("bhpf,hf->bhp", z, ar)
-            s = torch.where(mask, F.leaky_relu(el[..., None] + er[..., None, :], 0.2),
-                            flash_mask.NEG_BIG).to(x.dtype)
-            return F.scaled_dot_product_attention(zq, zq, z.to(x.dtype), attn_mask=s)
-
-        return run
 
     for i, (B, h, P, din, f, dtype) in enumerate(LAYER_SHAPES):
         x, (wq, wk, wv), (bq, bk, bv), adj = layer_inputs(70 + i, B, h, P, din, f, dtype)
@@ -2624,6 +2845,10 @@ def main() -> int:
     # 26. head dims past 256 (#1 to #4) and the precision switch (#1 to #6)
     wide_phase(smi)
     phase_done("26 wide heads and precision")
+
+    # 27. the whole-layer kernels #5 and #6 past head dim 256 (item f)
+    wide_layer_phase(smi)
+    phase_done("27 wide whole-layer kernels")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

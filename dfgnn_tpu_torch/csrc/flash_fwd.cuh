@@ -11,18 +11,19 @@
 //   out = (round_to<T>(ex * keep) . v) * (l > 0 ? 1 / l : 0)
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the edge-hash dropout factor of flash_common.cuh (1 without
-// dropout).  v and out keep the JAX layout [B, P, h, f], any f >= 1 for #1
-// and #2 (1 to 256 for #5 and #6): the staged tiles are zero past f up to the
-// instantiated width FI (32, 64, 128 or 256), which adds only 0 * 0 terms,
-// and only f columns are stored.  Past 256 the head dim goes in chunks of
-// FI = 256 columns (the last zero past f): a grid axis over the chunks, the
-// block of chunk c writing out's columns [256 c, 256 c + 256) (chunk 0's
-// blocks also lse), the dot score's q . k^T summed over every chunk, each
-// staged through the same Q rows and K tile, so shared memory stays that of
-// FI = 256.  Every chunk re-forms the scores, and the dropout keep factor,
-// a hash of global ids, is the same in each.  fp32 or bf16 v; fp32 softmax
-// and sums; fp32 products as 3xTF32, or one TF32 pass with `one`
-// (precision "default").
+// dropout).  v and out keep the JAX layout [B, P, h, f], any f >= 1: the
+// staged tiles are zero past f up to the instantiated width FI (32, 64, 128
+// or 256), which adds only 0 * 0 terms, and only f columns are stored.  Past
+// 256 the head dim goes in chunks of FI columns (the last zero past f), the
+// dot score's q . k^T summed over every chunk, each staged (#5: projected)
+// through the same Q rows and K tile, so shared memory stays that of one
+// chunk.  #1, #2 (FI = 256), #5 past P = 128 (FI = 256) and #6 (FI = 128)
+// take the chunks as a grid axis, the block of chunk c writing out's columns
+// [FI c, FI c + FI) (chunk 0's blocks also lse): every chunk re-forms the
+// scores, and the dropout keep factor, a hash of global ids, is the same in
+// each.  #5 at P <= 128 loops over them in its whole block (FI = 128), its
+// scores formed once.  fp32 or bf16 v; fp32 softmax and sums; fp32 products
+// as 3xTF32, or one TF32 pass with `one` (precision "default").
 //
 // The score policies:
 // - DotScore (#1): s = q . k^T, q pre-scaled, q and k of v's type and shape.
@@ -89,7 +90,10 @@
 //     every output column.  Dot fp32 at FI = 128: 189 KB; at FI = 256: 211
 //     KB.  Add fp32 at FI = 128: 110 KB.
 // - Outputs leave through shared memory, 16 bytes a thread.
-// - The supported set: P <= 2048; any f for #1 and #2, f <= 256 for #5, #6.
+// - Past f = 256 #5 and #6 run their wide policies, LayerScoreWide and
+//   LayerAddWide (layer_fwd says how, and flash_layer_dot.cu and
+//   flash_layer_add.cu why).
+// - The supported set: P <= 2048, any f >= 1.
 #pragma once
 
 #include <type_traits>
@@ -100,15 +104,17 @@ namespace {
 
 constexpr int kMaxP = 2048;
 
+// kChunked: the wide policies (#5 and #6 past f = 256), whose head dim goes
+// in chunks of FI columns
 template <typename T>
 struct DotScore {
-  static constexpr bool kDot = true, kProject = false;
+  static constexpr bool kDot = true, kProject = false, kChunked = false;
   const T* q;  // [B, P, H, f], pre-scaled
   const T* k;
 };
 
 struct AddScore {
-  static constexpr bool kDot = false, kProject = false;
+  static constexpr bool kDot = false, kProject = false, kChunked = false;
   const float* e_row;  // [B, P, H] fp32
   const float* e_col;
   float slope;  // of the leaky ReLU
@@ -116,7 +122,7 @@ struct AddScore {
 
 template <typename T>
 struct LayerScore {
-  static constexpr bool kDot = true, kProject = true;
+  static constexpr bool kDot = true, kProject = true, kChunked = false;
   const T* x;                 // [B, P, din]
   const T *wq, *wk, *wv;      // [H, din, f]
   const float *bq, *bk, *bv;  // [H, f] fp32
@@ -126,7 +132,7 @@ struct LayerScore {
 
 template <typename T>
 struct LayerAddScore {
-  static constexpr bool kDot = false, kProject = true;
+  static constexpr bool kDot = false, kProject = true, kChunked = false;
   const T* x;                        // [B, P, din]
   const T* w;                        // [H, din, f]
   const float *bias, *a_l, *a_r;     // [H, f] fp32
@@ -134,9 +140,37 @@ struct LayerAddScore {
   float slope;                       // of the leaky ReLU
 };
 
+// #5 past f = 256: LayerScore with q, k and v projected chunk by chunk
+template <typename T>
+struct LayerScoreWide : LayerScore<T> {
+  static constexpr bool kChunked = true;
+};
+
+// #6 past f = 256: AddScore's scalars, formed by layer_scalars_kernel before
+// the launch, with v = z projected in the kernel, chunk by chunk
+template <typename T>
+struct LayerAddWide {
+  static constexpr bool kDot = false, kProject = true, kChunked = true;
+  const float* e_row;  // [B, P, H] fp32: e_l
+  const float* e_col;  // e_r
+  float slope;
+  const T* x;          // [B, P, din]
+  const T* w;          // [H, din, f]
+  const float* bias;   // [H, f] fp32
+  int din, xvec;
+};
+
 template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
 struct FwdCfg {
   static constexpr bool kDot = Score::kDot, kProject = Score::kProject;
+  // head dims past FI: a grid axis over chunks of FI columns (kGrid: #1 and
+  // #2 in the stream block, wide #5 in the stream block, wide #6), or a loop
+  // over them in the block (kLoop: wide #5's whole block)
+  static constexpr bool kLoop = Score::kChunked && WHOLE && kDot;
+  static constexpr bool kGrid = (!WHOLE && !kProject) || (Score::kChunked && !kLoop);
+  // add: e_row and e_col read from fp32 [B, P, H] (#2, wide #6), not formed
+  // in the block (#6)
+  static constexpr bool kReadE = !kDot && (!kProject || Score::kChunked);
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS * 16;  // query rows per block
   static constexpr int kStages = WHOLE || kProject ? 1 : 2;
@@ -156,8 +190,8 @@ struct FwdCfg {
   static constexpr size_t v_elems = kDot && WHOLE ? 0 : size_t(kStages) * KT * ldv;
   // add: e_col of the graph, fp32 (layer add: of the block's one key tile,
   // and e_row of its query rows)
-  static constexpr int kECols = kDot ? 0 : (WHOLE || kProject ? KT : kMaxP);
-  static constexpr int kERows = !kDot && kProject ? kRows : 0;
+  static constexpr int kECols = kDot ? 0 : (WHOLE || !kReadE ? KT : kMaxP);
+  static constexpr int kERows = !kDot && !kReadE ? kRows : 0;
   // whole: adj's edge bits of the block's rows, 16 keys a word
   static constexpr int kBitWords = WHOLE ? kRows * (KT / kGroup) : 0;
   // whole: l of the block's rows, for the warp pair that shares them
@@ -217,17 +251,16 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const int n_tiles = (P + KT - 1) / KT;
   const int n_groups = (P + kGroup - 1) / kGroup;
-  // wide heads (#1 and #2 past f = FI, the stream block): blockIdx.y is the
-  // block's chunk of FI columns of v and out, fv its width; chunk 0's blocks
-  // write lse
-  constexpr bool kWide = !WHOLE && !C::kProject;
-  const int nc = kWide ? (f + FI - 1) / FI : 1;
-  const int col0 = kWide ? int(blockIdx.y) * FI : 0;
-  const int fv = kWide ? min(FI, f - col0) : f;
+  // wide heads (kGrid): blockIdx.y is the block's chunk of FI columns of v
+  // and out, fv its width; chunk 0's blocks write lse.  nc chunks (kLoop:
+  // the block's own)
+  const int nc = C::kGrid || C::kLoop ? (f + FI - 1) / FI : 1;
+  const int col0 = C::kGrid ? int(blockIdx.y) * FI : 0;
+  const int fv = C::kGrid ? min(FI, f - col0) : f;
   const long vbase = base + col0;
   if (col0 != 0) lse = nullptr;
 
-  if constexpr (!kDot && !C::kProject)
+  if constexpr (C::kReadE)
     for (int c = tid; c < P; c += C::kThreads) ecs[c] = sc.e_col[sbase + long(c) * H];
   for (int i = tid; i < WARPS * n_tiles; i += C::kThreads) flags[i] = 0u;
   for (int i = tid; i < C::kBitWords; i += C::kThreads) rbits[i] = 0;
@@ -270,40 +303,56 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     while (j < n_tiles && tmask[j] == 0u) ++j;
     return j;
   };
-  // layer: rows [n0, n0 + R) of q (which 0), k (1) or v (2) into dst
-  auto project = [&](auto rows, int which, int n0, uint32_t live, T* dst, int ld) {
-    if constexpr (C::kProject && kDot) {
-      const long wbase = long(hh) * sc.din * f;
-      const T* w = which == 0 ? sc.wq : which == 1 ? sc.wk : sc.wv;
-      const float* bias = (which == 0 ? sc.bq : which == 1 ? sc.bk : sc.bv) + long(hh) * f;
+  // layer: rows [n0, n0 + R) of q (which 0), k (1) or v (2; wide #6: z)
+  // into dst, columns [c0, c0 + FI) of the head (c0 = 0 unless wide)
+  auto project = [&](auto rows, int which, int n0, uint32_t live, T* dst, int ld, int c0) {
+    if constexpr (C::kProject && (kDot || C::kReadE)) {
+      const long wbase = long(hh) * sc.din * f + c0;
+      const T* w;
+      const float* bias;
+      float scale = 1.f;
+      if constexpr (kDot) {
+        w = which == 0 ? sc.wq : which == 1 ? sc.wk : sc.wv;
+        bias = which == 0 ? sc.bq : which == 1 ? sc.bk : sc.bv;
+        if (which == 0) scale = sc.scale;
+      } else {
+        w = sc.w;
+        bias = sc.bias;
+      }
       project_tile<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK, ONE>(
-          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, w + wbase, f, vec, bias,
-          which == 0 ? sc.scale : 1.f, n0, P, live, dst, ld, pxs, pws, tid);
+          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, w + wbase, f, min(FI, f - c0), vec,
+          bias + long(hh) * f + c0, scale, n0, P, live, dst, ld, pxs, pws, tid);
     }
   };
   // layer add: rows [n0, n0 + R) of z into dst, and their e_row, e_col into
   // erow, ecol (either may be null)
   auto project_z = [&](auto rows, int n0, uint32_t live, T* dst, int ld, float* erow,
                        float* ecol) {
-    if constexpr (C::kProject && !kDot) {
+    if constexpr (C::kProject && !kDot && !C::kReadE) {
       const long hf = long(hh) * f;
       project_tile_scores<T, decltype(rows)::value, C::kNJ, WARPS, C::kPK, ONE>(
-          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, sc.w + hf * sc.din, f, vec,
+          sc.x, long(b) * P * sc.din, sc.din, sc.xvec, sc.w + hf * sc.din, f, f, vec,
           sc.bias + hf, sc.a_l + hf, sc.a_r + hf, n0, P, live, dst, ld, pxs, pws, erow, ecol,
           tid);
     }
   };
   using KRows = std::integral_constant<int, KT>;
-  // dot: K (wide: staged chunk by chunk with Q, stage_qk), and V too unless
-  // whole; add: V; layer add: z as V and its e_col (whole: every node live
-  // as a row or a key, with e_row too)
+  using QRows = std::integral_constant<int, C::kRows>;
+  // dot: K (wide: staged chunk by chunk with Q in the loop over the chunks),
+  // and V too unless whole (wide: V's own chunk); add: V; layer add: z as V
+  // and its e_col (whole: every node live as a row or a key, with e_row
+  // too); wide layer add: z's chunk as V
   auto stage_kv = [&](int j, int st, bool with_v) {
-    if constexpr (C::kProject && !kDot) {
+    if constexpr (C::kProject && !kDot && !C::kReadE) {
       project_z(KRows{}, j * KT, WHOLE ? tmask[j] | qlive : tmask[j], vs, C::ldv,
                 WHOLE ? ers : nullptr, ecs);
+    } else if constexpr (C::kProject && !kDot) {
+      project(KRows{}, 2, j * KT, tmask[j], vs, C::ldv, col0);
     } else if constexpr (C::kProject) {
-      project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk);
-      if (with_v) project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv);
+      if constexpr (!Score::kChunked)
+        project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk, 0);
+      if (with_v)
+        project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv, col0);
     } else {
       if constexpr (kDot) {
         if (nc == 1)
@@ -334,7 +383,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   for (int mt = 0; mt < MT; ++mt) zero_acc(o[mt]);
   float m_run[2] = {kDead, kDead}, l_run[2] = {0.f, 0.f};
   float er[2] = {0.f, 0.f};  // add: e_row of rows g and g + 8 of the warp
-  if constexpr (!kDot && !C::kProject) {
+  if constexpr (C::kReadE) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = row_w + g + 8 * h2;
@@ -342,14 +391,15 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     }
   }
 
-  // dot: Q (the live warps' rows) and the first live key tile; add: its V;
-  // layer add stream: e_row of the live warps' rows (their z, projected into
-  // the ex rows, is not used), then z and e_col of the first live key tile
-  if constexpr (C::kProject && kDot)
-    project(std::integral_constant<int, C::kRows>{}, 0, r0, qlive, qs, C::ldq);
-  else if constexpr (C::kProject && !WHOLE)
-    project_z(std::integral_constant<int, C::kRows>{}, r0, qlive, qs, C::ldq, ers, nullptr);
-  else if constexpr (kDot) {
+  // dot: Q (the live warps' rows; wide: chunk by chunk with K in the loop
+  // over the chunks) and the first live key tile; add: its V; layer add
+  // stream: e_row of the live warps' rows (their z, projected into the ex
+  // rows, is not used), then z and e_col of the first live key tile
+  if constexpr (C::kProject && kDot) {
+    if constexpr (!Score::kChunked) project(QRows{}, 0, r0, qlive, qs, C::ldq, 0);
+  } else if constexpr (C::kProject && !WHOLE && !C::kReadE) {
+    project_z(QRows{}, r0, qlive, qs, C::ldq, ers, nullptr);
+  } else if constexpr (kDot) {
     if (nc == 1)
       stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq,
                         tid, C::kThreads);
@@ -371,7 +421,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         cp_async_wait<1>();  // Q and this tile's K and V have landed
       __syncthreads();
     }
-    if constexpr (!kDot && C::kProject) {  // layer add: e_row of rows g and g + 8
+    if constexpr (!kDot && !C::kReadE) {  // layer add: e_row of rows g and g + 8
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int row = row_w + g + 8 * h2;
@@ -386,17 +436,23 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     const uint32_t nm = ntile_mask(gm);
     float s[NTS][4];
     if constexpr (kDot) zero_acc(s);
-    if constexpr (kWide && kDot) {
+    if constexpr (kDot && (C::kGrid || C::kLoop)) {
       // wide: q . k^T summed over the chunks of FI columns, each chunk's Q
-      // rows and K tile staged into the one Q buffer and this stage's K tile
-      for (int cc = 0; cc < (nc > 1 ? nc : 0); ++cc) {
+      // rows and K tile staged (layer: projected) into the one Q buffer and
+      // this stage's K tile
+      for (int cc = 0; cc < (nc > 1 || Score::kChunked ? nc : 0); ++cc) {
         const int fc = min(FI, f - cc * FI);
-        stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
-                          qs, C::ldq, tid, C::kThreads);
-        stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec, tmask[j],
-                          ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
-        cp_async_commit();
-        cp_async_wait<0>();
+        if constexpr (C::kProject) {
+          project(QRows{}, 0, r0, qlive, qs, C::ldq, cc * FI);
+          project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk, cc * FI);
+        } else {
+          stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
+                            qs, C::ldq, tid, C::kThreads);
+          stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec, tmask[j],
+                            ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
         __syncthreads();
         if (gm != 0u)
           for (int k0 = 0; k0 < fc; k0 += KS)
@@ -405,7 +461,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       }
     }
     if (gm != 0u) {
-      if constexpr (kDot) {
+      if constexpr (kDot && !Score::kChunked) {
         if (nc == 1)
           for (int k0 = 0; k0 < kf; k0 += KS)
             mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
@@ -436,7 +492,7 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         float2 ec2 = make_float2(0.f, 0.f);  // add: e_col of keys kc, kc + 1
         if constexpr (!kDot)
           if ((nm >> jj) & 1u)  // layer add: ecs holds this tile's keys only
-            ec2 = *reinterpret_cast<const float2*>(ecs + (C::kProject ? 0 : j * KT) + jj * 8 +
+            ec2 = *reinterpret_cast<const float2*>(ecs + (C::kReadE ? j * KT : 0) + jj * 8 +
                                                    2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -496,11 +552,62 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         }
       }
     }
+    if constexpr (C::kLoop) {
+      // wide #5's whole block: the one key tile has made l final, so each
+      // chunk of FI output columns in turn projects V's chunk over K, sums
+      // ex . V_c in the warp pairs and leaves through the V buffer
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float l = l_run[h2];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        if (t == 0) lrow[warp * 16 + g + 8 * h2] = l;
+      }
+      const int pr = warp >> 1, half = warp & 1;
+      const uint32_t g0 = flags[(2 * pr) * n_tiles + j], g1 = flags[(2 * pr + 1) * n_tiles + j];
+      const T* pp = ps + size_t(pr) * 32 * C::ldp;
+#pragma unroll 1
+      for (int c0 = 0; c0 < f; c0 += FI) {
+        const int fo = min(FI, f - c0), nt = (fo + 7) / 8;  // out's columns and n-tiles
+        const uint32_t hmask = ((nt >= 32 ? 0xffffffffu : (1u << nt) - 1u) >> (half * NTW)) &
+                               (NTW >= 32 ? 0xffffffffu : (1u << NTW) - 1u);
+        __syncthreads();  // ex and lrow are in place, or the last chunk's out has left
+        project(KRows{}, 2, 0, tmask[j], vs, C::ldv, c0);
+        __syncthreads();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) zero_acc(o[mt]);
+#pragma unroll 1
+        for (int gi = 0; gi < KT / kGroup; ++gi) {
+          const uint32_t mts = ((g0 >> gi) & 1u) | (((g1 >> gi) & 1u) << 1);
+          if (mts == 0u) continue;
+#pragma unroll
+          for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
+            mma_step2<NTW, ONE>(o, pp, C::ldp, vs, C::ldv, k0, half * (FI / 2), hmask, mts);
+        }
+        __syncthreads();  // V is read
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int rb2 = pr * 32 + mt * 16 + g + 8 * h2;  // the row in the block
+            const float l = lrow[rb2];
+            const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+            for (int jj = 0; jj < NTW; ++jj)
+              store_pair<T>(vs + size_t(rb2) * C::ldv + half * (FI / 2) + jj * 8 + 2 * t,
+                            o[mt][jj][2 * h2] * inv, o[mt][jj][2 * h2 + 1] * inv);
+          }
+        __syncthreads();
+        store_tile<T>(vs + size_t(warp) * 16 * C::ldv, C::ldv, out, base + c0, row_stride, row_w,
+                      16, P, fo, vec, lane, 32);
+      }
+      return;
+    }
     if (WHOLE) {
       if constexpr (kDot) {  // V over K, once every warp has its scores
         __syncthreads();
         if constexpr (C::kProject)
-          project(KRows{}, 2, 0, tmask[j], vs, C::ldv);
+          project(KRows{}, 2, 0, tmask[j], vs, C::ldv, 0);
         else
           stage_rows<T, FI>(v, base, row_stride, 0, KT, P, f, vec, tmask[j], vs, C::ldv, tid,
                             C::kThreads);
@@ -602,11 +709,12 @@ cudaError_t launch_as(Score sc, const void* v, const uint8_t* adj, const float* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::bytes));
   if (err != cudaSuccess) return err;
   const long n_blocks = long(B) * H * ((P + C::kRows - 1) / C::kRows);
-  const int nc = (f + FI - 1) / FI;  // chunks of FI columns: 1 but for wide #1 and #2
-  if (n_blocks > 0x7fffffffL || nc > 65535 || ((WHOLE || C::kProject) && nc > 1))
+  const int nc = (f + FI - 1) / FI;  // chunks of FI columns: 1 but for the wide heads
+  if (n_blocks > 0x7fffffffL || nc > 65535 || (!C::kGrid && !C::kLoop && nc > 1))
     return cudaErrorInvalidValue;
   const int vec = fill_bytes<T>(f);
-  kernel<<<dim3(unsigned(n_blocks), unsigned(nc)), C::kThreads, C::bytes, stream>>>(
+  kernel<<<dim3(unsigned(n_blocks), unsigned(C::kGrid ? nc : 1)), C::kThreads, C::bytes,
+           stream>>>(
       sc, static_cast<const T*>(v), adj, val, static_cast<T*>(out), lse, B, P, H, f, vec, drop);
   return cudaGetLastError();
 }
@@ -655,12 +763,13 @@ cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* 
   return launch_fi<Score, T, 256>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
 }
 
-// The whole-layer kernels #5 and #6 (policy LayerScore<T> or
+// The whole-layer kernels #5 and #6 up to f = 256 (policy LayerScore<T> or
 // LayerAddScore<T>): P <= 128 with FI <= 128 (every GT and GAT serving and
-// training shape) takes the whole block of 8 warps over all 128 rows of one
-// (graph, head), so each node is projected once; larger shapes the stream
-// block, 8 warps over 128 query rows where the block fits (FI = 64, 128),
-// else 4 over 64, each projecting the live key tiles as it reaches them.
+// training shape at f <= 128) takes the whole block of 8 warps over all 128
+// rows of one (graph, head), so each node is projected once; larger shapes
+// the stream block, 8 warps over 128 query rows where the block fits (FI =
+// 64, 128), else 4 over 64, each projecting the live key tiles as it
+// reaches them.
 template <typename Score, typename T, int FI>
 cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H,
                          int f, Dropout drop, bool one, cudaStream_t stream) {
@@ -676,16 +785,36 @@ cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, 
 }
 
 // Checks the shape and launches a whole-layer kernel: 1 <= P <= kMaxP,
-// 1 <= f <= 256, din >= 1.
+// din >= 1, and 1 <= f <= 256, or any f >= 1 for the wide policies
+// (LayerScoreWide, LayerAddWide), which go in chunks of FI columns: at
+// P <= 128 in the whole block at FI = 128 (wide #5 loops over the chunks
+// with the scores formed once; wide #6 takes them as a grid axis, each chunk
+// re-forming its cheap scores from the scalars), past it in the stream block
+// with a grid axis over the chunks (#5: #1's FI = 256 block, re-forming q .
+// k^T from every chunk of each key tile; #6: FI = 128 on 8 warps).
 template <typename Score, typename T>
 cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H, int f,
                       Dropout drop, bool one, cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || f > 256 || sc.din < 1)
+  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || sc.din < 1 ||
+      (!Score::kChunked && f > 256))
     return cudaErrorInvalidValue;
-  if (f <= 32) return launch_layer<Score, T, 32>(sc, adj, out, B, P, H, f, drop, one, stream);
-  if (f <= 64) return launch_layer<Score, T, 64>(sc, adj, out, B, P, H, f, drop, one, stream);
-  if (f <= 128) return launch_layer<Score, T, 128>(sc, adj, out, B, P, H, f, drop, one, stream);
-  return launch_layer<Score, T, 256>(sc, adj, out, B, P, H, f, drop, one, stream);
+  if constexpr (Score::kChunked) {
+    if (P <= 128)
+      return launch<Score, T, 128, 8, 128, true>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
+                                                 H, f, drop, one, stream);
+    if constexpr (Score::kDot)
+      return launch<Score, T, 256, 4, 32, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
+                                                 H, f, drop, one, stream);
+    else
+      return launch<Score, T, 128, 8, 64, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
+                                                 H, f, drop, one, stream);
+  } else {
+    if (f <= 32) return launch_layer<Score, T, 32>(sc, adj, out, B, P, H, f, drop, one, stream);
+    if (f <= 64) return launch_layer<Score, T, 64>(sc, adj, out, B, P, H, f, drop, one, stream);
+    if (f <= 128)
+      return launch_layer<Score, T, 128>(sc, adj, out, B, P, H, f, drop, one, stream);
+    return launch_layer<Score, T, 256>(sc, adj, out, B, P, H, f, drop, one, stream);
+  }
 }
 
 }  // namespace

@@ -14,9 +14,10 @@
 //   out = (round_to<T>(ex) . v) / l            an empty row gives exactly 0
 // out is [B, P, H, f] in x's type (the node-major layout of kernel #1).  No
 // edge values, no dropout and no lse, as in the Pallas kernel.  fp32 or bf16,
-// any P <= 2048, any f from 1 to 256 (tiles zero past f up to the
-// instantiated width 32, 64, 128 or 256), any din >= 1.  fp32 products as
-// 3xTF32, or one TF32 pass (precision "default"), the projections too.
+// any P <= 2048, any f >= 1 (tiles zero past f up to the instantiated width
+// 32, 64, 128 or 256; past 256 in chunks of that width), any din >= 1.  fp32
+// products as 3xTF32, or one TF32 pass (precision "default"), the
+// projections too.
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the three projections,
 // 3 * 2 * din * f operations per node and head, and the two attention
@@ -46,9 +47,23 @@
 // - stream (P > 128, or f > 128): #1's stream block, walking key tiles with
 //   the online softmax; it projects each live key tile's K and V as it
 //   reaches it, into one stage, so nothing of the graph stays resident and
-//   every P up to 2048 fits (fp32 at f = 256: 172 KB).  K and V are
+//   every P up to 2048 fits (fp32 at f = 256: 164 KB).  K and V are
 //   projected once per query block: 8 warps over 128 rows at f = 64 and
 //   128, 4 warps over 64 rows at f = 32 and 256.
+// Past f = 256 (LayerScoreWide) the head goes in chunks of FI columns, q .
+// k^T summed over them, so shared memory stays that of one chunk:
+// - whole (P <= 128, FI = 128): the block forms the fp32 scores once, in
+//   registers, projecting each chunk of Q and K once into the Q and K
+//   buffers and adding its products; after the exact softmax, each chunk of
+//   out in turn projects V's chunk over K, sums ex . V_c in the warp pairs
+//   and leaves through the V buffer.  q, k and v are each projected once per
+//   (graph, head), as at f <= 128 (fp32 212 KB, bf16 144 KB);
+// - stream (P > 128, FI = 256): #1's grid axis over the chunks of out
+//   (blockIdx.y), each block projecting its own chunk of V and, for every
+//   live key tile, every chunk of its Q rows and of the tile's K, so each
+//   block re-forms the scores: the chunk blocks repeat the q and k
+//   projections, and each block projects its Q rows once per key tile
+//   (fp32 164 KB, bf16 93 KB).
 
 #include "flash_fwd.cuh"
 
@@ -56,7 +71,7 @@ extern "C" {
 
 // dtype (of x, the weights and out): 0 = fp32, 1 = bf16.  x: [B, P, din]
 // contiguous; wq, wk, wv: [H, din, F] contiguous; bq, bk, bv: fp32 [H, F];
-// adj: [B, P, P] uint8; out: [B, P, H, F].  1 <= P <= 2048, 1 <= F <= 256,
+// adj: [B, P, P] uint8; out: [B, P, H, F].  1 <= P <= 2048, F >= 1,
 // din >= 1; one_pass != 0: fp32 products as one TF32 pass.  Launches on
 // `stream`, allocates nothing, and returns cudaGetLastError()
 // (cudaErrorInvalidValue outside that set).
@@ -74,6 +89,9 @@ int dfgnn_flash_layer_dot_fwd(int dtype, const void* x, const void* wq, const vo
     const LayerScore<float> sc{static_cast<const float*>(x),  static_cast<const float*>(wq),
                                static_cast<const float*>(wk), static_cast<const float*>(wv),
                                fq, fk, fv, din, fill_bytes<float>(din), scale};
+    if (F > 256)
+      return int(layer_fwd<LayerScoreWide<float>, float>(LayerScoreWide<float>{sc}, a, out, B, P,
+                                                         H, F, no_drop, one_pass != 0, s));
     return int(layer_fwd<LayerScore<float>, float>(sc, a, out, B, P, H, F, no_drop,
                                                    one_pass != 0, s));
   }
@@ -82,6 +100,9 @@ int dfgnn_flash_layer_dot_fwd(int dtype, const void* x, const void* wq, const vo
     const LayerScore<bf16> sc{static_cast<const bf16*>(x),  static_cast<const bf16*>(wq),
                               static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
                               fq, fk, fv, din, fill_bytes<bf16>(din), scale};
+    if (F > 256)
+      return int(layer_fwd<LayerScoreWide<bf16>, bf16>(LayerScoreWide<bf16>{sc}, a, out, B, P, H,
+                                                       F, no_drop, false, s));
     return int(layer_fwd<LayerScore<bf16>, bf16>(sc, a, out, B, P, H, F, no_drop, false, s));
   }
   return int(cudaErrorInvalidValue);

@@ -393,14 +393,17 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
 // others are neither loaded nor written) and every column c below f rounded
 // up to the pass width, columns past f being exact zeros.  x is [.., din] of
 // T from element `xbase` (row n0 + r of one graph, rows past P read as 0), W
-// [din, f] of T and bias fp32 [f].  x and W stream through a two-stage
+// [din, f] of T with row stride wstride (past f: a chunk of a wider head's
+// columns) and bias fp32 [f]; a null dst stores nothing (#6's scalar
+// pre-pass).  x and W stream through a two-stage
 // cp.async ring of KC-deep chunks (xs: 2 x [R][KC + pad], ws: 2 x [KC][CW +
 // 8]; W from L2, where every block reads it).  A warp owns a 32 x 8 NJ tile
 // of each pass of CW columns, the passes sized so that the WARPS warps cover
 // it once, and sums it with mma_step2 (3xTF32 in fp32: each k-step's
 // products summed apart; one TF32 pass with ONE).  Starts by writing the ring and ends after the
 // last chunk's barrier with the stores to dst, so the caller waits at a
-// barrier before reading dst.  xvec and wvec: the fill_bytes of din and f.
+// barrier before reading dst.  xvec and wvec: the fill_bytes of din and
+// wstride.
 // With SCORES (#6) it also forms, from the unrounded fp32 z, the row scalars
 //   el[r] = sum_c z[r][c] a_l[c],  er[r] = sum_c z[r][c] a_r[c]
 // (a_l, a_r fp32 [f]; el or er may be null) for the same rows, in a fixed
@@ -410,10 +413,10 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long base,
 // with a barrier, so the next call may refill the ring.
 template <typename T, int R, int NJ, int WARPS, int KC, bool SCORES, bool ONE>
 __device__ __forceinline__ void project_tile_body(
-    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
-    int wvec, const float* __restrict__ bias, float scale, int n0, int P, uint32_t live, T* dst,
-    int ld, T* xs, T* ws, int tid, const float* __restrict__ a_l, const float* __restrict__ a_r,
-    float* el, float* er) {
+    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int wstride,
+    int f, int wvec, const float* __restrict__ bias, float scale, int n0, int P, uint32_t live,
+    T* dst, int ld, T* xs, T* ws, int tid, const float* __restrict__ a_l,
+    const float* __restrict__ a_r, float* el, float* er) {
   constexpr int kThreads = WARPS * 32;
   constexpr int CW = kThreads * 8 * NJ / R;  // columns a pass
   constexpr int TC = CW / (8 * NJ);          // warp tiles across a pass
@@ -440,7 +443,7 @@ __device__ __forceinline__ void project_tile_body(
       const int k0 = ch * KC;
       stage_rows<T, KC>(x + k0, xbase, din, n0, R, P, din - k0, xvec, live,
                         xs + size_t(slot) * R * ldx, ldx, tid, kThreads);
-      stage_rows<T, CW>(w + c0, 0, f, k0, KC, din, f - c0, wvec, 0xffffffffu,
+      stage_rows<T, CW>(w + c0, 0, wstride, k0, KC, din, f - c0, wvec, 0xffffffffu,
                         ws + size_t(slot) * KC * ldw, ldw, tid, kThreads);
     };
     stage(0, 0);
@@ -495,7 +498,8 @@ __device__ __forceinline__ void project_tile_body(
         for (int h2 = 0; h2 < 2; ++h2) {
           const float z0 = (acc[mt][j][2 * h2] + b0) * scale;
           const float z1 = (acc[mt][j][2 * h2 + 1] + b1) * scale;
-          store_pair<T>(dst + size_t(wr + 16 * mt + g + 8 * h2) * ld + c, z0, z1);
+          if (dst != nullptr)
+            store_pair<T>(dst + size_t(wr + 16 * mt + g + 8 * h2) * ld + c, z0, z1);
           if constexpr (SCORES) {
             sl[mt][h2] += z0 * l0 + z1 * l1;
             sr[mt][h2] += z0 * q0 + z1 * q1;
@@ -545,26 +549,26 @@ __device__ __forceinline__ void project_tile_body(
 // SM.)
 template <typename T, int R, int NJ, int WARPS, int KC, bool ONE>
 __device__ __noinline__ void project_tile(const T* __restrict__ x, long xbase, int din,
-                                             int xvec, const T* __restrict__ w, int f, int wvec,
-                                             const float* __restrict__ bias, float scale, int n0,
-                                             int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
-                                             int tid) {
-  project_tile_body<T, R, NJ, WARPS, KC, false, ONE>(x, xbase, din, xvec, w, f, wvec, bias,
-                                                     scale, n0, P, live, dst, ld, xs, ws, tid,
-                                                     nullptr, nullptr, nullptr, nullptr);
+                                             int xvec, const T* __restrict__ w, int wstride,
+                                             int f, int wvec, const float* __restrict__ bias,
+                                             float scale, int n0, int P, uint32_t live, T* dst,
+                                             int ld, T* xs, T* ws, int tid) {
+  project_tile_body<T, R, NJ, WARPS, KC, false, ONE>(x, xbase, din, xvec, w, wstride, f, wvec,
+                                                     bias, scale, n0, P, live, dst, ld, xs, ws,
+                                                     tid, nullptr, nullptr, nullptr, nullptr);
 }
 
 // #6's projection: z and its row scalars el, er (project_tile_body with
 // SCORES), scale 1.  Not inlined, as project_tile.
 template <typename T, int R, int NJ, int WARPS, int KC, bool ONE>
 __device__ __noinline__ void project_tile_scores(
-    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int f,
-    int wvec, const float* __restrict__ bias, const float* __restrict__ a_l,
+    const T* __restrict__ x, long xbase, int din, int xvec, const T* __restrict__ w, int wstride,
+    int f, int wvec, const float* __restrict__ bias, const float* __restrict__ a_l,
     const float* __restrict__ a_r, int n0, int P, uint32_t live, T* dst, int ld, T* xs, T* ws,
     float* el, float* er, int tid) {
-  project_tile_body<T, R, NJ, WARPS, KC, true, ONE>(x, xbase, din, xvec, w, f, wvec, bias, 1.f,
-                                                    n0, P, live, dst, ld, xs, ws, tid, a_l, a_r,
-                                                    el, er);
+  project_tile_body<T, R, NJ, WARPS, KC, true, ONE>(x, xbase, din, xvec, w, wstride, f, wvec,
+                                                    bias, 1.f, n0, P, live, dst, ld, xs, ws, tid,
+                                                    a_l, a_r, el, er);
 }
 
 // Bit i set iff byte i of w is not 0.

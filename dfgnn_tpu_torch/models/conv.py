@@ -125,6 +125,22 @@ AGNN_DENSE_WIDTH = 192      # dense won dim 256 in 3 runs of 4, flash dims <= 12
 # host-bound and spreads, but wins at 512 on the median of the four runs.
 # The bound sits between the two points, as the thresholds above do.
 GAT_FUSED_MAX_P = 384
+# bf16 GAT: #6 only up to this head dim, where its whole block (P <= 128)
+# projects each node's z once; past it #6 runs a stream block that projects
+# the nodes of each graph three times (f <= 256), or forms e_l and e_r in a
+# first launch and projects z again as v (f > 256), on mma.sync where the
+# flash route projects once on cuBLAS.  chip_smoke.py's phase 27 times a
+# bf16 GATConv forward (din 512, P = 128, 1024 graphs) through #6 and
+# through the flash route on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6), in three runs: head dim 512 2.3617, 2.3697, 2.3837 against
+# 1.3760, 1.3594, 1.3633 ms; 384 1.8409, 1.8478, 1.8468 against 1.1676,
+# 1.1692, 1.1678; 256 3.4741, 3.3904, 3.3942 against 0.8074, 0.7924,
+# 0.7942; 192 2.7105, 2.6425 against 0.7060, 0.7003; 128 0.5204, 0.5332
+# against 0.4663, 0.4977.  At 128 the projection's share decides (din 512
+# here); phase 16's shmoo reads dim 128 (din 128, bs=1024) 0.2626 against
+# 0.4132, so the bound sits at 128, below every point #6 lost by 1.5x or
+# more.
+GAT_FUSED_MAX_F = 128
 
 
 def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
@@ -150,9 +166,9 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
 
     Both are shape rules on what the kernels take as well: ``flash_fused``
     only where kernel #5 takes the shape (:func:`layer_fits` at the head
-    dim, ``out_size`` by default: any f up to 256, P up to 2048), else
+    dim, ``out_size`` by default: any head dim, P up to 2048), else
     ``flash``; ``flash`` only where kernels #1 and #3 take the shape
-    (:func:`flash_takes`: any head dim, P up to 2048), else ``dense``.
+    (:func:`flash_takes`: the same set), else ``dense``.
     """
     f = out_size if head_dim is None else head_dim
     n_tokens = g.n_graphs * g.np_pad
@@ -172,12 +188,14 @@ def _auto_bf16_gat(g: DenseBatch, head_dim: int) -> str:
     """GAT's bf16 ``method="auto"`` on a DenseBatch.  With edge values it
     stays ``auto`` (the decomposed layer, where the dispatcher's shape rule
     picks flash or dense).  Without, the whole-layer kernel #6 where it
-    takes the shape (:func:`layer_fits`) and ``np_pad`` is at most
-    ``GAT_FUSED_MAX_P``, the measured bound; else ``flash`` where kernels #2
-    and #4 take the shape, else ``dense``."""
+    takes the shape (:func:`layer_fits`: any head dim, P up to 2048) and
+    ``np_pad`` and ``head_dim`` are at most ``GAT_FUSED_MAX_P`` and
+    ``GAT_FUSED_MAX_F``, the measured bounds (JAX's bf16 GAT always fuses);
+    else ``flash`` where kernels #2 and #4 take the shape, else ``dense``."""
     if g.val is not None:
         return "auto"
-    if layer_fits("add", g.np_pad, head_dim) and g.np_pad <= GAT_FUSED_MAX_P:
+    if (layer_fits("add", g.np_pad, head_dim) and g.np_pad <= GAT_FUSED_MAX_P
+            and head_dim <= GAT_FUSED_MAX_F):
         return "flash_fused"
     return "flash" if flash_takes("add", g.np_pad, head_dim) else "dense"
 

@@ -330,7 +330,9 @@ def _run_segments(sb: SegmentBucket, chunk_fn, row_bytes: int, n_nodes: int):
 
 
 def _segsum(x, seg_id, bins: int):
-    return x.new_zeros((bins, *x.shape[1:])).index_add(0, seg_id, x)
+    # index_put_ with accumulate sums each bin's rows in a fixed order, where
+    # index_add's CUDA atomics sum them in a different order each run
+    return x.new_zeros((bins, *x.shape[1:])).index_put_((seg_id,), x, accumulate=True)
 
 
 def _make_tabs(k, v, e_col, score, gather_dtype, packed=True):

@@ -45,10 +45,9 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernels take: #1 to #4 any head dim (past 256 in chunks of 256
-# columns), #5 and #6 any f from 1 to LAYER_MAX_F (the tiles are zero past
-# f); all of them at most KERNEL_MAX_P nodes.
-LAYER_MAX_F = 256
+# What the kernels take: any head dim f >= 1 (the tiles are zero past f; #1
+# to #4 past 256 in chunks of 256 columns, #5 and #6 past 256 in chunks of
+# 128 or 256), at most KERNEL_MAX_P nodes.
 KERNEL_MAX_P = 2048
 PRECISIONS = ("highest", "default")
 # #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
@@ -99,7 +98,7 @@ def _library() -> ctypes.CDLL:
     lib.dfgnn_flash_add_bwd.restype = i
     lib.dfgnn_flash_layer_dot_fwd.argtypes = [i, *[vp] * 9, i, i, i, i, i, f, i, vp]
     lib.dfgnn_flash_layer_dot_fwd.restype = i
-    lib.dfgnn_flash_layer_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, i, *drop, i, vp]
+    lib.dfgnn_flash_layer_add_fwd.argtypes = [i, *[vp] * 8, i, i, i, i, i, *drop, i, vp]
     lib.dfgnn_flash_layer_add_fwd.restype = i
     return lib
 
@@ -648,11 +647,12 @@ def flash_graph_attention(
 def layer_fits(score: str, P: int, f: int) -> bool:
     """Whether kernel #5 (``score="dot"``) or #6 (``"add"``) takes a layer of
     head dim ``f`` over ``P`` nodes.  Both stream their key tiles past
-    P = 128 (their blocks do not grow with P), so both take one set, in
-    fp32 and bf16: any f from 1 to LAYER_MAX_F and P <= KERNEL_MAX_P."""
+    P = 128 and take a wide head in column chunks (their blocks grow with
+    neither), so both take one set, in fp32 and bf16, as :func:`flash_takes`
+    does: any f >= 1 and P <= KERNEL_MAX_P."""
     if score not in ("dot", "add"):
         raise ValueError(f"unknown score mode {score!r}")
-    return 1 <= f <= LAYER_MAX_F and 1 <= P <= KERNEL_MAX_P
+    return f >= 1 and 1 <= P <= KERNEL_MAX_P
 
 
 def flash_takes(score: str, P: int, f: int) -> bool:
@@ -744,12 +744,10 @@ def _check_layer_args(score, x, adj, ws, fp32s):
     if layer_fits(score, P, f):
         return
     kernel = "#5 (_layer_kernel_dot)" if score == "dot" else "#6 (_layer_kernel_add)"
-    item = ("item f (head dims past 256 in #5 and #6)" if not 1 <= f <= LAYER_MAX_F
-            else "item e (graphs past P = 2048)")
     raise ValueError(
-        f"kernel {kernel} takes 1 <= f <= {LAYER_MAX_F} and 1 <= P <= {KERNEL_MAX_P}, "
-        f"not P={P}, f={f}: ROADMAP.md section 2 {item}. The supported sets are in that "
-        "section (kernels #5 and #6); impl='flash' runs the decomposed layer")
+        f"kernel {kernel} takes f >= 1 and 1 <= P <= {KERNEL_MAX_P}, not P={P}, f={f}: "
+        "ROADMAP.md section 2 item e (graphs past P = 2048). The supported sets are in that "
+        "section (kernels #5 and #6); method='auto' runs larger graphs densely")
 
 
 def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
@@ -759,7 +757,7 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
     CPU tensors run :func:`flash_layer_dot_fwd_plain`.  CUDA tensors launch
     kernel #5 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w*`` ``[h, din, f]`` of x's dtype, fp32 ``b*`` ``[h, f]``, uint8
-    ``adj``, all contiguous, 1 <= f <= 256 and P <= 2048 (:func:`layer_fits`);
+    ``adj``, all contiguous, any f >= 1 and P <= 2048 (:func:`layer_fits`);
     ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.
     """
     if x.device.type == "cpu":
@@ -791,9 +789,12 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     CPU tensors run :func:`flash_layer_add_fwd_plain`.  CUDA tensors launch
     kernel #6 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w`` ``[h, din, f]`` of x's dtype, fp32 ``b``, ``al``, ``ar`` ``[h, f]``,
-    uint8 ``adj``, all contiguous, 1 <= f <= 256 and P <= 2048
+    uint8 ``adj``, all contiguous, any f >= 1 and P <= 2048
     (:func:`layer_fits`); ``0 <= rate < 1`` and a uint32 ``seed``;
-    ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.
+    ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.  The
+    wrapper always passes a ``[2, B, P, h]`` fp32 scratch tensor: past f =
+    256 the C entry point launches twice (the score scalars into it, then
+    the attention), one #6 launch in the count.
     """
     if x.device.type == "cpu":
         return flash_layer_add_fwd_plain(x, w, b, al, ar, adj, slope=slope, seed=seed,
@@ -806,12 +807,14 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     B, P, din = x.shape
     h, _, f = w.shape
     out = torch.empty((B, P, h, f), dtype=x.dtype, device=x.device)
+    scalars = torch.empty((2, B, P, h), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.dfgnn_flash_layer_add_fwd(
             _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), al.data_ptr(),
-            ar.data_ptr(), adj.data_ptr(), out.data_ptr(), B, P, h, din, f, float(slope),
-            *_dropout_args(seed, rate), int(one), torch.cuda.current_stream().cuda_stream)
+            ar.data_ptr(), adj.data_ptr(), out.data_ptr(), scalars.data_ptr(), B, P, h, din,
+            f, float(slope), *_dropout_args(seed, rate), int(one),
+            torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_layer_add_fwd")
     global LAYER_ADD_LAUNCHES
     LAYER_ADD_LAUNCHES += 1

@@ -704,10 +704,11 @@ def test_layer_add_kernel_takes_any_head_dim_and_P(cuda, f, P, dtype, rate):
     assert not out[::4].any() and not out[~adj.bool().any(-1)].any()
 
 
-@pytest.mark.parametrize("P,f", [(128, 128), (300, 75)])
+@pytest.mark.parametrize("P,f", [(128, 128), (300, 75), (128, 300), (300, 520)])
 def test_layer_add_kernel_is_deterministic(cuda, P, f):
     """Two launches of #6 are bitwise equal: e_l and e_r are summed in a
-    fixed order, with no atomics."""
+    fixed order, with no atomics (past f = 256 too, where a first launch
+    forms them)."""
     x, (w, _, _), (b, al, ar), adj = _layer_inputs(37, 4, 2, P, 64, f, torch.float32)
     runs = [flash_mask.flash_layer_add_fwd(x, w, b, al, ar, adj, seed=5, rate=0.4)
             for _ in range(2)]
@@ -728,17 +729,98 @@ def test_layer_add_dropout_matches_the_decomposed_path(cuda):
 
 
 def test_layer_kernels_refuse_what_does_not_fit(cuda):
-    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, 300, torch.float32)
-    with pytest.raises(ValueError, match="ROADMAP"):  # #5 takes f up to 256
-        flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
-    with pytest.raises(ValueError, match="ROADMAP"):  # so does #6
-        flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj)
+    """#5 and #6 take any head dim (f = 300 here) and refuse P past 2048,
+    naming ROADMAP.md section 2 item e, and strided tensors."""
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(33, 2, 1, 128, 64, 300, torch.float32)
+    dot = (x, wq, bq, wk, bk, wv, bv, adj)
+    torch.testing.assert_close(flash_mask.flash_layer_dot_fwd(*dot, scale=300 ** -0.5),
+                               flash_mask.flash_layer_dot_fwd_plain(*dot, scale=300 ** -0.5),
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(flash_mask.flash_layer_add_fwd(x, wq, bq, bk, bv, adj),
+                               flash_mask.flash_layer_add_fwd_plain(x, wq, bq, bk, bv, adj),
+                               rtol=1e-4, atol=1e-5)
     x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 1, 1, 2049, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP.md section 2 item e"):
+        flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
     with pytest.raises(ValueError, match="ROADMAP"):  # and P up to 2048
         flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj)
     with pytest.raises(ValueError, match="contiguous"):
         flash_mask.flash_layer_add_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w, b,
                                        b, b, adj)
+
+
+@pytest.mark.parametrize("f", [256, 300])
+def test_layer_dot_kernel_at_large_scores_holds_fp64(cuda, f):
+    """#5 with q, k and v from one weight at scale 1.0 (diagonal scores near
+    f) against its function evaluated in fp64 on the same inputs: within
+    the fp32 bar or, where fp32 arithmetic misses it at such scores, within
+    twice the fp32 plain version's largest error.  f = 256 takes the
+    whole-head path, f = 300 the chunked one."""
+    x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 2, 1, 128, 64, f, torch.float32)
+    dot = (x, w, b, w, b, w, b, adj)
+    got = flash_mask.flash_layer_dot_fwd(*dot, scale=1.0)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_layer_dot_fwd_plain(*dot, scale=1.0)
+    x64, w64, b64 = _f64(x, w, b)
+    z64 = torch.einsum("bpd,hdf->bphf", x64, w64) + b64
+    want64 = flash_mask.flash_mask_fwd_plain(z64, z64, z64, adj)[0]
+    err, plain_err = (float((o.double() - want64).abs().max()) for o in (got, want))
+    print(f"f={f}: #5 {err:.3e} from fp64, the fp32 plain version {plain_err:.3e}")
+    if bool(((got.double() - want64).abs() > 1e-5 + 1e-4 * want64.abs()).any()):
+        assert err <= 2 * plain_err
+
+
+# Head dims past 256: #5 and #6 take them in chunks of 128 columns (#5 past
+# P = 128 in chunks of 256), at the single-block and the streaming P, in
+# both dtypes; #6 with dropout at P = 26 and 300; every fourth graph empty
+# where B >= 4 (chip_smoke.py phase 27 holds the same grid at both fp32
+# precisions).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", NEW_P)
+@pytest.mark.parametrize("f", WIDE_F)
+def test_wide_layer_kernels_match_plain(cuda, f, P, dtype):
+    B, h = _BH[P]
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(50 + f + P, B, h, P, 72, f, dtype)
+    if B >= 4:
+        adj[::4] = 0
+    dot = (x, wq, bq, wk, bk, wv, bv, adj)
+    kw = dict(slope=0.2, seed=0x5EED, rate=0.4 if P in (26, 300) else 0.0)
+    empty = ~adj.bool().any(-1)
+    for got, plain in ((flash_mask.flash_layer_dot_fwd(*dot, scale=f ** -0.5),
+                        lambda: flash_mask.flash_layer_dot_fwd_plain(*dot, scale=f ** -0.5)),
+                       (flash_mask.flash_layer_add_fwd(x, wq, bq, bk, bv, adj, **kw),
+                        lambda: flash_mask.flash_layer_add_fwd_plain(x, wq, bq, bk, bv, adj,
+                                                                     **kw))):
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, P, h, f)
+        torch.testing.assert_close(got.float(), plain().float(), **_layer_tol(dtype))
+        assert not got[empty].any()  # empty and padded rows give 0
+
+
+@pytest.mark.parametrize("conv", ["gt", "gat"])
+def test_wide_fused_layer_autograd_on_card_matches_cpu(cuda, conv):
+    """A flash_fused conv at head dim 300 (one head): its forward and
+    backward on the card (#5, then #1 and #3; or #6, then #2 and #4) against
+    the same conv on the CPU (the plain versions)."""
+    rng = np.random.default_rng(38)
+    graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 4)]
+    batch = DenseBatch.from_graph_list(graphs, np_pad=128, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((4 * 128, 40)).astype(np.float32))
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        layer = make_conv(conv, 40, 300, 1, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        flash_mask.reset_launch_counts()
+        out = layer(batch.to(dev), xd, impl="flash_fused")
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)).sum().backward()
+        seen[dev] = (out.detach().cpu(), flash_mask.launch_counts(),
+                     [t.grad.cpu() for t in (xd, *layer.parameters())])
+    want = (1, 1, 0, 0, 1, 0) if conv == "gt" else (0, 0, 1, 1, 0, 1)
+    assert seen["cpu"][1] == (0,) * 6 and seen["cuda"][1] == want
+    torch.testing.assert_close(seen["cuda"][0], seen["cpu"][0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(seen["cuda"][2], seen["cpu"][2]):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("conv", ["gt", "gat"])
@@ -767,24 +849,38 @@ def test_fused_layer_autograd_on_card_matches_cpu(cuda, conv):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
-def test_bf16_gat_auto_runs_kernel_six(cuda):
-    """GATConv in bf16 on a DenseBatch: auto is the whole-layer kernel; its
-    output is bf16 and within a bf16 step of the fp32 layer's."""
+def _bf16_gat_auto(f, launches=(0, 0, 0, 0, 0, 1)):
     rng = np.random.default_rng(35)
     graphs = [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, 8)]
     batch = DenseBatch.from_graph_list(graphs, np_pad=128)
     x = torch.from_numpy(rng.standard_normal((8 * 128, 64)).astype(np.float32)).cuda()
-    layer = make_conv("gat", 64, 64, 1, dtype=torch.bfloat16,
+    layer = make_conv("gat", 64, f, 1, dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0))
-    ref = make_conv("gat", 64, 64, 1, generator=torch.Generator().manual_seed(0))
+    ref = make_conv("gat", 64, f, 1, generator=torch.Generator().manual_seed(0))
     flash_mask.reset_launch_counts()
     with torch.inference_mode():
         out = layer(batch, x)
-        assert flash_mask.launch_counts() == (0, 0, 0, 0, 0, 1)
+        assert flash_mask.launch_counts() == launches
         want = ref(batch, x, impl="flash")
     assert out.dtype == torch.bfloat16
     err = float((out.float() - want).abs().max()) / float(want.abs().max())
     assert err < 5e-2, err
+
+
+def test_bf16_gat_auto_runs_kernel_six(cuda):
+    """GATConv in bf16 on a DenseBatch: auto is the whole-layer kernel; its
+    output is bf16 and within a bf16 step of the fp32 layer's."""
+    _bf16_gat_auto(64)
+
+
+def test_bf16_gat_auto_follows_the_width_bound(cuda):
+    """Past GAT_FUSED_MAX_F (head dim 320 here, past 256) bf16 auto takes
+    the flash route (one #2 launch), where #6 lost on the card; at the
+    bound, #6."""
+    from dfgnn_tpu_torch.models import conv as conv_mod
+
+    _bf16_gat_auto(conv_mod.GAT_FUSED_MAX_F)
+    _bf16_gat_auto(320, launches=(0, 0, 1, 0, 0, 0))
 
 
 GATHER_CASES = [  # (table rows, row shape, dtype, rows gathered, chunk, lookahead)
@@ -871,6 +967,20 @@ def test_bucket_path_on_card_matches_cpu(cuda, blocked):
         results.append([r.detach().cpu() for r in res])
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bucket_path_on_card_is_deterministic(cuda):
+    """Two runs of the bucket forward and its custom backward on the card,
+    on a graph with a row past the segment split, are bitwise equal: the
+    wide rows' segment sums run in a fixed order (no atomics)."""
+    g, q, k, v, _, _, do = _bucket_case(cuda)
+    bg = formats.build_buckets(g, with_transpose=True)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = graph_attention(bg, *ins, score="dot")
+        runs.append([out, *torch.autograd.grad(out, ins, do)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _sampled_case(device):

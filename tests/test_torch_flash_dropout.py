@@ -184,13 +184,13 @@ def test_bf16_auto_routes_on_the_whole_layer_kernels_shared_memory(conv, P, widt
 
 
 def test_whole_layer_kernels_take_one_set():
-    """#6 takes what #5 takes, in fp32 and bf16: any f from 1 to 256 and P
-    up to 2048.  Its argument check takes f = 48 at P = 640 and refuses
-    f = 300, naming ROADMAP.md section 2 item f (#5 and #6 past 256), and
-    P = 2049, naming item e."""
+    """#6 takes what #5 takes, in fp32 and bf16: any f >= 1 and P up to
+    2048.  Its argument check takes f = 48 at P = 640 and f = 257 and 300
+    (past 256, in column chunks on the card) at every P up to 2048, and
+    refuses only P = 2049, naming ROADMAP.md section 2 item e."""
     for P in (1, 24, 128, 129, 640, 2048, 2049):
         for f in (1, 12, 48, 75, 128, 256, 257, 300):
-            want = P <= 2048 and f <= 256
+            want = P <= 2048
             assert flash_mask.layer_fits("add", P, f) == flash_mask.layer_fits("dot", P, f) == want
 
     def check(P, f, dtype=torch.float32):
@@ -200,9 +200,13 @@ def test_whole_layer_kernels_take_one_set():
 
     check(640, 48)
     check(640, 48, torch.bfloat16)
-    for P, f, item in ((128, 300, "item f"), (2049, 48, "item e")):
-        with pytest.raises(ValueError, match=f"ROADMAP.md section 2 {item}"):
+    for P in (1, 128, 129, 2048):
+        for f in (257, 300):
             check(P, f)
+    check(300, 257, torch.bfloat16)
+    for f in (48, 300):
+        with pytest.raises(ValueError, match="ROADMAP.md section 2 item e"):
+            check(2049, f)
 
 
 def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):

@@ -1,8 +1,9 @@
 """Head dims past 256 and the ``precision`` switch of the flash entry points,
 against the JAX package (CPU).
 
-Kernels #1 to #4 take any head dim (past 256 in chunks of 256 columns on the
-card); on CPU tensors the port's autograd Functions run their plain versions.
+Kernels #1 to #6 take any head dim (on the card #1 to #4 past 256 in chunks
+of 256 columns, the whole-layer kernels #5 and #6 in chunks of 128 or 256);
+on CPU tensors the port's autograd Functions run their plain versions.
 The JAX Pallas kernels run in interpret mode at P <= 32, B*h <= 8, under
 ``jax.jit``.  JAX on the CPU computes fp32 products whatever the precision,
 so ``precision="highest"`` is held at the repo's bars and ``"default"``,
@@ -20,13 +21,14 @@ import torch
 
 from dfgnn_tpu.graph import DenseBatch as JaxDenseBatch
 from dfgnn_tpu.models import GTModel as JaxGTModel
+from dfgnn_tpu.models import Model as JaxModel
 from dfgnn_tpu.ops.edge_dropout import seed_from_key
 from dfgnn_tpu.ops.pallas import flash_mask as jax_flash
 from dfgnn_tpu_torch.data.synthetic import attention_inputs
 from dfgnn_tpu_torch.graph import DenseBatch
-from dfgnn_tpu_torch.models import GTModel
+from dfgnn_tpu_torch.models import GTModel, Model
 from dfgnn_tpu_torch.ops import flash_mask
-from dfgnn_tpu_torch.weights import gtmodel_params_from_flax
+from dfgnn_tpu_torch.weights import gtmodel_params_from_flax, model_params_from_flax
 from helpers import random_graph_coo
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -37,6 +39,7 @@ FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 # elements near 1e-3.
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-5
 MODEL_TOL = dict(rtol=1e-3, atol=1e-5)
+GRAD_REL = 2e-4  # test_torch_layer.py's whole-layer gradient bar, of the largest gradient
 # "default" against JAX's fp32: TF32 keeps 10 of fp32's 23 mantissa bits, so
 # each rounded operand is off by up to 2**-11 of itself and each product by
 # 2**-10; the errors add over a contraction (f = 520 terms in q . k^T) and
@@ -168,15 +171,17 @@ def _layer_case(seed, din, h, f):
     return jb, tb, x, t, normal
 
 
-@pytest.mark.parametrize("layer", ["dot", "add"])
-def test_precision_on_the_whole_layer_entry_points(layer, monkeypatch):
-    """flash_layer_attention (#5) and flash_layer_attention_gat (#6, with
-    dropout) at both precisions: the output and the gradients of every input
-    against JAX's, "highest" at the repo's bars and "default" at TF32_REL.
-    The port's generator draw is replaced by the seed JAX draws from its
-    key, so both apply the same mask."""
-    din, h, f = 24, 2, 16
-    jb, tb, x, t, normal = _layer_case(din, din, h, f)
+def _whole_layer(layer, f, rate, monkeypatch, seed):
+    """JAX's whole-layer entry point (#5's flash_layer_attention, or #6's
+    flash_layer_attention_gat with ``rate`` dropout; Pallas interpreted,
+    under jax.jit) at head dim ``f`` (din 24, two heads, two graphs of
+    P = 16), and the port's on the same numpy inputs.  Returns the JAX
+    output and gradients of x and every parameter (of sum(out * t)), and
+    ``run(precision)``, the port's output and its leaves with their
+    gradients.  The port's generator draw is replaced by the seed JAX draws
+    from its key, so both apply the same mask."""
+    din, h = 24, 2
+    jb, tb, x, t, normal = _layer_case(seed, din, h, f)
     if layer == "dot":
         params = [a for _ in range(3) for a in (normal((din, h * f), din ** -0.5),
                                                  normal((h * f,), 0.1))]
@@ -188,11 +193,11 @@ def test_precision_on_the_whole_layer_entry_points(layer, monkeypatch):
         params = [normal((din, h * f), din ** -0.5), normal((h * f,), 0.1),
                   normal((f, h), 0.3), normal((f, h), 0.3)]
         jcall = lambda x_, *ps: jax_flash.flash_layer_attention_gat(
-            jb, x_, *ps, num_heads=h, dropout_rate=RATE, dropout_rng=KEY, interpret=True)
+            jb, x_, *ps, num_heads=h, dropout_rate=rate, dropout_rng=KEY, interpret=True)
         seed = int(seed_from_key(KEY))
         monkeypatch.setattr(flash_mask.edge_dropout, "seed_from_generator", lambda gen: seed)
         tcall = lambda x_, *ps, precision: flash_mask.flash_layer_attention_gat(
-            tb, x_, *ps, num_heads=h, dropout_rate=RATE, precision=precision,
+            tb, x_, *ps, num_heads=h, dropout_rate=rate, precision=precision,
             dropout_generator=torch.Generator())
 
     @jax.jit
@@ -202,19 +207,117 @@ def test_precision_on_the_whole_layer_entry_points(layer, monkeypatch):
 
     (_, want_out), want = jax.value_and_grad(jax_loss, argnums=tuple(range(len(params) + 1)),
                                              has_aux=True)(*map(jnp.asarray, (x, *params)))
-    for precision in ("highest", "default"):
+
+    def run(precision):
         leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, *params)]
         out = tcall(*leaves, precision=precision)
         (out * torch.from_numpy(t)).sum().backward()
-        scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
-        if precision == "highest":
-            np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **FWD_TOL)
-            for leaf, w in zip(leaves, want):  # test_torch_layer.py's gradient bar
-                assert float(np.abs(leaf.grad.numpy() - np.asarray(w)).max()) < 2e-4 * scale
-        else:
-            _assert_rel(out.detach().numpy(), want_out, TF32_REL)
-            for leaf, w in zip(leaves, want):
-                assert float(np.abs(leaf.grad.numpy() - np.asarray(w)).max()) < TF32_REL * scale
+        return out, leaves
+
+    return np.asarray(want_out), [np.asarray(w) for w in want], run
+
+
+@pytest.mark.parametrize("f", [257, 520])
+@pytest.mark.parametrize("layer", ["dot", "add"])
+def test_whole_layer_past_256_matches_jax(layer, f, monkeypatch):
+    """flash_layer_attention (#5) and flash_layer_attention_gat (#6, with
+    dropout 0.4) past head dim 256 against JAX's whole-layer Pallas kernels:
+    the forward at FWD_TOL and every gradient within GRAD_REL of the largest
+    JAX gradient.  CPU tensors launch no kernel."""
+    want_out, want, run = _whole_layer(layer, f, 0.4, monkeypatch, f)
+    flash_mask.reset_launch_counts()
+    out, leaves = run(None)
+    assert flash_mask.launch_counts() == (0,) * 6
+    assert flash_mask.layer_fits(layer, 16, f)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **FWD_TOL)
+    scale = max(float(np.abs(w).max()) for w in want)
+    for leaf, w in zip(leaves, want):
+        assert float(np.abs(leaf.grad.numpy() - w).max()) < GRAD_REL * scale
+
+
+@pytest.mark.parametrize("layer", ["dot", "add"])
+def test_precision_on_the_whole_layer_entry_points(layer, monkeypatch):
+    """flash_layer_attention (#5) and flash_layer_attention_gat (#6, with
+    dropout) at both precisions, at head dim 16 and past 256 (260): the
+    output and the gradients of every input against JAX's, "highest" at the
+    repo's bars and "default" at TF32_REL."""
+    for f in (16, 260):
+        want_out, want, run = _whole_layer(layer, f, RATE, monkeypatch, 24 if f == 16 else f)
+        scale = max(float(np.abs(w).max()) for w in want)
+        for precision in ("highest", "default"):
+            out, leaves = run(precision)
+            if precision == "highest":
+                np.testing.assert_allclose(out.detach().numpy(), want_out, **FWD_TOL)
+                for leaf, w in zip(leaves, want):
+                    assert float(np.abs(leaf.grad.numpy() - w).max()) < GRAD_REL * scale
+            else:
+                _assert_rel(out.detach().numpy(), want_out, TF32_REL)
+                for leaf, w in zip(leaves, want):
+                    assert float(np.abs(leaf.grad.numpy() - w).max()) < TF32_REL * scale
+
+
+def _wide_graphs():
+    rng = np.random.default_rng(5)
+    graphs = []
+    for _ in range(2):
+        nb = int(rng.integers(10, 16))
+        r, c, _ = random_graph_coo(rng, nb, 5, zero_deg_frac=0.1)
+        graphs.append((r, c, nb))
+    x = rng.integers(0, 3, size=(32,))
+    return graphs, x, rng
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wide_model(conv):
+    """JAX's dense formulation of a wide model on two small graphs: GTModel
+    (hidden 520, two heads of head dim 260, two layers, graph-level logits)
+    or the fig-1 Model (one GAT conv of hidden 520, one head: head dim 520,
+    node-level outputs).  Returns the numpy inputs, the flax params, the
+    loss weights, the output and every parameter's gradient of
+    sum(out * target)."""
+    graphs, x, rng = _wide_graphs()
+    jb = JaxDenseBatch.from_graph_list(graphs, np_pad=16)
+    if conv == "gt":
+        jm = JaxGTModel("PATTERN", out_size=3, hidden_size=520, num_layers=2, num_heads=2,
+                        method="dense")
+        target = rng.standard_normal((2, 3)).astype(np.float32)
+        kw = {}
+    else:
+        jm = JaxModel("PATTERN", "gat", hidden_size=520, num_heads=1)
+        target = rng.standard_normal((32, 520)).astype(np.float32)
+        kw = dict(impl="dense")
+    params = jax.jit(lambda key: jm.init(key, jb, jnp.asarray(x), **kw))(jax.random.key(0))
+
+    @jax.jit
+    def jax_loss(p):
+        out = jm.apply(p, jb, jnp.asarray(x), **kw)
+        return jnp.sum(out * target), out
+
+    (_, want), want_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+    return graphs, x, target, params, np.asarray(want), want_grads
+
+
+def _port_wide_model(conv, impl):
+    """The port's model of _jax_wide_model(conv) with the flax weights carried
+    across by weights.py, through ``impl`` on the CPU: its output, gradients
+    by parameter name, and JAX's output and gradients converted alike."""
+    graphs, x, target, params, want, want_grads = _jax_wide_model(conv)
+    tb = DenseBatch.from_graph_list(graphs, np_pad=16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    if conv == "gt":
+        tm = GTModel("PATTERN", out_size=3, hidden_size=520, num_layers=2, num_heads=2,
+                     generator=gen, device="cpu")
+        convert = gtmodel_params_from_flax
+    else:
+        tm = Model("PATTERN", "gat", hidden_size=520, num_heads=1, generator=gen, device="cpu")
+        convert = model_params_from_flax
+    tm.load_state_dict(convert(params))
+    flash_mask.reset_launch_counts()
+    out = tm(tb, torch.from_numpy(x), impl=impl)
+    assert flash_mask.launch_counts() == (0,) * 6  # CPU tensors never launch
+    (out * torch.from_numpy(target)).sum().backward()
+    grads = convert(jax.tree_util.tree_map(np.asarray, want_grads))
+    return out, dict(tm.named_parameters()), want, grads
 
 
 def test_wide_gtmodel_matches_jax():
@@ -224,35 +327,24 @@ def test_wide_gtmodel_matches_jax():
     dense formulation, logits and every parameter's gradient.  (JAX's flash
     path at these head dims is held by the tests above; interpreting it
     through two layers would double this file's time.)"""
-    rng = np.random.default_rng(5)
-    graphs = []
-    for _ in range(2):
-        nb = int(rng.integers(10, 16))
-        r, c, _ = random_graph_coo(rng, nb, 5, zero_deg_frac=0.1)
-        graphs.append((r, c, nb))
-    jb = JaxDenseBatch.from_graph_list(graphs, np_pad=16)
-    tb = DenseBatch.from_graph_list(graphs, np_pad=16, device="cpu")
-    x = rng.integers(0, 3, size=(32,))
-    target = rng.standard_normal((2, 3)).astype(np.float32)
-    jm = JaxGTModel("PATTERN", out_size=3, hidden_size=520, num_layers=2, num_heads=2,
-                    method="dense")
-    params = jax.jit(lambda key: jm.init(key, jb, jnp.asarray(x)))(jax.random.key(0))
+    assert flash_mask.flash_takes("dot", 16, 260)
+    logits, params, want, grads = _port_wide_model("gt", None)
+    np.testing.assert_allclose(logits.detach().numpy(), want, **MODEL_TOL)
+    for name, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(), **MODEL_TOL,
+                                   err_msg=name)
 
-    @jax.jit
-    def jax_loss(p):
-        logits = jm.apply(p, jb, jnp.asarray(x))
-        return jnp.sum(logits * target), logits
 
-    (_, want), want_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
-    tm = GTModel("PATTERN", out_size=3, hidden_size=520, num_layers=2, num_heads=2,
-                 generator=torch.Generator().manual_seed(0), device="cpu")
-    tm.load_state_dict(gtmodel_params_from_flax(params))
-    flash_mask.reset_launch_counts()
-    logits = tm(tb, torch.from_numpy(x))
-    assert flash_mask.flash_takes("dot", 16, 260) and flash_mask.launch_counts() == (0,) * 6
-    (logits * torch.from_numpy(target)).sum().backward()
-    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want), **MODEL_TOL)
-    grads = gtmodel_params_from_flax(jax.tree_util.tree_map(np.asarray, want_grads))
-    for name, p in tm.named_parameters():
+@pytest.mark.parametrize("conv", ["gt", "gat"])
+def test_wide_models_through_the_whole_layer_match_jax(conv):
+    """The wide GTModel (hidden 520, two heads of 260, two layers) and the
+    wide fig-1 GAT Model (hidden 520, one head of 520) through
+    impl="flash_fused" (the whole-layer kernels' autograd Functions, their
+    plain versions on the CPU) against JAX's dense formulation, the flax
+    weights carried across: the output and every parameter's gradient."""
+    assert flash_mask.layer_fits("dot", 16, 260) and flash_mask.layer_fits("add", 16, 520)
+    out, params, want, grads = _port_wide_model(conv, "flash_fused")
+    np.testing.assert_allclose(out.detach().numpy(), want, **MODEL_TOL)
+    for name, p in params.items():
         np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(), **MODEL_TOL,
                                    err_msg=name)
