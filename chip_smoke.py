@@ -120,7 +120,20 @@ six launch counts set to 0 just before it and read just after:
   head dims 128 to 512 through #6 against fp32, timed against its
   flash route, and ``method="auto"`` taking the route ``GAT_FUSED_MAX_F``
   names; #5 and #6 at the wide models' shape and at P = 512 timed beside
-  their plain versions, their compositions and bounds.
+  their plain versions, their compositions and bounds;
+- graphs past P = 2048 (phase 28), where the stream blocks walk adj in
+  windows of 2048 keys (#3's column pass and #4: rows): #1 to #4 at P =
+  2049, 2176, 4096 and f = 64, 128, 256, 300 (fp32 and bf16; edge values,
+  dropout with #3's and #4's keep masks bitwise, an empty graph and
+  ``precision="default"`` at one point each) and at P = 8192, #5 and #6 at
+  the same P and f = 64, 128, against their plain versions; #1 to #6 timed
+  at 8 x 1 x 4096 x 128 beside their plain versions, bounds and nearest
+  PyTorch calls; GTModel (8 layers, hidden 128) serving and taking 3 Adam
+  steps and GAT's fig-1 ``Model`` a forward and a step, on a DenseBatch of 8
+  graphs of about 3,000 nodes, through ``auto`` (8 #1 a request, 8 + 8 #1,
+  #3 a step; GAT #2, #4) and ``flash_fused`` (8 #5, 8 + 8 + 8 #5, #1, #3;
+  GAT #6, #2, #4), each against ``method="dense"`` with its time and peak
+  memory.
 The bucket path is torch ops, so the full-graph, sampled and partitioned
 phases launch none of the hand-written kernels, and they assert that.
 Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -245,6 +258,14 @@ WIDE_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 2048: (1, 1)}
 WIDE_HIDDEN, WIDE_TABLE = 512, (1024, 1, 128, 512)
 WIDE_DIN = 72  # phase 27: #5 and #6 on the grid of WIDE_F x WIDE_P take x of this width
 WIDE_STREAM = (64, 1, 512, 512)  # phase 27: #5 and #6 timed past P = 128 at head dim 512
+# Phase 28: graphs past P = 2048.  #1 to #4 at these node counts ((B, h) per
+# P) and head dims, #5 and #6 at the first two head dims (din WIDE_DIN); #1
+# to #6 timed at LARGE_TABLE (din = f); the GT and GAT models at HIDDEN on
+# a DenseBatch of LARGE_GRAPHS graphs of about LARGE_MEAN nodes
+LARGE_P, LARGE_F = (2049, 2176, 4096), (64, 128, 256, 300)
+LARGE_BH = {2049: (2, 1), 2176: (2, 1), 4096: (1, 2)}
+LARGE_TABLE = (8, 1, 4096, 128)
+LARGE_GRAPHS, LARGE_MEAN, LARGE_MAX = 8, 3000, 4096
 TF32_STEP = 2.0 ** -10  # a TF32 step (10 mantissa bits) near 1: the "default" bar
 # 3xTF32 drops each product's lo x lo term (about 2**-21 of it, where fp32
 # rounds a product at 2**-24), so on sums long enough that fp32 itself
@@ -728,223 +749,99 @@ def counts_must_be(what, want):
                              f"expected {want}")
 
 
-def wide_kernel_case(fm, seed, P, f, dtype):
-    """#1 to #4 at head dim ``f`` past 256 against their plain versions on
-    ``attention_inputs``: fp32 forwards at FP32_TOL, the fp32 gradients
-    against the plain versions evaluated in fp64 (hold_fp32_grad), bf16 at
-    the bf16 bars.  Edge values at f = 257 and 512, dropout at P = 26 and
-    300.  Returns the printed line."""
+def attention_case(fm, seed, B, h, P, f, dtype, *, with_val, rate, precision=None,
+                   empty=False):
+    """#1 to #4 on ``attention_inputs`` against their plain versions, each
+    backward given the plain forward's out and lse, as its plain version
+    is: fp32 forwards at FP32_TOL, the fp32 gradients against the plain
+    versions evaluated in fp64 (hold_fp32_grad), bf16 at the bf16 bars; at
+    precision="default" every output against the TF32-rounded plain version
+    within a TF32 step of its largest element (tf32_tol).  ``empty``
+    empties the last graph; rows without an edge must give out = 0.  With
+    dropout, #3's and #4's keep masks are held bitwise to the hash's on the
+    rows j < f: with dO the one-hot rows, dv[c, j] = round_to<T>(p * keep)[j,
+    c], nonzero exactly where the edge is kept.  Returns the printed line."""
     from dfgnn_tpu_torch.data.synthetic import attention_inputs
 
-    B, h = WIDE_BH[P]
-    with_val, rate = f in (257, 512), (0.4 if P in (26, 300) else 0.0)
     q, k, v, adj, val = (torch.from_numpy(a).cuda()
                          for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
     q, k, v = (t.to(dtype) for t in (q, k, v))
+    if empty:
+        adj[-1] = 0
     val = val if with_val else None
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda().to(dtype)
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
                     for _ in range(2))
-    kw = dict(seed=DROP_SEED, rate=rate)
-    fp32 = dtype == torch.float32
-    tol = FP32_TOL if fp32 else BF16_TOL
+    kw = dict(seed=DROP_SEED, rate=rate, precision=precision)
+    fp32, tf32 = dtype == torch.float32, precision == "default"
+    tol = tf32_tol if tf32 else (lambda w: FP32_TOL if fp32 else BF16_TOL)
+    no_edge = ~adj.bool().any(-1)  # [B, P]
     errs = {}
-    out, lse = fm.flash_mask_fwd(q, k, v, adj, val, want_lse=True, **kw)
-    got = fm.flash_mask_bwd(q, k, v, adj, val, out, lse, do, **kw)
-    aout, alse = fm.flash_add_fwd(e_row, e_col, v, adj, val, want_lse=True, **kw)
-    agot = fm.flash_add_bwd(e_row, e_col, v, adj, val, aout, alse, do, **kw)
-    torch.cuda.synchronize()
     d = lambda t: None if t is None else t.double()
 
-    def grads(names, plain, args, out_lse, got):
-        """the gradients against ``plain`` on ``args`` (+ lse, do, delta)"""
-        want = plain(*args, out_lse[1], do, fm.bwd_delta(do, out_lse[0]), **kw)
-        if fp32:  # against the fp64 evaluation, beside the fp32 one's error
-            want64 = plain(*map(d, args[:3]), args[3], d(args[4]), d(out_lse[1]), d(do),
-                           fm.bwd_delta(d(do), d(out_lse[0])), **kw)
-            for n, g, w64, w in zip(names, got, want64, want):
+    def hold(names, fwd, plain_fwd, bwd, plain_bwd, args):
+        """the forward against ``plain_fwd``; the backward, given the plain
+        forward's out and lse (its inputs, as the plain backward's), against
+        ``plain_bwd`` (+ lse, do, delta); returns the plain forward's"""
+        out, lse = fwd(*args, want_lse=True, **kw)
+        torch.cuda.synchronize()
+        if bool(out[no_edge].any()):
+            raise AssertionError(f"P={P} f={f}: a row without an edge is not 0")
+        want = plain_fwd(*args, **kw)
+        errs[names[0]] = max_err(out, want[0], tol(want[0]))
+        errs[names[1]] = max_err(lse, want[1], FP32_TOL)
+        del out, lse
+        got = bwd(*args, *want, do, **kw)
+        torch.cuda.synchronize()
+        grads = plain_bwd(*args, want[1], do, fm.bwd_delta(do, want[0]), **kw)
+        if fp32 and not tf32:  # against the fp64 evaluation, beside the fp32 one's error
+            want64 = plain_bwd(*map(d, args[:3]), args[3], d(args[4]), d(want[1]), d(do),
+                               fm.bwd_delta(d(do), d(want[0])), **kw)
+            for n, g, w64, w in zip(names[2:], got, want64, grads):
                 errs[n], errs[n + " (fp32 plain)"] = hold_fp32_grad(g, w64, w)
         else:
-            for n, g, w in zip(names, got, want):
-                errs[n] = max_err(g, w, bwd_bf16_tol(w))
+            for n, g, w in zip(names[2:], got, grads):
+                errs[n] = max_err(g, w, tf32_tol(w) if tf32 else bwd_bf16_tol(w))
+        return want
 
-    want = fm.flash_mask_fwd_plain(q, k, v, adj, val, **kw)
-    errs["out"], errs["lse"] = max_err(out, want[0], tol), max_err(lse, want[1], FP32_TOL)
-    grads(("dq", "dk", "dv"), fm.flash_mask_bwd_plain, (q, k, v, adj, val), want, got)
-    want = fm.flash_add_fwd_plain(e_row, e_col, v, adj, val, **kw)
-    errs["add out"], errs["add lse"] = max_err(aout, want[0], tol), max_err(alse, want[1],
-                                                                            FP32_TOL)
-    grads(("d e_row", "d e_col", "add dv"), fm.flash_add_bwd_plain,
-          (e_row, e_col, v, adj, val), want, agot)
-    return (f"  f={f} P={P} B={B} h={h} {dtype} val={with_val} rate={rate}: max abs err "
+    out, lse = hold(("out", "lse", "dq", "dk", "dv"), fm.flash_mask_fwd, fm.flash_mask_fwd_plain,
+                    fm.flash_mask_bwd, fm.flash_mask_bwd_plain, (q, k, v, adj, val))
+    aout, alse = hold(("add out", "add lse", "d e_row", "d e_col", "add dv"), fm.flash_add_fwd,
+                      fm.flash_add_fwd_plain, fm.flash_add_bwd, fm.flash_add_bwd_plain,
+                      (e_row, e_col, v, adj, val))
+    line = (f"  f={f} P={P} B={B} h={h} {dtype} precision={precision} val={with_val} "
+            f"rate={rate} empty={empty}: max abs err "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    if rate > 0.0:
+        J = min(f, P)
+        onehot = torch.eye(P, f, device="cuda").reshape(1, P, 1, f).expand(B, P, h, f)
+        onehot = onehot.to(dtype).contiguous()
+        keep = fm.dropout_factor(DROP_SEED, rate, B, h, P, adj.device)[:, :, :J] != 0
+        mask = (keep & adj[:, None, :J].bool()).permute(0, 3, 1, 2)  # [B, key, h, row j]
+        dv1 = fm.flash_mask_bwd(q, k, v, adj, val, out, lse, onehot, **kw)[2]
+        dv2 = fm.flash_add_bwd(e_row, e_col, v, adj, val, aout, alse, onehot, **kw)[2]
+        for name, dv in (("#3", dv1), ("#4", dv2)):
+            if not torch.equal(dv[..., :J] != 0, mask):
+                raise AssertionError(f"{name} P={P}: the kept entries differ from the hash's")
+        line += f"; #3's and #4's keep masks of rows < {J} bitwise the hash's"
+    return line
 
 
-def wide_models(smi, impl):
-    """The wide models of phases 26 and 27 through ``impl`` (None: their
-    default auto route, kernels #1 to #4; "flash_fused": #5 and #6, with #1
-    to #4 backward), each against method="dense", their launch counts
-    asserted: GTModel at hidden 512 with one head (head dim 512) serving a
-    PATTERN-like bs=1024 request and taking 3 Adam steps on ogbg-molhiv
-    bs=1024, and GAT's fig-1 Model at hidden 512, a forward and an Adam
-    step.  Returns the GAT model, its batch and its input."""
-    from dfgnn_tpu_torch import DenseBatch, GTModel
-    from dfgnn_tpu_torch.data.collate import batch_iterator
-    from dfgnn_tpu_torch.data.datasets import load_batched
-    from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
-    from dfgnn_tpu_torch.models import Model
-    from dfgnn_tpu_torch.ops import flash_mask as fm
-    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
-    from dfgnn_tpu_torch.utils.benchmark import benchmark
-
-    L, name = LAYERS, impl or "auto"
-    fused = impl == "flash_fused"
-    serve = (0, 0, 0, 0, L, 0) if fused else (L, 0, 0, 0, 0, 0)
-    step = (L, L, 0, 0, L, 0) if fused else (L, L, 0, 0, 0, 0)
-    gat_fwd = (0, 0, 0, 0, 0, 1) if fused else (0, 0, 1, 0, 0, 0)
-    gat_train = (0, 0, 1, 1, 0, 1) if fused else (0, 0, 1, 1, 0, 0)
-    counts = "launches of #1, #3, #2, #4, #5, #6"
-
-    # the GT model, serving
-    rng = np.random.default_rng(40)
-    batch = DenseBatch.from_graph_list(
-        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
-    x = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
-    gt = GTModel("PATTERN", out_size=2, hidden_size=WIDE_HIDDEN, num_layers=L, num_heads=1,
-                 generator=torch.Generator().manual_seed(40)).eval()
-    with torch.inference_mode():
-        fm.reset_launch_counts()
-        logits = gt(batch, x, impl=impl)
-        counts_must_be(f"the wide GT {name} forward", serve)
-        if logits.shape != (BATCH, 2) or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"wide GT logits {tuple(logits.shape)}, finite "
-                                 f"{bool(torch.isfinite(logits).all())}")
-        e = max_err(logits, gt(batch, x, impl="dense"), MODEL_TOL)
-        ms, dense_ms = in_turns(benchmark, lambda: gt(batch, x, impl="dense"),
-                                lambda: gt(batch, x, impl=impl), names=("dense", name))
-    print(f"wide GT serving (GTModel PATTERN, hidden {WIDE_HIDDEN}, 1 head: head dim "
-          f"{WIDE_HIDDEN}, {L} layers, bs={BATCH}, {batch.n_edges} edges) through {name}: "
-          f"{counts} {serve}; vs dense logits max abs err {e:.3e} (tol {MODEL_TOL}); forward "
-          f"({smi}): {name} {ms:.4f} ms, dense {dense_ms:.4f} ms")
-    del gt, logits
-
-    # the GT model, training: 3 Adam steps through impl and through dense,
-    # the same weights and batches
-    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
-    batches = list(batch_iterator(ds, BATCH, np_pad=NP_PAD))
-    per_step = {name: step, "dense": (0,) * 6}
-    models = {m: GTModel("ogbg-molhiv", out_size=1, hidden_size=WIDE_HIDDEN, num_layers=L,
-                         method=m, generator=torch.Generator().manual_seed(41))
-              for m in per_step}
-    models["dense"].load_state_dict(models[name].state_dict())
-    losses, states = {}, {}
-    for m, model in models.items():
-        states[m] = (TrainState.create(model, lr=1e-3, step_lr_every=20),
-                     make_loss_fn(model, ds.task, ds.num_classes))
-        losses[m] = []
-        for b in batches:
-            fm.reset_launch_counts()
-            losses[m].append(float(train_step(*states[m], *b)[1]))
-            counts_must_be(f"a wide GT {m} step", per_step[m])
-    for i, (a, d) in enumerate(zip(losses[name], losses["dense"])):
-        if not (math.isfinite(a) and abs(a - d) <= TRAJECTORY_RTOL * abs(d)):
-            raise AssertionError(f"wide GT Adam step {i}: loss {name} {a} vs dense {d}")
-    step_ms = {m: benchmark(lambda s=s: train_step(*s, *batches[0]))[1]
-               for m, s in states.items()}
-    print(f"wide GT training (GTModel ogbg-molhiv, hidden {WIDE_HIDDEN}, 1 head, {L} layers, "
-          f"bs={BATCH}): {TRAJECTORY_STEPS} Adam steps, {counts} {step} a step through {name}, "
-          f"none through dense; losses {name} {[round(v, 7) for v in losses[name]]}, dense "
-          f"{[round(v, 7) for v in losses['dense']]} (rtol {TRAJECTORY_RTOL}); a step ({smi}): "
-          f"{name} {step_ms[name]:.4f} ms, dense {step_ms['dense']:.4f} ms")
-    del models, states, batches, ds
-
-    # the GAT model: a forward and a step, against dense
-    rng = np.random.default_rng(42)
-    sbatch = DenseBatch.from_graph_list(
-        [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
-    sx = torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
-    mask = sbatch.node_mask.reshape(-1, 1).float()
-    gat = Model("PATTERN", "gat", WIDE_HIDDEN, generator=torch.Generator().manual_seed(42))
-    target = torch.from_numpy(rng.standard_normal((BATCH * NP_PAD, WIDE_HIDDEN))
-                              .astype(np.float32)).cuda()
-    params = list(gat.parameters())
-
-    def gat_loss(i):
-        gat.zero_grad()
-        loss = (((gat(sbatch, sx, impl=i) - target) ** 2) * mask).mean()
-        loss.backward()
-        return float(loss.detach()), [p.grad.clone() for p in params]
-
-    with torch.inference_mode():
-        fm.reset_launch_counts()
-        out = gat(sbatch, sx, impl=impl)
-        counts_must_be(f"the wide GAT {name} forward", gat_fwd)
-        e = max_err(out, gat(sbatch, sx, impl="dense"), MODEL_TOL)
-        gat_ms, gdense_ms = in_turns(benchmark, lambda: gat(sbatch, sx, impl="dense"),
-                                     lambda: gat(sbatch, sx, impl=impl), names=("dense", name))
-    fm.reset_launch_counts()
-    loss_a, grads_a = gat_loss(impl)
-    counts_must_be(f"the wide GAT {name} step", gat_train)
-    loss_d, grads_d = gat_loss("dense")
-    if not abs(loss_a - loss_d) <= TRAJECTORY_RTOL * abs(loss_d):
-        raise AssertionError(f"wide GAT loss {name} {loss_a} vs dense {loss_d}")
-    # the gradients: rtol 1e-3 and atol 1e-4 of each tensor's largest element
-    ge = max(max_err(a, d, dict(rtol=1e-3, atol=1e-4 * float(d.abs().max())))
-             / float(d.abs().max()) for a, d in zip(grads_a, grads_d))
-    opt = torch.optim.Adam(params, lr=1e-3)
-    fm.reset_launch_counts()
-    gat_loss(impl)
-    opt.step()
-    counts_must_be(f"the wide GAT {name} Adam step", gat_train)
-    print(f"wide GAT (fig-1 Model PATTERN gat, hidden {WIDE_HIDDEN}, 1 head, bs={BATCH}, "
-          f"{sbatch.n_edges} edges) through {name}: a forward {counts} {gat_fwd}, vs dense max "
-          f"abs err {e:.3e} (tol {MODEL_TOL}); a step {gat_train}: loss {loss_a:.7f}, "
-          f"dense {loss_d:.7f}; gradients within {ge:.2e} of their largest element of dense's "
-          f"(bar rtol 1e-3, atol 1e-4 of it); forward ({smi}): {name} {gat_ms:.4f} ms, dense "
-          f"{gdense_ms:.4f} ms")
-    return gat, sbatch, sx
-
-
-def wide_phase(smi):
-    """Phase 26: head dims past 256 (#1 to #4) and the precision switch (#1
-    to #6).  The wide GT model (GTModel at hidden 512, one head: head dim
-    512) serves a PATTERN-like bs=1024 request through #1 and takes 3 Adam
-    steps on ogbg-molhiv bs=1024 through #1 and #3, each against
-    method="dense"; the fig-1 GAT Model at hidden 512 serves through #2 and
-    takes a step through #2 and #4, against dense; #1 to #4 at f = 257, 384,
-    512, 1024 and P = 26, 128, 300, 2048 against their plain versions; #1 to
-    #4 timed at the table's shape at f = 512 beside their bounds and SDPA;
-    #1 to #6 at precision="default" against their TF32-rounded plain
-    versions at the table's shape, timed against "highest", and "highest"
-    bitwise equal to no precision."""
+def time_attention_kernels(smi, shape, seed):
+    """#1 to #4 at ``shape`` (B, h, P, f) on ``attention_inputs``, fp32:
+    each timed in turns with its plain version, beside its bound and SDPA's
+    time.  Returns {name: (ms, plain_ms, bound_ms, bound_by, sdpa_ms)}."""
     import torch.nn.functional as F
 
     from dfgnn_tpu_torch.data.synthetic import attention_inputs
     from dfgnn_tpu_torch.ops import flash_mask as fm
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
-    # the wide GT and GAT models through their auto route (#1 to #4)
-    wide_models(smi, None)
-
-    # #1 to #4 past f = 256 against their plain versions
-    n = 0
-    for f in WIDE_F:
-        for P in WIDE_P:
-            for dtype in (torch.float32, torch.bfloat16):
-                print(wide_kernel_case(fm, 50 + n, P, f, dtype))
-                n += 1
-    print(f"#1 to #4 held against their plain versions at {n} points (f in {WIDE_F}, P in "
-          f"{WIDE_P}, fp32 and bf16): fp32 forwards {FP32_TOL}; fp32 gradients against the "
-          f"plain versions in fp64 at {BWD_FP32_TOL}, or within {FP32_GRAD_SPREAD}x the fp32 "
-          f"plain version's error (printed beside); bf16 {BF16_TOL} and a bf16 step of each "
-          f"gradient")
-
-    # #1 to #4 at the table's shape at f = 512: times beside bounds and SDPA
-    B, h, P, f = WIDE_TABLE
+    B, h, P, f = shape
     q, k, v, adj, _ = (torch.from_numpy(a).cuda()
-                       for a in attention_inputs(np.random.default_rng(60), B, h, P, f))
-    rng = np.random.default_rng(61)
+                       for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
+    rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda()
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
                     for _ in range(2))
@@ -982,15 +879,207 @@ def wide_phase(smi):
          attention_bound(2, adj, h, f, add_bytes(B, h, P, f, 4)[1], TF32X3_FLOPS)[:2],
          alib_bwd),
     ]
+    times = {}
     for name, plain_fn, kernel_fn, (bound_ms, bound_by), lib_ms in cases:
         ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
-        print(f"  {name} at {WIDE_TABLE}, fp32 ({smi}): kernel {ms:.4f} ms, plain "
+        times[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        print(f"  {name} at {shape}, fp32 ({smi}): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; peak "
               f"{peak_name(TF32X3_FLOPS)}), SDPA {lib_ms:.4f} ms")
     print("  (SDPA: #1, #3 with the boolean mask, backward timed as (fwd+bwd) - fwd; #2, #4 "
           "with q = k = 0 of width 8 and the masked leaky scores as a float mask, backward to "
           "the mask and v; the backward times include delta = rowsum(dO * out))")
-    del q, k, v, adj, do, out, lse, aout, alse, qg, kg, vg, mask_g, vg2, cases
+    return times
+
+
+def wide_models(smi, impl):
+    """The wide models of phases 26 and 27 through ``impl``: model_routes at
+    hidden WIDE_HIDDEN on a PATTERN-like bs=1024 request, ogbg-molhiv
+    bs=1024 and a second PATTERN-like batch for GAT.  Returns the GAT
+    model, its batch and its input."""
+    from dfgnn_tpu_torch import DenseBatch
+    from dfgnn_tpu_torch.data.collate import batch_iterator
+    from dfgnn_tpu_torch.data.datasets import load_batched
+    from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+
+    def pattern(seed):
+        rng = np.random.default_rng(seed)
+        batch = DenseBatch.from_graph_list(
+            [(r, c, n) for r, c, n, _ in pattern_like_batch(rng, BATCH)], np_pad=NP_PAD)
+        return batch, torch.from_numpy(rng.integers(0, 3, size=(BATCH * NP_PAD,))).cuda()
+
+    ds = load_batched("ogbg-molhiv", n_graphs=BATCH * TRAJECTORY_STEPS, quiet=True)
+    train = ("ogbg-molhiv", ds.task, ds.num_classes,
+             list(batch_iterator(ds, BATCH, np_pad=NP_PAD)))
+    sbatch, sx = pattern(42)
+    gat = model_routes(smi, impl, "wide", WIDE_HIDDEN, pattern(40), train, (sbatch, sx))
+    return gat, sbatch, sx
+
+
+def model_routes(smi, impl, what, hidden, serve, train, gat_in):
+    """GTModel and GAT's fig-1 Model at ``hidden`` with one head through
+    ``impl`` (None: their default auto route, kernels #1 to #4;
+    "flash_fused": #5 and #6, with #1 to #4 backward), each against
+    method="dense", their launch counts asserted and each route's time and
+    peak memory printed beside dense's: GTModel("PATTERN") serving
+    ``serve`` (a DenseBatch and its category ids); a GTModel taking 3 Adam
+    steps on ``train`` (dataset name, task, classes and batches of (g, x, y,
+    mask), one a step); the fig-1 GAT Model on ``gat_in`` (a DenseBatch and
+    its category ids), a forward and an Adam step.  ``what`` names the
+    models in the printed lines.  Returns the GAT model."""
+    from dfgnn_tpu_torch import GTModel
+    from dfgnn_tpu_torch.models import Model
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.train import TrainState, make_loss_fn, train_step
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    L, name = LAYERS, impl or "auto"
+    fused = impl == "flash_fused"
+    serve_n = (0, 0, 0, 0, L, 0) if fused else (L, 0, 0, 0, 0, 0)
+    step = (L, L, 0, 0, L, 0) if fused else (L, L, 0, 0, 0, 0)
+    gat_fwd = (0, 0, 0, 0, 0, 1) if fused else (0, 0, 1, 0, 0, 0)
+    gat_train = (0, 0, 1, 1, 0, 1) if fused else (0, 0, 1, 1, 0, 0)
+    counts = "launches of #1, #3, #2, #4, #5, #6"
+    peak = lambda fn: f"{step_peak_mib(fn)[0]:.1f} MiB"
+
+    # the GT model, serving
+    batch, x = serve
+    gt = GTModel("PATTERN", out_size=2, hidden_size=hidden, num_layers=L, num_heads=1,
+                 generator=torch.Generator().manual_seed(40)).eval()
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        logits = gt(batch, x, impl=impl)
+        counts_must_be(f"the {what} GT {name} forward", serve_n)
+        if logits.shape != (batch.n_graphs, 2) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what} GT logits {tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        e = max_err(logits, gt(batch, x, impl="dense"), MODEL_TOL)
+        ms, dense_ms = in_turns(benchmark, lambda: gt(batch, x, impl="dense"),
+                                lambda: gt(batch, x, impl=impl), names=("dense", name))
+        mems = {m: peak(lambda m=m: gt(batch, x, impl=m)) for m in (impl, "dense")}
+    print(f"{what} GT serving (GTModel PATTERN, hidden {hidden}, 1 head, {L} layers, "
+          f"{batch.n_graphs} graphs at P={batch.np_pad}, {batch.n_edges} edges) through "
+          f"{name}: {counts} {serve_n}; vs dense logits max abs err {e:.3e} (tol {MODEL_TOL}); "
+          f"forward ({smi}): {name} {ms:.4f} ms, peak {mems[impl]}, dense {dense_ms:.4f} ms, "
+          f"peak {mems['dense']}")
+    del gt, logits
+
+    # the GT model, training: 3 Adam steps through impl and through dense,
+    # the same weights and batches
+    dataset, task, classes, batches = train
+    per_step = {name: step, "dense": (0,) * 6}
+    models = {m: GTModel(dataset, out_size=1 if classes == 1 else classes, hidden_size=hidden,
+                         num_layers=L, method=m, generator=torch.Generator().manual_seed(41))
+              for m in per_step}
+    models["dense"].load_state_dict(models[name].state_dict())
+    losses, states = {}, {}
+    for m, model in models.items():
+        states[m] = (TrainState.create(model, lr=1e-3, step_lr_every=20),
+                     make_loss_fn(model, task, classes))
+        losses[m] = []
+        for b in batches:
+            fm.reset_launch_counts()
+            losses[m].append(float(train_step(*states[m], *b)[1]))
+            counts_must_be(f"a {what} GT {m} step", per_step[m])
+    for i, (a, d) in enumerate(zip(losses[name], losses["dense"])):
+        if not (math.isfinite(a) and abs(a - d) <= TRAJECTORY_RTOL * abs(d)):
+            raise AssertionError(f"{what} GT Adam step {i}: loss {name} {a} vs dense {d}")
+    step_ms = {m: benchmark(lambda s=s: train_step(*s, *batches[0]))[1]
+               for m, s in states.items()}
+    mems = {m: peak(lambda s=s: train_step(*s, *batches[0])) for m, s in states.items()}
+    g0 = batches[0][0]
+    print(f"{what} GT training (GTModel {dataset}, hidden {hidden}, 1 head, {L} layers, "
+          f"{g0.n_graphs} graphs at P={g0.np_pad}): {len(batches)} Adam steps, {counts} {step} a "
+          f"step through {name}, none through dense; losses {name} "
+          f"{[round(v, 7) for v in losses[name]]}, dense {[round(v, 7) for v in losses['dense']]} "
+          f"(rtol {TRAJECTORY_RTOL}); a step ({smi}): {name} {step_ms[name]:.4f} ms, peak "
+          f"{mems[name]}, dense {step_ms['dense']:.4f} ms, peak {mems['dense']}")
+    del models, states, batches
+
+    # the GAT model: a forward and a step, against dense
+    sbatch, sx = gat_in
+    mask = sbatch.node_mask.reshape(-1, 1).float()
+    gat = Model("PATTERN", "gat", hidden, generator=torch.Generator().manual_seed(42))
+    target = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (sbatch.n_graphs * sbatch.np_pad, hidden)).astype(np.float32)).cuda()
+    params = list(gat.parameters())
+
+    def gat_loss(i):
+        gat.zero_grad()
+        loss = (((gat(sbatch, sx, impl=i) - target) ** 2) * mask).mean()
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    with torch.inference_mode():
+        fm.reset_launch_counts()
+        out = gat(sbatch, sx, impl=impl)
+        counts_must_be(f"the {what} GAT {name} forward", gat_fwd)
+        e = max_err(out, gat(sbatch, sx, impl="dense"), MODEL_TOL)
+        gat_ms, gdense_ms = in_turns(benchmark, lambda: gat(sbatch, sx, impl="dense"),
+                                     lambda: gat(sbatch, sx, impl=impl), names=("dense", name))
+        mems = {m: peak(lambda m=m: gat(sbatch, sx, impl=m)) for m in (impl, "dense")}
+    fm.reset_launch_counts()
+    loss_a, grads_a = gat_loss(impl)
+    counts_must_be(f"the {what} GAT {name} step", gat_train)
+    loss_d, grads_d = gat_loss("dense")
+    if not abs(loss_a - loss_d) <= TRAJECTORY_RTOL * abs(loss_d):
+        raise AssertionError(f"{what} GAT loss {name} {loss_a} vs dense {loss_d}")
+    # the gradients: rtol 1e-3 and atol 1e-4 of each tensor's largest element
+    ge = max(max_err(a, d, dict(rtol=1e-3, atol=1e-4 * float(d.abs().max())))
+             / float(d.abs().max()) for a, d in zip(grads_a, grads_d))
+    step_mems = {i: peak(lambda i=i: gat_loss(i)) for i in (impl, "dense")}
+    opt = torch.optim.Adam(params, lr=1e-3)
+    fm.reset_launch_counts()
+    gat_loss(impl)
+    opt.step()
+    counts_must_be(f"the {what} GAT {name} Adam step", gat_train)
+    print(f"{what} GAT (fig-1 Model PATTERN gat, hidden {hidden}, 1 head, {sbatch.n_graphs} "
+          f"graphs at P={sbatch.np_pad}, {sbatch.n_edges} edges) through {name}: a forward "
+          f"{counts} {gat_fwd}, vs dense max abs err {e:.3e} (tol {MODEL_TOL}); a step "
+          f"{gat_train}: loss {loss_a:.7f}, dense {loss_d:.7f}; gradients within {ge:.2e} of "
+          f"their largest element of dense's (bar rtol 1e-3, atol 1e-4 of it); forward ({smi}): "
+          f"{name} {gat_ms:.4f} ms, peak {mems[impl]}, dense {gdense_ms:.4f} ms, peak "
+          f"{mems['dense']}; forward + backward peak {name} {step_mems[impl]}, dense "
+          f"{step_mems['dense']}")
+    return gat
+
+
+def wide_phase(smi):
+    """Phase 26: head dims past 256 (#1 to #4) and the precision switch (#1
+    to #6).  The wide GT model (GTModel at hidden 512, one head: head dim
+    512) serves a PATTERN-like bs=1024 request through #1 and takes 3 Adam
+    steps on ogbg-molhiv bs=1024 through #1 and #3, each against
+    method="dense"; the fig-1 GAT Model at hidden 512 serves through #2 and
+    takes a step through #2 and #4, against dense; #1 to #4 at f = 257, 384,
+    512, 1024 and P = 26, 128, 300, 2048 against their plain versions; #1 to
+    #4 timed at the table's shape at f = 512 beside their bounds and SDPA;
+    #1 to #6 at precision="default" against their TF32-rounded plain
+    versions at the table's shape, timed against "highest", and "highest"
+    bitwise equal to no precision."""
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    # the wide GT and GAT models through their auto route (#1 to #4)
+    wide_models(smi, None)
+
+    # #1 to #4 past f = 256 against their plain versions
+    n = 0
+    for f in WIDE_F:
+        for P in WIDE_P:
+            for dtype in (torch.float32, torch.bfloat16):
+                B, h = WIDE_BH[P]
+                print(attention_case(fm, 50 + n, B, h, P, f, dtype, with_val=f in (257, 512),
+                                     rate=0.4 if P in (26, 300) else 0.0))
+                n += 1
+    print(f"#1 to #4 held against their plain versions at {n} points (f in {WIDE_F}, P in "
+          f"{WIDE_P}, fp32 and bf16): fp32 forwards {FP32_TOL}; fp32 gradients against the "
+          f"plain versions in fp64 at {BWD_FP32_TOL}, or within {FP32_GRAD_SPREAD}x the fp32 "
+          f"plain version's error (printed beside); bf16 {BF16_TOL} and a bf16 step of each "
+          f"gradient")
+
+    # #1 to #4 at the table's shape at f = 512: times beside bounds and SDPA
+    time_attention_kernels(smi, WIDE_TABLE, 60)
 
     # #1 to #6 at precision="default" against their TF32-rounded plain
     # versions at the table's shape, timed against "highest"; "highest"
@@ -1047,16 +1136,15 @@ def wide_phase(smi):
               f"{one:.4f} ms, 'highest' {three:.4f} ms")
 
 
-def wide_layer_case(fm, seed, P, f, dtype, precision):
-    """#5 and #6 at head dim ``f`` past 256 against their plain versions on
-    x [B, P, WIDE_DIN] and random weights: fp32 at "highest" within
-    FP32_TOL, at "default" within a TF32 step of the largest element of the
-    TF32-rounded plain version (tf32_tol), bf16 within BF16_TOL; #6 with
-    dropout at P = 26 and 300; every fourth graph empty where B >= 4, and
-    every row without an edge exactly 0.  Returns the printed line."""
+def layer_case(fm, seed, B, h, P, f, dtype, precision, rate):
+    """#5 and #6 at head dim ``f`` against their plain versions on x [B, P,
+    WIDE_DIN] and random weights: fp32 at "highest" within FP32_TOL, at
+    "default" within a TF32 step of the largest element of the TF32-rounded
+    plain version (tf32_tol), bf16 within BF16_TOL; #6 with dropout at
+    ``rate``; every fourth graph empty where B >= 4, and every row without an
+    edge exactly 0.  Returns the printed line."""
     from dfgnn_tpu_torch.data.synthetic import attention_inputs
 
-    B, h = WIDE_BH[P]
     rng = np.random.default_rng(seed)
     adj = torch.from_numpy(attention_inputs(rng, B, h, P, 8)[3]).cuda()
     if B >= 4:
@@ -1066,7 +1154,6 @@ def wide_layer_case(fm, seed, P, f, dtype, precision):
     x = t((B, P, WIDE_DIN), 1.0).to(dtype)
     ws = [t((h, WIDE_DIN, f), WIDE_DIN ** -0.5).to(dtype) for _ in range(3)]
     vecs = [t((h, f), f ** -0.5) for _ in range(3)]
-    rate = 0.4 if P in (26, 300) else 0.0
     dot = (x, ws[0], vecs[0], ws[1], vecs[1], ws[2], vecs[2], adj)
     add = (x, ws[0], vecs[0], vecs[1], vecs[2], adj)
     kw5 = dict(scale=f ** -0.5, precision=precision)
@@ -1107,9 +1194,6 @@ def wide_layer_phase(smi):
     (WIDE_TABLE) and past P = 128 (WIDE_STREAM), din WIDE_HIDDEN, held
     against their plain versions at FP32_TOL and timed in turns with them,
     beside their compositions and bounds."""
-    import torch.nn.functional as F
-
-    from dfgnn_tpu_torch.data.synthetic import attention_inputs
     from dfgnn_tpu_torch.models import conv as conv_mod, make_conv
     from dfgnn_tpu_torch.ops import flash_mask as fm
     from dfgnn_tpu_torch.utils.benchmark import benchmark
@@ -1120,7 +1204,8 @@ def wide_layer_phase(smi):
         for P in WIDE_P:
             for dtype, precision in ((torch.float32, "highest"), (torch.float32, "default"),
                                      (torch.bfloat16, None)):
-                print(wide_layer_case(fm, 100 + n, P, f, dtype, precision))
+                print(layer_case(fm, 100 + n, *WIDE_BH[P], P, f, dtype, precision,
+                                 0.4 if P in (26, 300) else 0.0))
                 n += 1
     print(f"#5 and #6 held against their plain versions at {n} points (f in {WIDE_F}, P in "
           f"{WIDE_P}; fp32 'highest' {FP32_TOL}, fp32 'default' a TF32 step of the largest "
@@ -1168,57 +1253,145 @@ def wide_layer_phase(smi):
     del gat, sbatch, sx, conv16, conv32, out16, want, h0
 
     # #5 and #6 at the wide models' shape, and past P = 128 (the stream
-    # blocks, whose chunk blocks re-form the scores): held against their
-    # plain versions at FP32_TOL, then timed in turns with them, beside
-    # their compositions and bounds
-    for (B, h, P, f), seed in ((WIDE_TABLE, 64), (WIDE_STREAM, 65)):
-        din = WIDE_HIDDEN
-        rng = np.random.default_rng(seed)
-        adj = torch.from_numpy(attention_inputs(rng, B, h, P, 8)[3]).cuda()
-        t = lambda shape, s: torch.from_numpy((rng.standard_normal(shape) * s)
-                                              .astype(np.float32)).cuda()
-        x = t((B, P, din), 1.0)
-        ws = [t((h, din, f), din ** -0.5) for _ in range(3)]
-        vecs = [t((h, f), f ** -0.5) for _ in range(3)]
-        dot = (x, ws[0], vecs[0], ws[1], vecs[1], ws[2], vecs[2], adj)
-        add = (x, ws[0], vecs[0], vecs[1], vecs[2], adj)
-        x2, mask = x.reshape(B * P, din), adj[:, None].bool()
-        w_cat = torch.cat([w.permute(0, 2, 1).reshape(h * f, din) for w in ws])
-        b_cat = torch.cat([v.reshape(h * f) for v in vecs])
-        heads = lambda a: a.reshape(B, P, h, f)
+    # blocks, whose chunk blocks re-form the scores)
+    for shape, seed in ((WIDE_TABLE, 64), (WIDE_STREAM, 65)):
+        time_layer_kernels(smi, shape, WIDE_HIDDEN, seed)
 
-        def linear_flash():
-            q, k, v = F.linear(x2, w_cat, b_cat).split(h * f, dim=1)
-            return fm.flash_mask_fwd((heads(q) * f ** -0.5).contiguous(),
-                                     heads(k).contiguous(), heads(v).contiguous(), adj)[0]
 
-        def linear_sdpa():
-            q, k, v = (heads(a).transpose(1, 2)
-                       for a in F.linear(x2, w_cat, b_cat).split(h * f, dim=1))
-            return F.scaled_dot_product_attention(q * f ** -0.5, k, v, attn_mask=mask,
-                                                  scale=1.0)
+def time_layer_kernels(smi, shape, din, seed):
+    """#5 and #6 at ``shape`` (B, h, P, f) on x [B, P, din] and random fp32
+    weights: held against their plain versions at FP32_TOL, then timed in
+    turns with them, beside their compositions and bounds.  Returns {name:
+    (ms, plain_ms, bound_ms, bound_by, composition ms)}, #5's composition
+    F.linear + SDPA."""
+    import torch.nn.functional as F
 
-        edges = int(adj.sum())
-        for name, score, kernel_fn, plain_fn, comps in (
-                ("#5", "dot", lambda: fm.flash_layer_dot_fwd(*dot, scale=f ** -0.5),
-                 lambda: fm.flash_layer_dot_fwd_plain(*dot, scale=f ** -0.5),
-                 (("F.linear + #1", linear_flash), ("F.linear + SDPA", linear_sdpa))),
-                ("#6", "add", lambda: fm.flash_layer_add_fwd(*add),
-                 lambda: fm.flash_layer_add_fwd_plain(*add),
-                 (("F.linear, contractions, SDPA with a float mask", add_composition(*add)),))):
-            got = kernel_fn()
-            torch.cuda.synchronize()
-            err = max_err(got, plain_fn(), FP32_TOL)
-            del got
-            ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
-            comp = ", ".join(f"{c} {benchmark(fn)[1]:.4f} ms" for c, fn in comps)
-            flops, nbytes = layer_work(score, B, P, din, h, f, edges, 4)
-            bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
-            print(f"  {name} at {(B, h, P, f)}, din {din}, fp32 ({smi}): against its plain "
-                  f"version max abs err {err:.2e} (bar {FP32_TOL}); kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, {comp}; bound {bound_ms:.4f} ms ({bound_by}; "
-                  f"{edges} edges, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; peak "
-                  f"{peak_name(TF32X3_FLOPS)})")
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+    from dfgnn_tpu_torch.utils.benchmark import benchmark
+
+    B, h, P, f = shape
+    rng = np.random.default_rng(seed)
+    adj = torch.from_numpy(attention_inputs(rng, B, h, P, 8)[3]).cuda()
+    t = lambda shape, s: torch.from_numpy((rng.standard_normal(shape) * s)
+                                          .astype(np.float32)).cuda()
+    x = t((B, P, din), 1.0)
+    ws = [t((h, din, f), din ** -0.5) for _ in range(3)]
+    vecs = [t((h, f), f ** -0.5) for _ in range(3)]
+    dot = (x, ws[0], vecs[0], ws[1], vecs[1], ws[2], vecs[2], adj)
+    add = (x, ws[0], vecs[0], vecs[1], vecs[2], adj)
+    x2, mask = x.reshape(B * P, din), adj[:, None].bool()
+    w_cat = torch.cat([w.permute(0, 2, 1).reshape(h * f, din) for w in ws])
+    b_cat = torch.cat([v.reshape(h * f) for v in vecs])
+    heads = lambda a: a.reshape(B, P, h, f)
+
+    def linear_flash():
+        q, k, v = F.linear(x2, w_cat, b_cat).split(h * f, dim=1)
+        return fm.flash_mask_fwd((heads(q) * f ** -0.5).contiguous(),
+                                 heads(k).contiguous(), heads(v).contiguous(), adj)[0]
+
+    def linear_sdpa():
+        q, k, v = (heads(a).transpose(1, 2)
+                   for a in F.linear(x2, w_cat, b_cat).split(h * f, dim=1))
+        return F.scaled_dot_product_attention(q * f ** -0.5, k, v, attn_mask=mask,
+                                              scale=1.0)
+
+    edges = int(adj.sum())
+    times = {}
+    for name, score, kernel_fn, plain_fn, comps in (
+            ("#5", "dot", lambda: fm.flash_layer_dot_fwd(*dot, scale=f ** -0.5),
+             lambda: fm.flash_layer_dot_fwd_plain(*dot, scale=f ** -0.5),
+             (("F.linear + SDPA", linear_sdpa), ("F.linear + #1", linear_flash))),
+            ("#6", "add", lambda: fm.flash_layer_add_fwd(*add),
+             lambda: fm.flash_layer_add_fwd_plain(*add),
+             (("F.linear, contractions, SDPA with a float mask", add_composition(*add)),))):
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        err = max_err(got, plain_fn(), FP32_TOL)
+        del got
+        ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
+        comp_ms = [benchmark(fn)[1] for _, fn in comps]
+        comp = ", ".join(f"{c} {t:.4f} ms" for (c, _), t in zip(comps, comp_ms))
+        flops, nbytes = layer_work(score, B, P, din, h, f, edges, 4)
+        bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+        times[name] = (ms, plain_ms, bound_ms, bound_by, comp_ms[0])
+        print(f"  {name} at {shape}, din {din}, fp32 ({smi}): against its plain "
+              f"version max abs err {err:.2e} (bar {FP32_TOL}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {comp}; bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{edges} edges, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; peak "
+              f"{peak_name(TF32X3_FLOPS)})")
+    return times
+
+
+def large_graph_phase(smi):
+    """Phase 28: graphs past P = 2048, where the stream blocks of #1 to #6
+    walk adj in windows of 2048 keys (#3's column pass and #4: rows).  #1 to
+    #4 at P = 2049, 2176, 4096 and f = 64, 128, 256, 300 (fp32 and bf16;
+    edge values, dropout with the keep masks bitwise, an empty graph and
+    precision="default" at one point each) and #1 to #4 at P = 8192 against
+    their plain versions; #5 and #6 at the same P and f = 64, 128 (#6 with
+    dropout at 2176); #1 to #6 timed at LARGE_TABLE beside their plain
+    versions, bounds and nearest PyTorch calls; then GTModel (8 layers,
+    hidden 128, one head) serving and taking 3 Adam steps, and the fig-1
+    GAT Model a forward and a step, on a DenseBatch of 8 graphs of about
+    3,000 nodes (P up to 4096) through auto (#1 to #4) and flash_fused (#5
+    and #6), each against method="dense" with its launches asserted.
+    Returns the timings: {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
+    from dfgnn_tpu_torch import DenseBatch
+    from dfgnn_tpu_torch.data.synthetic import small_graph_batch
+    from dfgnn_tpu_torch.ops import flash_mask as fm
+
+    # #1 to #4 against their plain versions
+    n = 0
+    for P in LARGE_P:
+        B, h = LARGE_BH[P]
+        for f in LARGE_F:
+            opts = dict(with_val=(P, f) == (2049, 128), empty=(P, f) == (2176, 128),
+                        rate=0.4 if (P, f) == (4096, 256) else 0.0)
+            for dtype in (torch.float32, torch.bfloat16):
+                print(attention_case(fm, 200 + n, B, h, P, f, dtype, **opts))
+                n += 1
+    print(attention_case(fm, 200 + n, *LARGE_BH[4096], 4096, 128, torch.float32,
+                         with_val=False, rate=0.0, precision="default"))
+    print(attention_case(fm, 201 + n, 1, 1, 8192, 64, torch.float32, with_val=False, rate=0.0))
+    print(f"#1 to #4 held against their plain versions at {n + 2} points (P in {LARGE_P} x f in "
+          f"{LARGE_F}, fp32 and bf16; 'default' at P=4096 f=128; P=8192 f=64): fp32 forwards "
+          f"{FP32_TOL}; fp32 gradients against the plain versions in fp64 at {BWD_FP32_TOL}, or "
+          f"within {FP32_GRAD_SPREAD}x the fp32 plain version's error (printed beside); bf16 "
+          f"{BF16_TOL} and a bf16 step of each gradient; 'default' a TF32 step; rows without "
+          f"an edge exactly 0")
+
+    # #5 and #6 against their plain versions
+    n = 0
+    for P in LARGE_P:
+        for f in LARGE_F[:2]:
+            for dtype in (torch.float32, torch.bfloat16):
+                print(layer_case(fm, 300 + n, *LARGE_BH[P], P, f, dtype, None,
+                                 0.4 if P == 2176 else 0.0))
+                n += 1
+    print(f"#5 and #6 held against their plain versions at {n} points (P in {LARGE_P} x f in "
+          f"{LARGE_F[:2]}, din {WIDE_DIN}, fp32 {FP32_TOL}, bf16 {BF16_TOL})")
+
+    # #1 to #6 timed at LARGE_TABLE
+    times = time_attention_kernels(smi, LARGE_TABLE, 210)
+    times.update(time_layer_kernels(smi, LARGE_TABLE, LARGE_TABLE[3], 211))
+
+    # the GT and GAT models on a batch of large graphs, through auto (#1 to
+    # #4) and flash_fused (#5, #6), against dense
+    rng = np.random.default_rng(220)
+    graphs = small_graph_batch(rng, LARGE_GRAPHS, mean_nodes=LARGE_MEAN, deg=8,
+                               max_nodes=LARGE_MAX)
+    batch = DenseBatch.from_graph_list([(r, c, n) for r, c, n, _ in graphs])
+    x = torch.from_numpy(rng.integers(0, 3, size=(batch.n_graphs * batch.np_pad,))).cuda()
+    y = torch.from_numpy(rng.integers(0, 2, size=batch.n_graphs)).cuda()
+    mask = torch.ones(batch.n_graphs, dtype=torch.bool, device="cuda")
+    train = ("PATTERN", "graph_classification", 2, [(batch, x, y, mask)] * TRAJECTORY_STEPS)
+    print(f"the large-graph batch: {batch.n_graphs} graphs of {sorted(n for *_, n, _ in graphs)} "
+          f"nodes, P={batch.np_pad}, {batch.n_edges} edges")
+    for impl in (None, "flash_fused"):
+        model_routes(smi, impl, "large-graph", HIDDEN, (batch, x), train, (batch, x))
+    return times
 
 
 def phase_done(name: str) -> None:
@@ -2849,6 +3022,10 @@ def main() -> int:
     # 27. the whole-layer kernels #5 and #6 past head dim 256 (item f)
     wide_layer_phase(smi)
     phase_done("27 wide whole-layer kernels")
+
+    # 28. graphs past P = 2048 (item e)
+    large_graph_phase(smi)
+    phase_done("28 graphs past P = 2048")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

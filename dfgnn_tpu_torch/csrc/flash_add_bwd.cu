@@ -17,7 +17,7 @@
 // e_row, e_col and the sums d e_row, d e_col are fp32 whatever v's type, as
 // the Pallas kernel reads the scalars; v, dO and dv are fp32 or bf16, any f
 // >= 1 (tiles zero past f up to the instantiated width 32, 64, 128 or 256),
-// P <= 2048.  keep is regenerated from the seed with the hash of
+// any P >= 1.  keep is regenerated from the seed with the hash of
 // flash_common.cuh, bitwise the forward's.  fp32 products as 3xTF32, or one
 // TF32 pass with `one` (precision "default").
 //
@@ -59,15 +59,25 @@
 //   staging V's and dO's columns of each through the FI = 256 buffers, its
 //   own chunk last, so that dO of its dv columns is in place for pn^T . dO:
 //   the block and its per-row state do not grow, and each chunk re-forms p.
+// - Any P: the rows go in windows of kWinRows.  Per window the block scans
+//   the window's rows over its 128 keys, keeps their edge bits (16 B a row)
+//   and row-tile flags, stages V of the key groups newly live and walks the
+//   window's live row tiles; dv and d e_col sum on in registers across
+//   windows, and each row tile's d e_row share is written as before.  So
+//   shared memory stops growing at P = kWinRows, where the block held every
+//   row's bits (at f = 256 past about P = 2300 it could not launch).  At
+//   P <= kWinRows the kernel launches its one-window instantiation (WIN
+//   false), whose window loop the compiler folds away (kept, it cost the
+//   fp32 f = 128 block 72 bytes of spills).
 // Shared memory at f = 128 in fp32: V 67.6 KB, the dO ring 16.9 KB, the pn
 // tile 8.4 KB, adj's edge bits 16 B a row (2 KB at P = 128): 97 KB, two
-// blocks an SM; at f = 256 (and past it), P = 2048: 208 KB.
+// blocks an SM; at f = 256 (and past it), P >= 2048: 208 KB.
 
 #include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kMaxP = 2048;
+constexpr int kWinRows = 2048;  // rows a block scans and keeps the edge bits of at a time
 constexpr int kWarps = 8, kThreads = 256, kKeys = 128, kRT = 16;
 constexpr int kKeyGroups = kKeys / kGroup;  // 8: one a warp
 
@@ -78,13 +88,14 @@ struct BwdCfg {
   static constexpr size_t v_elems = size_t(kKeys) * ld;
   static constexpr size_t ring_elems = size_t(2) * kRT * ld;
   static constexpr size_t pn_elems = size_t(kRT) * ldd;
-  static constexpr int kMaxRowTiles = kMaxP / kRT;
+  static constexpr int kMaxRowTiles = kWinRows / kRT;  // row tiles a window
   // then e_col of the block's keys, the warps' row sums, a key-group mask
-  // per row tile, and adj's edge bits (a 16-key word per row and key group)
+  // per row tile of the window, and adj's edge bits of the window's rows (a
+  // 16-key word per row and key group): at most its size at P = kWinRows
   static size_t bytes(int P) {
     return sizeof(T) * (v_elems + ring_elems + pn_elems) +
            sizeof(float) * (kKeys + kWarps * kRT) + sizeof(uint32_t) * kMaxRowTiles +
-           sizeof(uint16_t) * size_t(P) * kKeyGroups;
+           sizeof(uint16_t) * size_t(min(P, kWinRows)) * kKeyGroups;
   }
 };
 
@@ -100,7 +111,7 @@ __device__ __forceinline__ float entry_dpre(float dp, float pre, float lse, floa
   return pre >= 0.f ? ds : ds * slope;
 }
 
-template <typename T, int FI, bool ONE>
+template <typename T, int FI, bool ONE, bool WIN>
 __global__ void __launch_bounds__(kThreads, FI <= 128 ? 2 : 1)
 flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ e_col,
                      const T* __restrict__ v, const uint8_t* __restrict__ adj,
@@ -119,7 +130,7 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
   float* ecs = reinterpret_cast<float*>(pns + C::pn_elems);  // [128]
   float* rsum = ecs + kKeys;                               // [8][16]: the warps' row sums
   uint32_t* flags = reinterpret_cast<uint32_t*>(rsum + kWarps * kRT);  // [row tile]
-  uint16_t* rbits = reinterpret_cast<uint16_t*>(flags + C::kMaxRowTiles);  // [P][8]
+  uint16_t* rbits = reinterpret_cast<uint16_t*>(flags + C::kMaxRowTiles);  // [window rows][8]
 
   const int n_kb = (P + kKeys - 1) / kKeys;
   const int kb = blockIdx.x % n_kb;
@@ -144,38 +155,18 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
   const long obase = base + col0;
   const bool scalars = col0 == 0;
 
-  for (int i = tid; i < n_rt; i += kThreads) flags[i] = 0u;
-  for (int i = tid; i < P * kKeyGroups; i += kThreads) rbits[i] = 0;
   for (int c = tid; c < kKeys; c += kThreads)
     ecs[c] = c0 + c < P ? e_col[sbase + long(c0 + c) * H] : 0.f;
-  __syncthreads();
-  scan_adj(adj_b, P, 0, P, c0, kKeyGroups, tid, kThreads, flags,
-           [&](int r, int gk, int& w, uint32_t& bit) {
-             w = r / kRT;
-             bit = 1u << gk;
-           },
-           [&](int r, int gk, uint32_t bits) { rbits[r * kKeyGroups + gk] = uint16_t(bits); });
-  __syncthreads();
-  uint32_t colmask = 0;  // the block's key groups with an edge
-  for (int i = 0; i < n_rt; ++i) colmask |= flags[i];
-
-  // rows without an edge into the block's keys sum to 0
-  for (int r = tid; r < P && scalars; r += kThreads)
-    if (flags[r / kRT] == 0u) rows_out[sbase + long(r) * H] = 0.f;
-  if (colmask == 0u) {
-    for (int i = tid; i < kKeys * fw; i += kThreads) {
-      const int key = c0 + i / fw;
-      if (key >= P) continue;
-      dv[obase + long(key) * row_stride + i % fw] = from_f32<T>(0.f);
-      if (scalars && i % fw == 0) dec[sbase + long(key) * H] = 0.f;
-    }
-    return;
-  }
-
-  const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
+  // The rows go in windows of kMaxRowTiles 16-row tiles (kWinRows rows): per
+  // window the block scans the window's rows over its keys, keeps their edge
+  // bits and tile flags and walks the live tiles, dv and d e_col summing on
+  // across windows, so shared memory does not grow with P.  i0, nr: the
+  // window's first row tile and tile count; colmask: the block's key groups
+  // with an edge in it; vdone: those whose V rows are in place
+  int i0 = 0, nr = 1;
+  uint32_t colmask = 0, vdone = 0;
   auto next_live = [&](int i) {
-    while (i < n_rt && flags[i] == 0u) ++i;
+    while (i < i0 + nr && flags[i - i0] == 0u) ++i;
     return i;
   };
   // dO of row tile i, columns [cb - base, + fc), into ring slot st
@@ -183,104 +174,143 @@ flash_add_bwd_kernel(const float* __restrict__ e_row, const float* __restrict__ 
     stage_rows<T, FI>(dout, cb, row_stride, i * kRT, kRT, P, fc, vec, 1u,
                       dr + size_t(st) * kRT * C::ld, C::ld, tid, kThreads);
   };
-  // V of the block's keys, the same columns
-  auto stage_v = [&](long cb, int fc) {
-    stage_rows<T, FI>(v, cb, row_stride, c0, kKeys, P, fc, vec, colmask, vs, C::ld, tid,
-                      kThreads);
+  // V of the block's key groups in `live`, the same columns
+  auto stage_v = [&](long cb, int fc, uint32_t live) {
+    stage_rows<T, FI>(v, cb, row_stride, c0, kKeys, P, fc, vec, live, vs, C::ld, tid, kThreads);
   };
-  int i = next_live(0);
-  if (nc == 1) {
-    stage_v(base, f);
-    stage_tile(i, 0, base, f);
-  }
-  cp_async_commit();
 
+  const int kf = (f + KS - 1) / KS * KS;
+  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
   float dva[NTO][4];
   zero_acc(dva);
   float dca[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // d e_col of keys kw + 8 jj + 2 t + e1
   const int kw = warp * kGroup;                // the warp's first key in the block
   int st = 0;
-  while (i < n_rt) {
-    const int in = next_live(i + 1);
-    const bool mine = (flags[i] >> warp) & 1u;
-    const T* dt = dr + size_t(st) * kRT * C::ld;
-    float dp[2][4];
-    zero_acc(dp);
-    if (nc > 1) {
-      // wide: dp summed over the chunks of FI columns, the block's own chunk
-      // last, so that dO of its dv columns is in place for pn^T . dO
-      for (int n = 1; n <= nc; ++n) {
-        const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
-        stage_v(base + long(cc) * FI, fc);
-        stage_tile(i, 0, base + long(cc) * FI, fc);
+  for (int w0 = 0; w0 < (WIN ? n_rt : 1); w0 += C::kMaxRowTiles) {
+    if (w0 > 0) __syncthreads();  // the last window's flags and edge bits are free
+    i0 = w0;
+    nr = WIN ? min(C::kMaxRowTiles, n_rt - w0) : n_rt;
+    const int row0w = i0 * kRT, nrows = min(nr * kRT, P - row0w);  // the window's rows
+    for (int i = tid; i < nr; i += kThreads) flags[i] = 0u;
+    for (int i = tid; i < nrows * kKeyGroups; i += kThreads) rbits[i] = 0;
+    __syncthreads();
+    scan_adj(adj_b, P, row0w, nrows, c0, kKeyGroups, tid, kThreads, flags,
+             [&](int r, int gk, int& w, uint32_t& bit) {
+               w = r / kRT - i0;
+               bit = 1u << gk;
+             },
+             [&](int r, int gk, uint32_t bits) {
+               rbits[(r - row0w) * kKeyGroups + gk] = uint16_t(bits);
+             });
+    __syncthreads();
+    colmask = 0;  // the block's key groups with an edge in the window
+    for (int i = 0; i < nr; ++i) colmask |= flags[i];
+
+    // rows without an edge into the block's keys sum to 0
+    for (int r = tid; r < nrows && scalars; r += kThreads)
+      if (flags[r / kRT] == 0u) rows_out[sbase + long(row0w + r) * H] = 0.f;
+    if (colmask == 0u) {
+      if (WIN) continue;  // dv = d e_col = 0 leave with the rest
+      for (int i = tid; i < kKeys * fw; i += kThreads) {
+        const int key = c0 + i / fw;
+        if (key >= P) continue;
+        dv[obase + long(key) * row_stride + i % fw] = from_f32<T>(0.f);
+        if (scalars && i % fw == 0) dec[sbase + long(key) * H] = 0.f;
+      }
+      return;
+    }
+    const uint32_t vnew = colmask & ~vdone;  // live key groups whose V rows are not in place
+    vdone |= vnew;
+
+    int i = next_live(i0);
+    if (nc == 1) {
+      stage_v(base, f, vnew);
+      stage_tile(i, st, base, f);
+    }
+    cp_async_commit();
+
+    while (i < i0 + nr) {
+      const int in = next_live(i + 1);
+      const bool mine = (flags[i - i0] >> warp) & 1u;
+      const T* dt = dr + size_t(st) * kRT * C::ld;
+      float dp[2][4];
+      zero_acc(dp);
+      if (nc > 1) {
+        // wide: dp summed over the chunks of FI columns, the block's own chunk
+        // last, so that dO of its dv columns is in place for pn^T . dO
+        for (int n = 1; n <= nc; ++n) {
+          const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
+          stage_v(base + long(cc) * FI, fc, colmask);
+          stage_tile(i, 0, base + long(cc) * FI, fc);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          if (mine)
+            for (int k0 = 0; k0 < fc; k0 += KS)
+              mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0,
+                                            0xffffffffu);
+          if (n < nc) __syncthreads();  // the buffers are free for the next chunk
+        }
+      } else {
+        if (in < i0 + nr) stage_tile(in, st ^ 1, base, f);
         cp_async_commit();
-        cp_async_wait<0>();
+        cp_async_wait<1>();
         __syncthreads();
         if (mine)
-          for (int k0 = 0; k0 < fc; k0 += KS)
+          for (int k0 = 0; k0 < kf; k0 += KS)
             mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0,
                                           0xffffffffu);
-        if (n < nc) __syncthreads();  // the buffers are free for the next chunk
       }
-    } else {
-      if (in < n_rt) stage_tile(in, st ^ 1, base, f);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      if (mine)
-        for (int k0 = 0; k0 < kf; k0 += KS)
-          mma_step<2, false, true, ONE>(dp, dt, C::ld, vs + size_t(kw) * C::ld, C::ld, k0, 0,
-                                        0xffffffffu);
-    }
-    const int row0 = i * kRT;
-    float rs[2] = {0.f, 0.f};  // rows g and g + 8: the lane's share of the warp's row sums
-    if (mine) {
+      const int row0 = i * kRT;
+      float rs[2] = {0.f, 0.f};  // rows g and g + 8: the lane's share of the warp's row sums
+      if (mine) {
 #pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const int rr = g + 8 * e2, row = row0 + rr;
-        const bool live = row < P;
-        const float er = live ? e_row[sbase + long(row) * H] : 0.f;
-        const float lr = live ? lse[row_off + row] : 0.f;
-        const float dl = live ? delta[row_off + row] : 0.f;
-        const uint32_t bits = live ? rbits[row * kKeyGroups + warp] : 0u;
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int rr = g + 8 * e2, row = row0 + rr;
+          const bool live = row < P;
+          const float er = live ? e_row[sbase + long(row) * H] : 0.f;
+          const float lr = live ? lse[row_off + row] : 0.f;
+          const float dl = live ? delta[row_off + row] : 0.f;
+          const uint32_t bits = live ? rbits[(row - row0w) * kKeyGroups + warp] : 0u;
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
+          for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            const int kc = jj * 8 + 2 * t + e1, key = c0 + kw + kc;
-            float dpre = 0.f, pk = 0.f;
-            if ((bits >> kc) & 1u) {
-              const long ei = long(row) * P + key;
-              const float keep = drop.on ? drop.factor(b, P, row, key, hh) : 1.f;
-              dpre = entry_dpre(dp[jj][2 * e2 + e1], er + ecs[kw + kc], lr, dl,
-                                val_b ? val_b[ei] : 1.f, val_b != nullptr, slope, keep, &pk);
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int kc = jj * 8 + 2 * t + e1, key = c0 + kw + kc;
+              float dpre = 0.f, pk = 0.f;
+              if ((bits >> kc) & 1u) {
+                const long ei = long(row) * P + key;
+                const float keep = drop.on ? drop.factor(b, P, row, key, hh) : 1.f;
+                dpre = entry_dpre(dp[jj][2 * e2 + e1], er + ecs[kw + kc], lr, dl,
+                                  val_b ? val_b[ei] : 1.f, val_b != nullptr, slope, keep, &pk);
+              }
+              pns[rr * C::ldd + kw + kc] = from_f32<T>(pk);
+              rs[e2] += dpre;
+              dca[jj][e1] += dpre;
             }
-            pns[rr * C::ldd + kw + kc] = from_f32<T>(pk);
-            rs[e2] += dpre;
-            dca[jj][e1] += dpre;
           }
         }
+        __syncwarp();  // the warp's own pn columns are written
+#pragma unroll
+        for (int k0 = 0; k0 < kRT; k0 += KS)
+          mma_step<NTO, true, false, ONE>(dva, pns + kw, C::ldd, dt, C::ld, k0, 0, fmask);
       }
-      __syncwarp();  // the warp's own pn columns are written
 #pragma unroll
-      for (int k0 = 0; k0 < kRT; k0 += KS)
-        mma_step<NTO, true, false, ONE>(dva, pns + kw, C::ldd, dt, C::ld, k0, 0, fmask);
-    }
+      for (int e2 = 0; e2 < 2; ++e2) {
+        rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 1);
+        rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 2);
+        if (t == 0) rsum[warp * kRT + g + 8 * e2] = rs[e2];
+      }
+      __syncthreads();  // the row sums are in; this ring slot and pn are free again
+      if (scalars && tid < kRT && row0 + tid < P) {
+        float s = 0.f;
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 1);
-      rs[e2] += __shfl_xor_sync(0xffffffffu, rs[e2], 2);
-      if (t == 0) rsum[warp * kRT + g + 8 * e2] = rs[e2];
+        for (int w = 0; w < kWarps; ++w) s += rsum[w * kRT + tid];
+        rows_out[sbase + long(row0 + tid) * H] = s;
+      }
+      i = in;
+      if (nc == 1) st ^= 1;
     }
-    __syncthreads();  // the row sums are in; this ring slot and pn are free again
-    if (scalars && tid < kRT && row0 + tid < P) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += rsum[w * kRT + tid];
-      rows_out[sbase + long(row0 + tid) * H] = s;
-    }
-    i = in;
-    if (nc == 1) st ^= 1;
   }
 
   // d e_col: the warp's keys summed over the quads' rows (lanes of one t)
@@ -335,7 +365,9 @@ cudaError_t launch_fi(const Args& a) {
   using C = BwdCfg<T, FI>;
   const size_t bytes = C::bytes(a.P);
   if (bytes > 232448) return cudaErrorInvalidValue;
-  auto kernel = flash_add_bwd_kernel<T, FI, ONE>;
+  // past kWinRows the windowed walk, else its one-window instantiation
+  auto kernel = a.P > kWinRows ? flash_add_bwd_kernel<T, FI, ONE, true>
+                               : flash_add_bwd_kernel<T, FI, ONE, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
@@ -379,7 +411,7 @@ extern "C" {
 
 // dtype (of v, dout and dv): 0 = fp32, 1 = bf16.  e_row, e_col, der, dec:
 // fp32 [B, P, H] contiguous; v, dout, dv: [B, P, H, F] contiguous, F >= 1;
-// adj: [B, P, P] uint8, 1 <= P <= 2048; val: [B, P, P] fp32 or null; lse,
+// adj: [B, P, P] uint8, P >= 1; val: [B, P, P] fp32 or null; lse,
 // delta: [H, B, P] fp32; der_part: fp32 scratch of ceil(P / 128) * B * P * H
 // floats when P > 128 (null otherwise).  drop, seed, threshold, scale and
 // one_pass as dfgnn_flash_add_fwd's.  Launches one kernel (two when P > 128)
@@ -390,7 +422,7 @@ int dfgnn_flash_add_bwd(int dtype, const void* e_row, const void* e_col, const v
                         const void* dout, void* der, void* der_part, void* dec, void* dv, int B,
                         int P, int H, int F, float slope, int drop, unsigned seed,
                         unsigned threshold, float scale, int one_pass, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1) return int(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || P < 1 || F < 1) return int(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(e_row), static_cast<const float*>(e_col), v, dout,
                static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
                static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -30,10 +30,10 @@
 //   A block stages its Q rows and a K tile, and the scores are an mma
 //   product.
 // - AddScore (#2): s = leaky_relu(e_row[r] + e_col[c]) from fp32 [B, P, h]
-//   scalars read through their strides.  A block stages e_col of the graph
-//   (P floats) and keeps e_row of a thread's two fragment rows (g, g + 8) in
-//   registers; each score is formed straight in the C-fragment layout, with
-//   no product and no K tile.
+//   scalars read through their strides.  A block stages e_col of the
+//   window of keys it walks (at most kWinKeys floats) and keeps e_row of a
+//   thread's two fragment rows (g, g + 8) in registers; each score is formed
+//   straight in the C-fragment layout, with no product and no K tile.
 // - LayerScore (#5): DotScore with q, k and v projected in the kernel from
 //   node features x by the tensor cores (project_tile, flash_mma.cuh), into
 //   the same shared-memory tiles #1 fills by cp.async: the Q rows of the live
@@ -93,7 +93,12 @@
 // - Past f = 256 #5 and #6 run their wide policies, LayerScoreWide and
 //   LayerAddWide (layer_fwd says how, and flash_layer_dot.cu and
 //   flash_layer_add.cu why).
-// - The supported set: P <= 2048, any f >= 1.
+// - Any P: the stream block takes its keys in windows of kWinKeys, scanning
+//   adj, flagging the live tiles and (#2, wide #6) staging e_col one window
+//   at a time, with the online softmax running on across windows, so its
+//   shared memory does not grow with P.  At P <= kWinKeys there is one
+//   window, and the block runs as it did before windows.
+// - The supported set: any P >= 1 and f >= 1 whose tensors fit the card.
 #pragma once
 
 #include <type_traits>
@@ -102,7 +107,8 @@
 
 namespace {
 
-constexpr int kMaxP = 2048;
+// keys a stream block scans, flags and (#2, wide #6) keeps e_col of at a time
+constexpr int kWinKeys = 2048;
 
 // kChunked: the wide policies (#5 and #6 past f = 256), whose head dim goes
 // in chunks of FI columns
@@ -174,7 +180,7 @@ struct FwdCfg {
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS * 16;  // query rows per block
   static constexpr int kStages = WHOLE || kProject ? 1 : 2;
-  static constexpr int kMaxTiles = WHOLE ? 1 : kMaxP / KT;
+  static constexpr int kMaxTiles = WHOLE ? 1 : kWinKeys / KT;  // tiles a window
   // ex (and at the end the output rows) over the Q rows' buffer, except in
   // the dot score's stream block, whose Q rows serve every key tile
   static constexpr bool kExInQ = WHOLE || !kDot;
@@ -188,9 +194,9 @@ struct FwdCfg {
   // dot whole: V replaces K in one buffer once the scores are formed
   static constexpr size_t k_elems = kDot ? size_t(kStages) * KT * (WHOLE ? ldv : ldk) : 0;
   static constexpr size_t v_elems = kDot && WHOLE ? 0 : size_t(kStages) * KT * ldv;
-  // add: e_col of the graph, fp32 (layer add: of the block's one key tile,
-  // and e_row of its query rows)
-  static constexpr int kECols = kDot ? 0 : (WHOLE || !kReadE ? KT : kMaxP);
+  // add: e_col of the window's keys, fp32 (layer add: of the block's one key
+  // tile, and e_row of its query rows)
+  static constexpr int kECols = kDot ? 0 : (WHOLE || !kReadE ? KT : kWinKeys);
   static constexpr int kERows = !kDot && !kReadE ? kRows : 0;
   // whole: adj's edge bits of the block's rows, 16 keys a word
   static constexpr int kBitWords = WHOLE ? kRows * (KT / kGroup) : 0;
@@ -208,7 +214,8 @@ struct FwdCfg {
   static constexpr size_t pw_elems = kProject ? size_t(2) * kPK * (kPCols + 8) : 0;
   static constexpr size_t bytes =
       sizeof(T) * (q_elems + p_elems + k_elems + v_elems + px_elems + pw_elems) +
-      sizeof(float) * (kECols + kERows) + sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
+      sizeof(float) * (kECols + kERows) +
+      sizeof(uint32_t) * (size_t(WARPS) * kMaxTiles + kMaxTiles + WARPS) +
       sizeof(uint16_t) * kBitWords + sizeof(float) * kLRows;
 };
 
@@ -229,12 +236,12 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   T* vs = kDot && WHOLE ? ks : ks + C::k_elems;
   T* pxs = ks + C::k_elems + C::v_elems;  // layer: the projection's x and W ring
   T* pws = pxs + C::px_elems;
-  float* ecs = reinterpret_cast<float*>(pws + C::pw_elems);  // add: [P] (layer add: [KT])
+  float* ecs = reinterpret_cast<float*>(pws + C::pw_elems);  // add: [window keys] (layer add: [KT])
   float* ers = ecs + C::kECols;  // layer add: e_row of the block's rows, [kRows]
   // whole: adj's edge bits, [rows][KT / kGroup] 16-key words, 16-byte rows
   uint16_t* rbits = reinterpret_cast<uint16_t*>(ers + C::kERows);
-  uint32_t* flags = reinterpret_cast<uint32_t*>(rbits + C::kBitWords);  // [WARPS][n_tiles]
-  uint32_t* tmask = flags + WARPS * C::kMaxTiles;                       // [n_tiles]
+  uint32_t* flags = reinterpret_cast<uint32_t*>(rbits + C::kBitWords);  // [WARPS][window tiles]
+  uint32_t* tmask = flags + WARPS * C::kMaxTiles;                       // [window tiles]
   uint32_t* wlive = tmask + C::kMaxTiles;                               // [WARPS]
   float* lrow = reinterpret_cast<float*>(wlive + WARPS);                // whole: [rows]
 
@@ -249,8 +256,10 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const long sbase = long(b) * P * H + hh;  // element (b, 0, hh) of a [B, P, H] scalar
   const uint8_t* adj_b = adj + long(b) * P * P;
   const float* val_b = val ? val + long(b) * P * P : nullptr;
-  const int n_tiles = (P + KT - 1) / KT;
-  const int n_groups = (P + kGroup - 1) / kGroup;
+  // whole: P <= KT, a constant 1, so the window loop below folds away (as a
+  // runtime 1 it cost the whole block up to half again its time, PERF.md
+  // section 6)
+  const int n_tiles = WHOLE ? 1 : (P + KT - 1) / KT;
   // wide heads (kGrid): blockIdx.y is the block's chunk of FI columns of v
   // and out, fv its width; chunk 0's blocks write lse.  nc chunks (kLoop:
   // the block's own)
@@ -260,49 +269,22 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   const long vbase = base + col0;
   if (col0 != 0) lse = nullptr;
 
-  if constexpr (C::kReadE)
-    for (int c = tid; c < P; c += C::kThreads) ecs[c] = sc.e_col[sbase + long(c) * H];
-  for (int i = tid; i < WARPS * n_tiles; i += C::kThreads) flags[i] = 0u;
-  for (int i = tid; i < C::kBitWords; i += C::kThreads) rbits[i] = 0;
-  __syncthreads();
-  scan_adj(adj_b, P, r0, C::kRows, 0, n_groups, tid, C::kThreads, flags,
-           [&](int r, int gk, int& w, uint32_t& bit) {
-             w = ((r - r0) / 16) * n_tiles + gk * kGroup / KT;
-             bit = 1u << (gk % (KT / kGroup));
-           },
-           [&](int r, int gk, uint32_t bits) {
-             if (WHOLE) rbits[(r - r0) * (KT / kGroup) + gk] = uint16_t(bits);
-           });
-  __syncthreads();
-  bool any = false;
-  for (int j = tid; j < n_tiles; j += C::kThreads) {
-    uint32_t m = 0;
-    for (int w = 0; w < WARPS; ++w) m |= flags[w * n_tiles + j];
-    tmask[j] = m;
-    any |= m != 0u;
-  }
-  if (tid < WARPS) {
-    uint32_t m = 0;
-    for (int j = 0; j < n_tiles; ++j) m |= flags[tid * n_tiles + j];
-    wlive[tid] = m != 0u;
-  }
-  if (!__syncthreads_or(any)) {  // no edge in the block's rows: out = 0, lse = -1e30
-    for (int i = tid; i < C::kRows * fv; i += C::kThreads) {
-      const int r = r0 + i / fv;
-      if (r < P) out[vbase + long(r) * row_stride + i % fv] = from_f32<T>(0.f);
-    }
-    if (lse != nullptr)
-      for (int r = r0 + tid; r < min(P, r0 + C::kRows); r += C::kThreads)
-        lse[(long(hh) * B + b) * P + r] = kNegBig;
-    return;
-  }
-
-  uint32_t qlive = 0;
-  for (int w = 0; w < WARPS; ++w) qlive |= wlive[w] << w;
+  // The keys go in windows of kMaxTiles tiles (kWinKeys keys; the whole
+  // block's one tile is one window): per window the block scans its adj
+  // rows over the window's keys, flags the live tiles and walks them, the
+  // online softmax running on across windows, so shared memory does not
+  // grow with P.  j0 and nt: the window's first tile and its tile count;
+  // qlive: the warps with an edge in the window; qdone: those whose Q rows
+  // (add: e_row) are in place
+  int j0 = 0, nt = 1;
+  uint32_t qlive = 0, qdone = 0;
+  bool live_w = false;
   auto next_live = [&](int j) {
-    while (j < n_tiles && tmask[j] == 0u) ++j;
+    while (j < j0 + nt && tmask[j - j0] == 0u) ++j;
     return j;
   };
+  // the 16-key groups of tile j in which warp w's rows have an edge
+  auto flag = [&](int w, int j) { return flags[w * nt + j - j0]; };
   // layer: rows [n0, n0 + R) of q (which 0), k (1) or v (2; wide #6: z)
   // into dst, columns [c0, c0 + FI) of the head (c0 = 0 unless wide)
   auto project = [&](auto rows, int which, int n0, uint32_t live, T* dst, int ld, int c0) {
@@ -343,29 +325,29 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
   // and its e_col (whole: every node live as a row or a key, with e_row
   // too); wide layer add: z's chunk as V
   auto stage_kv = [&](int j, int st, bool with_v) {
+    const uint32_t live = tmask[j - j0];
     if constexpr (C::kProject && !kDot && !C::kReadE) {
-      project_z(KRows{}, j * KT, WHOLE ? tmask[j] | qlive : tmask[j], vs, C::ldv,
-                WHOLE ? ers : nullptr, ecs);
+      project_z(KRows{}, j * KT, WHOLE ? live | qlive : live, vs, C::ldv, WHOLE ? ers : nullptr,
+                ecs);
     } else if constexpr (C::kProject && !kDot) {
-      project(KRows{}, 2, j * KT, tmask[j], vs, C::ldv, col0);
+      project(KRows{}, 2, j * KT, live, vs, C::ldv, col0);
     } else if constexpr (C::kProject) {
       if constexpr (!Score::kChunked)
-        project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk, 0);
+        project(KRows{}, 1, j * KT, live, ks + size_t(st) * KT * C::ldk, C::ldk, 0);
       if (with_v)
-        project(KRows{}, 2, j * KT, tmask[j], vs + size_t(st) * KT * C::ldv, C::ldv, col0);
+        project(KRows{}, 2, j * KT, live, vs + size_t(st) * KT * C::ldv, C::ldv, col0);
     } else {
       if constexpr (kDot) {
         if (nc == 1)
-          stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, tmask[j],
+          stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, live,
                             ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
       }
       if (with_v || !kDot)
-        stage_rows<T, FI>(v, vbase, row_stride, j * KT, KT, P, fv, vec, tmask[j],
+        stage_rows<T, FI>(v, vbase, row_stride, j * KT, KT, P, fv, vec, live,
                           vs + size_t(st) * KT * C::ldv, C::ldv, tid, C::kThreads);
     }
   };
 
-  const bool live_w = wlive[warp] != 0u;
   const int row_w = r0 + warp * 16;  // the warp's first query row
   const int kf = (f + KS - 1) / KS * KS;  // dot: depth of q . k^T past which q, k are 0
   const uint32_t fmask = (NTO >= 32 ? 0xffffffffu : (1u << NTO) - 1u) &
@@ -387,270 +369,325 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = row_w + g + 8 * h2;
-      if (live_w && row < P) er[h2] = sc.e_row[sbase + long(row) * H];
+      if (row < P) er[h2] = sc.e_row[sbase + long(row) * H];
     }
   }
 
-  // dot: Q (the live warps' rows; wide: chunk by chunk with K in the loop
-  // over the chunks) and the first live key tile; add: its V; layer add
-  // stream: e_row of the live warps' rows (their z, projected into the ex
-  // rows, is not used), then z and e_col of the first live key tile
-  if constexpr (C::kProject && kDot) {
-    if constexpr (!Score::kChunked) project(QRows{}, 0, r0, qlive, qs, C::ldq, 0);
-  } else if constexpr (C::kProject && !WHOLE && !C::kReadE) {
-    project_z(QRows{}, r0, qlive, qs, C::ldq, ers, nullptr);
-  } else if constexpr (kDot) {
-    if (nc == 1)
-      stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qlive, qs, C::ldq,
-                        tid, C::kThreads);
-  }
-  int j = next_live(0);
-  stage_kv(j, 0, !WHOLE);
-  cp_async_commit();
   int st = 0;
-  while (j < n_tiles) {
-    const int jn = WHOLE ? n_tiles : next_live(j + 1);
-    if (!WHOLE && !C::kProject) {
-      if (jn < n_tiles) stage_kv(jn, st ^ 1, true);
-      cp_async_commit();
+  for (int w0 = 0; w0 < n_tiles; w0 += C::kMaxTiles) {
+    if (w0 > 0) __syncthreads();  // the last window's flags and e_col are free
+    j0 = w0;
+    nt = min(C::kMaxTiles, n_tiles - w0);
+    const int key0 = j0 * KT;  // the window's first key
+    if constexpr (C::kReadE)
+      for (int c = tid; c < min(nt * KT, P - key0); c += C::kThreads)
+        ecs[c] = sc.e_col[sbase + long(key0 + c) * H];
+    for (int i = tid; i < WARPS * nt; i += C::kThreads) flags[i] = 0u;
+    for (int i = tid; i < C::kBitWords; i += C::kThreads) rbits[i] = 0;
+    __syncthreads();
+    scan_adj(adj_b, P, r0, C::kRows, key0, (min(nt * KT, P - key0) + kGroup - 1) / kGroup, tid,
+             C::kThreads, flags,
+             [&](int r, int gk, int& w, uint32_t& bit) {
+               w = ((r - r0) / 16) * nt + gk * kGroup / KT;
+               bit = 1u << (gk % (KT / kGroup));
+             },
+             [&](int r, int gk, uint32_t bits) {
+               if (WHOLE) rbits[(r - r0) * (KT / kGroup) + gk] = uint16_t(bits);
+             });
+    __syncthreads();
+    bool any = false;
+    for (int j = tid; j < nt; j += C::kThreads) {
+      uint32_t m = 0;
+      for (int w = 0; w < WARPS; ++w) m |= flags[w * nt + j];
+      tmask[j] = m;
+      any |= m != 0u;
     }
-    if constexpr (kDot || C::kProject) {
-      if (WHOLE || C::kProject)
-        cp_async_wait<0>();  // Q and K (and V: layer stream) are in place
-      else
-        cp_async_wait<1>();  // Q and this tile's K and V have landed
-      __syncthreads();
+    if (tid < WARPS) {
+      uint32_t m = 0;
+      for (int j = 0; j < nt; ++j) m |= flags[tid * nt + j];
+      wlive[tid] = m != 0u;
     }
-    if constexpr (!kDot && !C::kReadE) {  // layer add: e_row of rows g and g + 8
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int row = row_w + g + 8 * h2;
-        er[h2] = live_w && row < P ? ers[row - r0] : 0.f;
+    if (!__syncthreads_or(any)) {  // no edge in the block's rows over the window's keys
+      if (n_tiles > C::kMaxTiles) continue;  // the epilogue writes out = 0, lse = -1e30
+      for (int i = tid; i < C::kRows * fv; i += C::kThreads) {
+        const int r = r0 + i / fv;
+        if (r < P) out[vbase + long(r) * row_stride + i % fv] = from_f32<T>(0.f);
       }
+      if (lse != nullptr)
+        for (int r = r0 + tid; r < min(P, r0 + C::kRows); r += C::kThreads)
+          lse[(long(hh) * B + b) * P + r] = kNegBig;
+      return;
     }
-    const uint32_t gm = live_w ? flags[warp * n_tiles + j] : 0u;
-    const T* kt = ks + size_t(st) * KT * C::ldk;
-    const T* vt = vs + size_t(st) * KT * C::ldv;
-    T* qw = qs + size_t(warp) * 16 * C::ldq;
-    T* pw = ps + size_t(warp) * 16 * C::ldp;
-    const uint32_t nm = ntile_mask(gm);
-    float s[NTS][4];
-    if constexpr (kDot) zero_acc(s);
-    if constexpr (kDot && (C::kGrid || C::kLoop)) {
-      // wide: q . k^T summed over the chunks of FI columns, each chunk's Q
-      // rows and K tile staged (layer: projected) into the one Q buffer and
-      // this stage's K tile
-      for (int cc = 0; cc < (nc > 1 || Score::kChunked ? nc : 0); ++cc) {
-        const int fc = min(FI, f - cc * FI);
-        if constexpr (C::kProject) {
-          project(QRows{}, 0, r0, qlive, qs, C::ldq, cc * FI);
-          project(KRows{}, 1, j * KT, tmask[j], ks + size_t(st) * KT * C::ldk, C::ldk, cc * FI);
-        } else {
-          stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
-                            qs, C::ldq, tid, C::kThreads);
-          stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec, tmask[j],
-                            ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
-          cp_async_commit();
-          cp_async_wait<0>();
-        }
+
+    qlive = 0;
+    for (int w = 0; w < WARPS; ++w) qlive |= wlive[w] << w;
+    live_w = wlive[warp] != 0u;
+    const uint32_t qnew = qlive & ~qdone;  // the live warps whose rows are not yet in place
+    qdone |= qnew;
+    // dot: Q (the new live warps' rows; wide: chunk by chunk with K in the
+    // loop over the chunks) and the window's first live key tile; add: its
+    // V; layer add stream: e_row of the new live warps' rows (their z,
+    // projected into the ex rows, is not used), then z and e_col of the first
+    // live key tile
+    if constexpr (C::kProject && kDot) {
+      if constexpr (!Score::kChunked) project(QRows{}, 0, r0, qnew, qs, C::ldq, 0);
+    } else if constexpr (C::kProject && !WHOLE && !C::kReadE) {
+      project_z(QRows{}, r0, qnew, qs, C::ldq, ers, nullptr);
+    } else if constexpr (kDot) {
+      if (nc == 1)
+        stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qnew, qs, C::ldq,
+                          tid, C::kThreads);
+    }
+    int j = next_live(j0);
+    stage_kv(j, st, !WHOLE);
+    cp_async_commit();
+    while (j < j0 + nt) {
+      const int jn = WHOLE ? j0 + nt : next_live(j + 1);
+      if (!WHOLE && !C::kProject) {
+        if (jn < j0 + nt) stage_kv(jn, st ^ 1, true);
+        cp_async_commit();
+      }
+      if constexpr (kDot || C::kProject) {
+        if (WHOLE || C::kProject)
+          cp_async_wait<0>();  // Q and K (and V: layer stream) are in place
+        else
+          cp_async_wait<1>();  // Q and this tile's K and V have landed
         __syncthreads();
-        if (gm != 0u)
-          for (int k0 = 0; k0 < fc; k0 += KS)
-            mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
-        __syncthreads();  // the Q rows and the K tile are free again
       }
-    }
-    if (gm != 0u) {
-      if constexpr (kDot && !Score::kChunked) {
-        if (nc == 1)
-          for (int k0 = 0; k0 < kf; k0 += KS)
-            mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
-      }
-      // score, mask, scale by val, running max of rows g and g + 8.  Whole: the
-      // block's one tile starts at key 0, and rows g and g + 8 keep their
-      // edge bits in registers, 32 keys a word (rows and keys past P have
-      // none)
-      uint32_t ebits[2][WHOLE ? KT / 32 : 1];
-      if constexpr (WHOLE) {
+      if constexpr (!kDot && !C::kReadE) {  // layer add: e_row of rows g and g + 8
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
-          const uint4* w = reinterpret_cast<const uint4*>(
-              rbits + (warp * 16 + g + 8 * h2) * (KT / kGroup));
-#pragma unroll
-          for (int q4 = 0; q4 < KT / 128; ++q4) {
-            const uint4 wq = w[q4];
-            ebits[h2][4 * q4] = wq.x;
-            ebits[h2][4 * q4 + 1] = wq.y;
-            ebits[h2][4 * q4 + 2] = wq.z;
-            ebits[h2][4 * q4 + 3] = wq.w;
-          }
+          const int row = row_w + g + 8 * h2;
+          er[h2] = live_w && row < P ? ers[row - r0] : 0.f;
         }
       }
-      float mx[2] = {kNegBig, kNegBig};
+      const uint32_t gm = live_w ? flag(warp, j) : 0u;
+      const T* kt = ks + size_t(st) * KT * C::ldk;
+      const T* vt = vs + size_t(st) * KT * C::ldv;
+      T* qw = qs + size_t(warp) * 16 * C::ldq;
+      T* pw = ps + size_t(warp) * 16 * C::ldp;
+      const uint32_t nm = ntile_mask(gm);
+      float s[NTS][4];
+      if constexpr (kDot) zero_acc(s);
+      if constexpr (kDot && (C::kGrid || C::kLoop)) {
+        // wide: q . k^T summed over the chunks of FI columns, each chunk's Q
+        // rows and K tile staged (layer: projected) into the one Q buffer and
+        // this stage's K tile
+        for (int cc = 0; cc < (nc > 1 || Score::kChunked ? nc : 0); ++cc) {
+          const int fc = min(FI, f - cc * FI);
+          if constexpr (C::kProject) {
+            project(QRows{}, 0, r0, qlive, qs, C::ldq, cc * FI);
+            project(KRows{}, 1, j * KT, tmask[j - j0], ks + size_t(st) * KT * C::ldk, C::ldk,
+                    cc * FI);
+          } else {
+            stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
+                              qs, C::ldq, tid, C::kThreads);
+            stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec,
+                              tmask[j - j0], ks + size_t(st) * KT * C::ldk, C::ldk, tid,
+                              C::kThreads);
+            cp_async_commit();
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          if (gm != 0u)
+            for (int k0 = 0; k0 < fc; k0 += KS)
+              mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
+          __syncthreads();  // the Q rows and the K tile are free again
+        }
+      }
+      if (gm != 0u) {
+        if constexpr (kDot && !Score::kChunked) {
+          if (nc == 1)
+            for (int k0 = 0; k0 < kf; k0 += KS)
+              mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
+        }
+        // score, mask, scale by val, running max of rows g and g + 8.  Whole: the
+        // block's one tile starts at key 0, and rows g and g + 8 keep their
+        // edge bits in registers, 32 keys a word (rows and keys past P have
+        // none)
+        uint32_t ebits[2][WHOLE ? KT / 32 : 1];
+        if constexpr (WHOLE) {
 #pragma unroll
-      for (int jj = 0; jj < NTS; ++jj) {
-        float2 ec2 = make_float2(0.f, 0.f);  // add: e_col of keys kc, kc + 1
-        if constexpr (!kDot)
-          if ((nm >> jj) & 1u)  // layer add: ecs holds this tile's keys only
-            ec2 = *reinterpret_cast<const float2*>(ecs + (C::kReadE ? j * KT : 0) + jj * 8 +
-                                                   2 * t);
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const uint4* w = reinterpret_cast<const uint4*>(
+                rbits + (warp * 16 + g + 8 * h2) * (KT / kGroup));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rr = g + (e >> 1) * 8, row = row_w + rr;
-          const int kc = jj * 8 + 2 * t + (e & 1), key = j * KT + kc;
-          bool edge;
-          if constexpr (WHOLE)
-            edge = (ebits[e >> 1][jj >> 2] >> (kc & 31)) & 1u;
-          else
-            edge = ((nm >> jj) & 1u) && row < P && key < P && adj_b[long(row) * P + key] != 0;
-          float sv = kNegBig;
-          if (edge) {
-            float raw;
-            if constexpr (kDot)
-              raw = s[jj][e];
+            for (int q4 = 0; q4 < KT / 128; ++q4) {
+              const uint4 wq = w[q4];
+              ebits[h2][4 * q4] = wq.x;
+              ebits[h2][4 * q4 + 1] = wq.y;
+              ebits[h2][4 * q4 + 2] = wq.z;
+              ebits[h2][4 * q4 + 3] = wq.w;
+            }
+          }
+        }
+        float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+        for (int jj = 0; jj < NTS; ++jj) {
+          float2 ec2 = make_float2(0.f, 0.f);  // add: e_col of keys kc, kc + 1
+          if constexpr (!kDot)
+            if ((nm >> jj) & 1u)  // layer add: ecs holds this tile's keys only
+              ec2 = *reinterpret_cast<const float2*>(
+                  ecs + (C::kReadE ? (j - j0) * KT : 0) + jj * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = g + (e >> 1) * 8, row = row_w + rr;
+            const int kc = jj * 8 + 2 * t + (e & 1), key = j * KT + kc;
+            bool edge;
+            if constexpr (WHOLE)
+              edge = (ebits[e >> 1][jj >> 2] >> (kc & 31)) & 1u;
             else
-              raw = leaky(er[e >> 1] + ((e & 1) ? ec2.y : ec2.x), sc.slope);
-            sv = val_b ? raw * val_b[long(row) * P + key] : raw;
+              edge = ((nm >> jj) & 1u) && row < P && key < P && adj_b[long(row) * P + key] != 0;
+            float sv = kNegBig;
+            if (edge) {
+              float raw;
+              if constexpr (kDot)
+                raw = s[jj][e];
+              else
+                raw = leaky(er[e >> 1] + ((e & 1) ? ec2.y : ec2.x), sc.slope);
+              sv = val_b ? raw * val_b[long(row) * P + key] : raw;
+            }
+            s[jj][e] = sv;
+            mx[e >> 1] = fmaxf(mx[e >> 1], sv);
           }
-          s[jj][e] = sv;
-          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
         }
-      }
-      float scale[2];
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
-        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
-        const float m_new = fmaxf(m_run[h2], mx[h2]);
-        scale[h2] = expf(m_run[h2] - m_new);
-        m_run[h2] = m_new;
-        l_run[h2] *= scale[h2];
-      }
-      if constexpr (!WHOLE)  // whole: one tile, so o is still 0
-#pragma unroll
-        for (int jj = 0; jj < NTO; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[0][jj][e] *= scale[e >> 1];
-      __syncwarp();  // dot whole: every lane is done reading the warp's Q rows
-      // ex of the live n-tiles, two keys a store; a dead n-tile's ex is 0,
-      // adds nothing to l and is never read by ex . v
-#pragma unroll
-      for (int jj = 0; jj < NTS; ++jj) {
-        if (!((nm >> jj) & 1u)) continue;
+        float scale[2];
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
-          const int rr = g + 8 * h2, kc = jj * 8 + 2 * t;
-          float ex[2];
+          mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+          mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+          const float m_new = fmaxf(m_run[h2], mx[h2]);
+          scale[h2] = expf(m_run[h2] - m_new);
+          m_run[h2] = m_new;
+          l_run[h2] *= scale[h2];
+        }
+        if constexpr (!WHOLE)  // whole: one tile, so o is still 0
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            ex[c] = expf(s[jj][2 * h2 + c] - m_run[h2]);
-            l_run[h2] += ex[c];
-            if (drop.on && ex[c] != 0.f)
-              ex[c] *= drop.factor(b, P, row_w + rr, j * KT + kc + c, hh);
+          for (int jj = 0; jj < NTO; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[0][jj][e] *= scale[e >> 1];
+        __syncwarp();  // dot whole: every lane is done reading the warp's Q rows
+        // ex of the live n-tiles, two keys a store; a dead n-tile's ex is 0,
+        // adds nothing to l and is never read by ex . v
+#pragma unroll
+        for (int jj = 0; jj < NTS; ++jj) {
+          if (!((nm >> jj) & 1u)) continue;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int rr = g + 8 * h2, kc = jj * 8 + 2 * t;
+            float ex[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              ex[c] = expf(s[jj][2 * h2 + c] - m_run[h2]);
+              l_run[h2] += ex[c];
+              if (drop.on && ex[c] != 0.f)
+                ex[c] *= drop.factor(b, P, row_w + rr, j * KT + kc + c, hh);
+            }
+            store_pair<T>(pw + rr * C::ldp + kc, ex[0], ex[1]);  // rounded to v's type, as in JAX
           }
-          store_pair<T>(pw + rr * C::ldp + kc, ex[0], ex[1]);  // rounded to v's type, as in JAX
         }
       }
-    }
-    if constexpr (C::kLoop) {
-      // wide #5's whole block: the one key tile has made l final, so each
-      // chunk of FI output columns in turn projects V's chunk over K, sums
-      // ex . V_c in the warp pairs and leaves through the V buffer
+      if constexpr (C::kLoop) {
+        // wide #5's whole block: the one key tile has made l final, so each
+        // chunk of FI output columns in turn projects V's chunk over K, sums
+        // ex . V_c in the warp pairs and leaves through the V buffer
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        float l = l_run[h2];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        if (t == 0) lrow[warp * 16 + g + 8 * h2] = l;
-      }
-      const int pr = warp >> 1, half = warp & 1;
-      const uint32_t g0 = flags[(2 * pr) * n_tiles + j], g1 = flags[(2 * pr + 1) * n_tiles + j];
-      const T* pp = ps + size_t(pr) * 32 * C::ldp;
+        for (int h2 = 0; h2 < 2; ++h2) {
+          float l = l_run[h2];
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+          if (t == 0) lrow[warp * 16 + g + 8 * h2] = l;
+        }
+        const int pr = warp >> 1, half = warp & 1;
+        const uint32_t g0 = flag(2 * pr, j), g1 = flag(2 * pr + 1, j);
+        const T* pp = ps + size_t(pr) * 32 * C::ldp;
 #pragma unroll 1
-      for (int c0 = 0; c0 < f; c0 += FI) {
-        const int fo = min(FI, f - c0), nt = (fo + 7) / 8;  // out's columns and n-tiles
-        const uint32_t hmask = ((nt >= 32 ? 0xffffffffu : (1u << nt) - 1u) >> (half * NTW)) &
-                               (NTW >= 32 ? 0xffffffffu : (1u << NTW) - 1u);
-        __syncthreads();  // ex and lrow are in place, or the last chunk's out has left
-        project(KRows{}, 2, 0, tmask[j], vs, C::ldv, c0);
-        __syncthreads();
+        for (int c0 = 0; c0 < f; c0 += FI) {
+          const int fo = min(FI, f - c0), nt = (fo + 7) / 8;  // out's columns and n-tiles
+          const uint32_t hmask = ((nt >= 32 ? 0xffffffffu : (1u << nt) - 1u) >> (half * NTW)) &
+                                 (NTW >= 32 ? 0xffffffffu : (1u << NTW) - 1u);
+          __syncthreads();  // ex and lrow are in place, or the last chunk's out has left
+          project(KRows{}, 2, 0, tmask[0], vs, C::ldv, c0);
+          __syncthreads();
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) zero_acc(o[mt]);
+          for (int mt = 0; mt < MT; ++mt) zero_acc(o[mt]);
+#pragma unroll 1
+          for (int gi = 0; gi < KT / kGroup; ++gi) {
+            const uint32_t mts = ((g0 >> gi) & 1u) | (((g1 >> gi) & 1u) << 1);
+            if (mts == 0u) continue;
+#pragma unroll
+            for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
+              mma_step2<NTW, ONE>(o, pp, C::ldp, vs, C::ldv, k0, half * (FI / 2), hmask, mts);
+          }
+          __syncthreads();  // V is read
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int rb2 = pr * 32 + mt * 16 + g + 8 * h2;  // the row in the block
+              const float l = lrow[rb2];
+              const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+              for (int jj = 0; jj < NTW; ++jj)
+                store_pair<T>(vs + size_t(rb2) * C::ldv + half * (FI / 2) + jj * 8 + 2 * t,
+                              o[mt][jj][2 * h2] * inv, o[mt][jj][2 * h2 + 1] * inv);
+            }
+          __syncthreads();
+          store_tile<T>(vs + size_t(warp) * 16 * C::ldv, C::ldv, out, base + c0, row_stride, row_w,
+                        16, P, fo, vec, lane, 32);
+        }
+        return;
+      }
+      if (WHOLE) {
+        if constexpr (kDot) {  // V over K, once every warp has its scores
+          __syncthreads();
+          if constexpr (C::kProject)
+            project(KRows{}, 2, 0, tmask[0], vs, C::ldv, 0);
+          else
+            stage_rows<T, FI>(v, base, row_stride, 0, KT, P, f, vec, tmask[0], vs, C::ldv, tid,
+                              C::kThreads);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();  // V has landed
+        __syncthreads();
+      } else if constexpr (kDot) {
+        __syncwarp();
+      } else {
+        cp_async_wait<1>();  // this tile's V has landed
+        __syncthreads();
+      }
+      if constexpr (WHOLE) {
+        // the pair's live groups, per m-tile (a dead warp's flags are 0, and a
+        // live warp wrote ex only in its live groups)
+        const int pr = warp >> 1, half = warp & 1;
+        const uint32_t g0 = flag(2 * pr, j), g1 = flag(2 * pr + 1, j);
+        const uint32_t hmask =
+            (fmask >> (half * NTW)) & (NTW >= 32 ? 0xffffffffu : (1u << NTW) - 1u);
+        const T* pp = ps + size_t(pr) * 32 * C::ldp;
 #pragma unroll 1
         for (int gi = 0; gi < KT / kGroup; ++gi) {
           const uint32_t mts = ((g0 >> gi) & 1u) | (((g1 >> gi) & 1u) << 1);
           if (mts == 0u) continue;
 #pragma unroll
           for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-            mma_step2<NTW, ONE>(o, pp, C::ldp, vs, C::ldv, k0, half * (FI / 2), hmask, mts);
+            mma_step2<NTW, ONE>(o, pp, C::ldp, vt, C::ldv, k0, half * (FI / 2), hmask, mts);
         }
-        __syncthreads();  // V is read
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int rb2 = pr * 32 + mt * 16 + g + 8 * h2;  // the row in the block
-            const float l = lrow[rb2];
-            const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-            for (int jj = 0; jj < NTW; ++jj)
-              store_pair<T>(vs + size_t(rb2) * C::ldv + half * (FI / 2) + jj * 8 + 2 * t,
-                            o[mt][jj][2 * h2] * inv, o[mt][jj][2 * h2 + 1] * inv);
-          }
-        __syncthreads();
-        store_tile<T>(vs + size_t(warp) * 16 * C::ldv, C::ldv, out, base + c0, row_stride, row_w,
-                      16, P, fo, vec, lane, 32);
-      }
-      return;
-    }
-    if (WHOLE) {
-      if constexpr (kDot) {  // V over K, once every warp has its scores
-        __syncthreads();
-        if constexpr (C::kProject)
-          project(KRows{}, 2, 0, tmask[j], vs, C::ldv, 0);
-        else
-          stage_rows<T, FI>(v, base, row_stride, 0, KT, P, f, vec, tmask[j], vs, C::ldv, tid,
-                            C::kThreads);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();  // V has landed
-      __syncthreads();
-    } else if constexpr (kDot) {
-      __syncwarp();
-    } else {
-      cp_async_wait<1>();  // this tile's V has landed
-      __syncthreads();
-    }
-    if constexpr (WHOLE) {
-      // the pair's live groups, per m-tile (a dead warp's flags are 0, and a
-      // live warp wrote ex only in its live groups)
-      const int pr = warp >> 1, half = warp & 1;
-      const uint32_t g0 = flags[(2 * pr) * n_tiles + j], g1 = flags[(2 * pr + 1) * n_tiles + j];
-      const uint32_t hmask = (fmask >> (half * NTW)) & (NTW >= 32 ? 0xffffffffu : (1u << NTW) - 1u);
-      const T* pp = ps + size_t(pr) * 32 * C::ldp;
+      } else if (gm != 0u) {
 #pragma unroll 1
-      for (int gi = 0; gi < KT / kGroup; ++gi) {
-        const uint32_t mts = ((g0 >> gi) & 1u) | (((g1 >> gi) & 1u) << 1);
-        if (mts == 0u) continue;
+        for (int gi = 0; gi < KT / kGroup; ++gi) {
+          if (!((gm >> gi) & 1u)) continue;
 #pragma unroll
-        for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-          mma_step2<NTW, ONE>(o, pp, C::ldp, vt, C::ldv, k0, half * (FI / 2), hmask, mts);
+          for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
+            mma_step<NTO, false, false, ONE>(o[0], pw, C::ldp, vt, C::ldv, k0, 0, fmask);
+        }
       }
-    } else if (gm != 0u) {
-#pragma unroll 1
-      for (int gi = 0; gi < KT / kGroup; ++gi) {
-        if (!((gm >> gi) & 1u)) continue;
-#pragma unroll
-        for (int k0 = gi * kGroup; k0 < (gi + 1) * kGroup; k0 += KS)
-          mma_step<NTO, false, false, ONE>(o[0], pw, C::ldp, vt, C::ldv, k0, 0, fmask);
+      __syncthreads();  // this stage's K, V and the ex tiles are free again
+      j = jn;
+      if constexpr (C::kProject) {  // layer stream: the next live tile into the one stage
+        if (!WHOLE && j < j0 + nt) stage_kv(j, 0, true);
+      } else {
+        st ^= 1;
       }
-    }
-    __syncthreads();  // this stage's K, V and the ex tiles are free again
-    j = jn;
-    if constexpr (C::kProject) {  // layer stream: the next live tile into the one stage
-      if (!WHOLE && j < n_tiles) stage_kv(j, 0, true);
-    } else {
-      st ^= 1;
     }
   }
 
@@ -748,12 +785,12 @@ cudaError_t launch_fi(Score sc, const void* v, const uint8_t* adj, const float* 
 }
 
 // Checks the shape and launches the forward of score policy `sc` (#1 or #2)
-// for v of type T: 1 <= P <= kMaxP, f >= 1 (past 256 in chunks of 256).
+// for v of type T: P >= 1, f >= 1 (past 256 in chunks of 256).
 template <typename Score, typename T>
 cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
                       float* lse, int B, int P, int H, int f, Dropout drop, bool one,
                       cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1) return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || P < 1 || f < 1) return cudaErrorInvalidValue;
   if (f <= 32)
     return launch_fi<Score, T, 32>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
   if (f <= 64)
@@ -784,9 +821,9 @@ cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, 
                                                 H, f, drop, one, stream);
 }
 
-// Checks the shape and launches a whole-layer kernel: 1 <= P <= kMaxP,
-// din >= 1, and 1 <= f <= 256, or any f >= 1 for the wide policies
-// (LayerScoreWide, LayerAddWide), which go in chunks of FI columns: at
+// Checks the shape and launches a whole-layer kernel: P >= 1, din >= 1,
+// and 1 <= f <= 256, or any f >= 1 for the wide policies (LayerScoreWide,
+// LayerAddWide), which go in chunks of FI columns: at
 // P <= 128 in the whole block at FI = 128 (wide #5 loops over the chunks
 // with the scores formed once; wide #6 takes them as a grid axis, each chunk
 // re-forming its cheap scores from the scalars), past it in the stream block
@@ -795,8 +832,7 @@ cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, 
 template <typename Score, typename T>
 cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H, int f,
                       Dropout drop, bool one, cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || f < 1 || sc.din < 1 ||
-      (!Score::kChunked && f > 256))
+  if (B < 1 || H < 1 || P < 1 || f < 1 || sc.din < 1 || (!Score::kChunked && f > 256))
     return cudaErrorInvalidValue;
   if constexpr (Score::kChunked) {
     if (P <= 128)

@@ -15,7 +15,7 @@
 // keep is the dropout factor of flash_common.cuh, keyed as in kernel #2 on
 // (b * P + r, b * P + c, h); l sums the undropped ex.  out is [B, P, H, F] in
 // x's type.  No edge values and no lse, as in the Pallas kernel.  fp32 or
-// bf16, any P <= 2048, any F >= 1 (tiles zero past F up to the instantiated
+// bf16, any P >= 1, any F >= 1 (tiles zero past F up to the instantiated
 // width 32, 64, 128 or 256; past 256 in chunks of 128), any din >= 1.  fp32
 // products as 3xTF32, or one TF32 pass (precision "default"), the
 // projection too.
@@ -53,7 +53,8 @@
 //   query rows once, for their e_l only, then, as the walk reaches each live
 //   key tile, that tile's z into the one V stage with the tile's e_r: the
 //   online softmax needs e_r only of the current tile's keys, so nothing of
-//   the graph stays resident and every P up to 2048 fits.
+//   the graph stays resident; its keys go in windows of 2048 (flash_fwd.cuh),
+//   so every P fits.
 // Past F = 256 e_l and e_r need every column of z before any score, so the
 // call launches twice.  layer_scalars_kernel forms them for every node live
 // as a row or a key, from the unrounded fp32 z over all F columns in passes
@@ -132,7 +133,7 @@ template <typename T, bool ONE>
 cudaError_t layer_add_wide(const LayerAddScore<T>& sc, const uint8_t* adj, void* out,
                            float* scalars, int B, int P, int H, int F, Dropout drop,
                            cudaStream_t stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxP || F < 1 || sc.din < 1 || scalars == nullptr)
+  if (B < 1 || H < 1 || P < 1 || F < 1 || sc.din < 1 || scalars == nullptr)
     return cudaErrorInvalidValue;
   constexpr int KC = 128 / int(sizeof(T));
   constexpr size_t bytes = sizeof(T) * (2 * kScalarRows * (KC + pad_rm<T>()) + 2 * KC * 136) +
@@ -161,7 +162,7 @@ extern "C" {
 // w: [H, din, F] contiguous; bias, a_l, a_r: fp32 [H, F]; adj: [B, P, P]
 // uint8; out: [B, P, H, F]; scalars: fp32 [2, B, P, H] scratch, written
 // past F = 256, where this entry point alone takes the wide path (else
-// unused, may be null).  1 <= P <= 2048, F >= 1, din >= 1.
+// unused, may be null).  P >= 1, F >= 1, din >= 1.
 // drop, seed, threshold, scale and one_pass as dfgnn_flash_add_fwd's.
 // Launches on `stream` (twice past F = 256), allocates nothing, and returns
 // cudaGetLastError() (cudaErrorInvalidValue outside that set).

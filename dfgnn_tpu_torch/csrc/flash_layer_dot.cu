@@ -14,7 +14,7 @@
 //   out = (round_to<T>(ex) . v) / l            an empty row gives exactly 0
 // out is [B, P, H, f] in x's type (the node-major layout of kernel #1).  No
 // edge values, no dropout and no lse, as in the Pallas kernel.  fp32 or bf16,
-// any P <= 2048, any f >= 1 (tiles zero past f up to the instantiated width
+// any P >= 1, any f >= 1 (tiles zero past f up to the instantiated width
 // 32, 64, 128 or 256; past 256 in chunks of that width), any din >= 1.  fp32
 // products as 3xTF32, or one TF32 pass (precision "default"), the
 // projections too.
@@ -46,8 +46,9 @@
 //   SM; bf16 144 KB);
 // - stream (P > 128, or f > 128): #1's stream block, walking key tiles with
 //   the online softmax; it projects each live key tile's K and V as it
-//   reaches it, into one stage, so nothing of the graph stays resident and
-//   every P up to 2048 fits (fp32 at f = 256: 164 KB).  K and V are
+//   reaches it, into one stage, so nothing of the graph stays resident; its
+//   keys go in windows of 2048 (flash_fwd.cuh), so every P fits (fp32 at
+//   f = 256: 164 KB).  K and V are
 //   projected once per query block: 8 warps over 128 rows at f = 64 and
 //   128, 4 warps over 64 rows at f = 32 and 256.
 // Past f = 256 (LayerScoreWide) the head goes in chunks of FI columns, q .
@@ -71,7 +72,7 @@ extern "C" {
 
 // dtype (of x, the weights and out): 0 = fp32, 1 = bf16.  x: [B, P, din]
 // contiguous; wq, wk, wv: [H, din, F] contiguous; bq, bk, bv: fp32 [H, F];
-// adj: [B, P, P] uint8; out: [B, P, H, F].  1 <= P <= 2048, F >= 1,
+// adj: [B, P, P] uint8; out: [B, P, H, F].  P >= 1, F >= 1,
 // din >= 1; one_pass != 0: fp32 products as one TF32 pass.  Launches on
 // `stream`, allocates nothing, and returns cudaGetLastError()
 // (cudaErrorInvalidValue outside that set).

@@ -166,9 +166,10 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
 
     Both are shape rules on what the kernels take as well: ``flash_fused``
     only where kernel #5 takes the shape (:func:`layer_fits` at the head
-    dim, ``out_size`` by default: any head dim, P up to 2048), else
-    ``flash``; ``flash`` only where kernels #1 and #3 take the shape
-    (:func:`flash_takes`: the same set), else ``dense``.
+    dim, ``out_size`` by default), else ``flash``; ``flash`` only where
+    kernels #1 and #3 take the shape (:func:`flash_takes`), else ``dense``.
+    Both take every shape (any head dim, any P), so only the thresholds
+    decide.
     """
     f = out_size if head_dim is None else head_dim
     n_tokens = g.n_graphs * g.np_pad
@@ -186,12 +187,12 @@ def _auto_bf16_dense_batch(conv: str, g: DenseBatch, out_size: int,
 
 def _auto_bf16_gat(g: DenseBatch, head_dim: int) -> str:
     """GAT's bf16 ``method="auto"`` on a DenseBatch.  With edge values it
-    stays ``auto`` (the decomposed layer, where the dispatcher's shape rule
-    picks flash or dense).  Without, the whole-layer kernel #6 where it
-    takes the shape (:func:`layer_fits`: any head dim, P up to 2048) and
-    ``np_pad`` and ``head_dim`` are at most ``GAT_FUSED_MAX_P`` and
-    ``GAT_FUSED_MAX_F``, the measured bounds (JAX's bf16 GAT always fuses);
-    else ``flash`` where kernels #2 and #4 take the shape, else ``dense``."""
+    stays ``auto`` (the decomposed layer, where the dispatcher takes flash).
+    Without, the whole-layer kernel #6 where it takes the shape
+    (:func:`layer_fits`: every shape) and ``np_pad`` and ``head_dim`` are at
+    most ``GAT_FUSED_MAX_P`` and ``GAT_FUSED_MAX_F``, the measured bounds
+    (JAX's bf16 GAT always fuses); else ``flash`` where kernels #2 and #4
+    take the shape (:func:`flash_takes`: every shape), else ``dense``."""
     if g.val is not None:
         return "auto"
     if (layer_fits("add", g.np_pad, head_dim) and g.np_pad <= GAT_FUSED_MAX_P

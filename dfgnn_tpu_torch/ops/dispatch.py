@@ -43,10 +43,10 @@ def graph_attention(
 
     On a :class:`DenseBatch`, ``flash`` runs the flash kernels, ``dense`` and
     ``reference`` the dense formulation, and ``auto`` the flash kernels where
-    they take the shape (:func:`flash_mask.flash_takes`: any head dim and P
-    up to 2048, on either score) and the dense formulation
-    elsewhere; ``return_weights=True``
-    always takes the dense formulation, the one that materialises weights.
+    they take the shape (:func:`flash_mask.flash_takes`: any head dim and
+    any P, on either score, so every shape, as JAX takes Pallas) and the
+    dense formulation elsewhere; ``return_weights=True`` always takes the
+    dense formulation, the one that materialises weights.
     On a :class:`Graph`, ``auto`` and ``reference`` run the unfused
     segment-op oracle.  On a :class:`BucketedGraph` or
     :class:`BlockedBucketedGraph`, ``auto`` and ``bucket`` run the fused

@@ -47,8 +47,9 @@ DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lane
 
 # What the kernels take: any head dim f >= 1 (the tiles are zero past f; #1
 # to #4 past 256 in chunks of 256 columns, #5 and #6 past 256 in chunks of
-# 128 or 256), at most KERNEL_MAX_P nodes.
-KERNEL_MAX_P = 2048
+# 128 or 256) and any node count P >= 1 (past 2048 their blocks walk adj in
+# windows of 2048 keys or rows, so their shared memory stays that of
+# P = 2048); their in-graph offsets are 64-bit, so no P is refused.
 PRECISIONS = ("highest", "default")
 # #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
 # d e_row into scratch, summed by a second launch (csrc/flash_add_bwd.cu)
@@ -306,7 +307,7 @@ def flash_add_bwd_plain(e_row, e_col, v, adj, val, lse, do, delta, *, slope: flo
 
 def _check_block_args(v, adj, val, score: str = "add", **named):
     """What kernels #1 to #4 take, either ``score``: fp32 or bf16 ``v``
-    ``[B, P, h, f]`` with f >= 1 and P <= KERNEL_MAX_P, uint8 ``adj`` and
+    ``[B, P, h, f]`` with f >= 1 and P >= 1, uint8 ``adj`` and
     fp32 ``val`` ``[B, P, P]``, all on v's device; ``v``, ``adj``, ``val``
     and the ``named`` tensors contiguous."""
     if v.dtype not in _DTYPE_CODES:
@@ -314,13 +315,9 @@ def _check_block_args(v, adj, val, score: str = "add", **named):
     if v.dim() != 4:
         raise ValueError(f"v must be [B, P, h, f], got {tuple(v.shape)}")
     B, P, h, f = v.shape
-    if f < 1 or B < 1 or h < 1:
-        raise ValueError(f"the kernel takes B, h, f >= 1, got B={B} h={h} f={f}")
-    if not 1 <= P <= KERNEL_MAX_P:
+    if not flash_takes(score, P, f) or B < 1 or h < 1:
         kernels = "#1 and #3" if score == "dot" else "#2 and #4"
-        raise ValueError(f"kernels {kernels} take 1 <= P <= {KERNEL_MAX_P}, not P={P}; larger "
-                         "graphs are ROADMAP.md section 2 item e, and method='auto' runs them "
-                         "densely")
+        raise ValueError(f"kernels {kernels} take B, P, h, f >= 1, got B={B} P={P} h={h} f={f}")
     if adj.dtype != torch.uint8 or adj.shape != (B, P, P) or adj.device != v.device:
         raise ValueError("adj must be uint8 [B, P, P] on v's device")
     if val is not None and (val.dtype != torch.float32 or val.shape != (B, P, P)
@@ -367,7 +364,7 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, seed: int = 0, rate: float = 0.0,
 
     CPU tensors run :func:`flash_mask_fwd_plain`.  CUDA tensors launch the
     kernel on the current stream: fp32 or bf16 ``q, k, v`` of one shape,
-    contiguous, any f >= 1, P <= 2048; uint8 ``adj``; fp32 ``val`` or None;
+    contiguous, any P, f >= 1; uint8 ``adj``; fp32 ``val`` or None;
     ``0 <= rate < 1`` and a uint32 ``seed``; ``precision`` None,
     ``"highest"`` or ``"default"`` (one TF32 pass on fp32).  Anything else
     raises.
@@ -648,20 +645,21 @@ def layer_fits(score: str, P: int, f: int) -> bool:
     """Whether kernel #5 (``score="dot"``) or #6 (``"add"``) takes a layer of
     head dim ``f`` over ``P`` nodes.  Both stream their key tiles past
     P = 128 and take a wide head in column chunks (their blocks grow with
-    neither), so both take one set, in fp32 and bf16, as :func:`flash_takes`
-    does: any f >= 1 and P <= KERNEL_MAX_P."""
+    neither; past P = 2048 they walk their keys in windows), so both take one
+    set, in fp32 and bf16, as :func:`flash_takes` does: any f >= 1 and
+    P >= 1, as JAX's Pallas route takes any."""
     if score not in ("dot", "add"):
         raise ValueError(f"unknown score mode {score!r}")
-    return f >= 1 and 1 <= P <= KERNEL_MAX_P
+    return f >= 1 and P >= 1
 
 
 def flash_takes(score: str, P: int, f: int) -> bool:
     """Whether the flash kernels of ``score`` (#1 and #3, or #2 and #4) take
     a DenseBatch of ``P`` nodes and head dim ``f``: the shape rule of
-    ``method="auto"``, which runs anything else densely.  Both scores take
-    the same set: any f >= 1 (past 256 in chunks of 256 columns),
-    P <= KERNEL_MAX_P."""
-    return f >= 1 and 1 <= P <= KERNEL_MAX_P
+    ``method="auto"``.  Both scores take the same set: any f >= 1 (past 256
+    in chunks of 256 columns) and P >= 1 (past 2048 in windows of 2048 keys
+    or rows), so ``auto`` takes flash at every shape, as JAX takes Pallas."""
+    return f >= 1 and P >= 1
 
 
 def _layer_project(x, w, b, scale: float = 1.0, tf32: bool = False):
@@ -741,13 +739,11 @@ def _check_layer_args(score, x, adj, ws, fp32s):
         raise ValueError("adj must be uint8 [B, P, P] on x's device")
     if not all(t.is_contiguous() for t in (x, adj, *ws, *fp32s)):
         raise ValueError("the kernel takes contiguous tensors")
-    if layer_fits(score, P, f):
+    if layer_fits(score, P, f) and B >= 1 and h >= 1 and din >= 1:
         return
     kernel = "#5 (_layer_kernel_dot)" if score == "dot" else "#6 (_layer_kernel_add)"
-    raise ValueError(
-        f"kernel {kernel} takes f >= 1 and 1 <= P <= {KERNEL_MAX_P}, not P={P}, f={f}: "
-        "ROADMAP.md section 2 item e (graphs past P = 2048). The supported sets are in that "
-        "section (kernels #5 and #6); method='auto' runs larger graphs densely")
+    raise ValueError(f"kernel {kernel} takes B, P, h, din, f >= 1, got B={B} P={P} h={h} "
+                     f"din={din} f={f}")
 
 
 def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
@@ -757,7 +753,7 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
     CPU tensors run :func:`flash_layer_dot_fwd_plain`.  CUDA tensors launch
     kernel #5 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w*`` ``[h, din, f]`` of x's dtype, fp32 ``b*`` ``[h, f]``, uint8
-    ``adj``, all contiguous, any f >= 1 and P <= 2048 (:func:`layer_fits`);
+    ``adj``, all contiguous, any P, f >= 1 (:func:`layer_fits`);
     ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.
     """
     if x.device.type == "cpu":
@@ -789,9 +785,9 @@ def flash_layer_add_fwd(x, w, b, al, ar, adj, *, slope: float = 0.2, seed: int =
     CPU tensors run :func:`flash_layer_add_fwd_plain`.  CUDA tensors launch
     kernel #6 on the current stream: fp32 or bf16 ``x`` ``[B, P, din]``,
     ``w`` ``[h, din, f]`` of x's dtype, fp32 ``b``, ``al``, ``ar`` ``[h, f]``,
-    uint8 ``adj``, all contiguous, any f >= 1 and P <= 2048
-    (:func:`layer_fits`); ``0 <= rate < 1`` and a uint32 ``seed``;
-    ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.  The
+    uint8 ``adj``, all contiguous, any P, f >= 1 (:func:`layer_fits`);
+    ``0 <= rate < 1`` and a uint32 ``seed``; ``precision`` as
+    :func:`flash_mask_fwd`'s.  Anything else raises.  The
     wrapper always passes a ``[2, B, P, h]`` fp32 scratch tensor: past f =
     256 the C entry point launches twice (the score scalars into it, then
     the attention), one #6 launch in the count.

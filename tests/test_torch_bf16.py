@@ -99,16 +99,17 @@ def test_auto_bf16_routing_follows_the_thresholds(conv, n_graphs, width, want):
 
 @pytest.mark.parametrize("P,head_dim,want", [
     (128, 64, "flash_fused"), (128, 128, "flash_fused"), (128, 129, "flash"),
-    (128, 512, "flash"), (384, 128, "flash_fused"), (512, 128, "flash"), (2049, 64, "dense"),
+    (128, 512, "flash"), (384, 128, "flash_fused"), (512, 128, "flash"), (2049, 64, "flash"),
 ])
 def test_auto_bf16_gat_follows_its_bounds(P, head_dim, want):
     """GAT's bf16 auto takes #6 at P <= GAT_FUSED_MAX_P and head dims <=
     GAT_FUSED_MAX_F (the measured bounds: #6 takes every head dim), else the
-    flash route, and dense past P = 2048; with edge values it stays auto."""
+    flash route at every larger P (2049 too: #2 and #4 take every P, as JAX's
+    Pallas route does); with edge values it stays auto."""
     adj = torch.ones(2, P, P, dtype=torch.uint8)
     batch = lambda val: DenseBatch(adj=adj, node_mask=torch.ones(2, P, dtype=torch.bool),
                                    val=val, n_graphs=2, np_pad=P)
-    assert flash_mask.layer_fits("add", P, head_dim) == (P <= 2048)
+    assert flash_mask.layer_fits("add", P, head_dim)
     assert conv_mod._auto_bf16_gat(batch(None), head_dim) == want
     assert conv_mod._auto_bf16_gat(batch(adj.float()), head_dim) == "auto"
 

@@ -92,17 +92,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="uint8"):
         flash_mask.flash_mask_fwd(q, k, v, adj.bool())
     # any head dim runs (f = 48 is no power of two; f = 300 goes in two
-    # chunks of 256 columns); P = 2049 is refused, naming ROADMAP item e
-    for f in (48, 300):
-        qf = torch.randn(2, 64, 1, f, device=cuda) * f ** -0.5
-        out, lse = flash_mask.flash_mask_fwd(qf, qf, qf, adj, want_lse=True)
-        want_out, want_lse = flash_mask.flash_mask_fwd_plain(qf, qf, qf, adj)
+    # chunks of 256 columns), and any P (2049: a second window of keys); an
+    # empty head dim is refused
+    q2049, _, _, adj2049, _ = _inputs(3, 1, 1, 2049, 8)
+    for qf, a in [(torch.randn(2, 64, 1, f, device=cuda) * f ** -0.5, adj) for f in (48, 300)] + [
+            (q2049, adj2049)]:
+        out, lse = flash_mask.flash_mask_fwd(qf, qf, qf, a, want_lse=True)
+        want_out, want_lse = flash_mask.flash_mask_fwd_plain(qf, qf, qf, a)
         torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
-    q2049 = torch.zeros(1, 2049, 1, 8, device=cuda)
-    adj2049 = torch.ones(1, 2049, 2049, dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="item e"):
-        flash_mask.flash_mask_fwd(q2049, q2049, q2049, adj2049)
+    q0 = torch.zeros(2, 64, 1, 0, device=cuda)
+    with pytest.raises(ValueError, match="f >= 1"):
+        flash_mask.flash_mask_fwd(q0, q0, q0, adj)
 
 
 # The tensor-core kernels #1 and #3 at head dims off the powers of two, at
@@ -178,12 +179,21 @@ def test_wide_head_kernels_match_plain(cuda, f, P, dtype):
     error ran to 1.44x that: chip_smoke.py's FP32_GRAD_SPREAD); bf16 at the
     bf16 bars."""
     B, h = _BH[P]
-    q, k, v, adj, val = _inputs(40 + f + P, B, h, P, f, with_val=f in (257, 512), dtype=dtype)
-    rng = np.random.default_rng(f + P)
+    _hold_attention_kernels(40 + f + P, f + P, B, h, P, f, dtype, with_val=f in (257, 512),
+                            rate=0.4 if P in (26, 300) else 0.0)
+
+
+def _hold_attention_kernels(seed, grad_seed, B, h, P, f, dtype, *, with_val, rate):
+    """#1 to #4 on _inputs(seed, ...) and dO, e_row, e_col drawn from
+    grad_seed: the forwards against their plain versions at the fp32 or
+    bf16 bar, the gradients as test_wide_head_kernels_match_plain holds
+    them."""
+    q, k, v, adj, val = _inputs(seed, B, h, P, f, with_val=with_val, dtype=dtype)
+    rng = np.random.default_rng(grad_seed)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda().to(dtype)
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
                     for _ in range(2))
-    kw = dict(seed=0x5EED, rate=0.4 if P in (26, 300) else 0.0)
+    kw = dict(seed=0x5EED, rate=rate)
     fp32 = dtype == torch.float32
     fwd_tol = dict(rtol=1e-4, atol=1e-5) if fp32 else dict(rtol=0, atol=3e-2)
 
@@ -218,6 +228,44 @@ def test_wide_head_kernels_match_plain(cuda, f, P, dtype):
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
     hold_grads(got, flash_mask.flash_add_bwd_plain, (e_row, e_col, v, adj, val), want_out,
                want_lse)
+
+
+# Graphs past P = 2048: the stream blocks walk adj in windows of 2048 keys
+# (#3's column pass and #4: rows), so P = 2049 has a second window of one
+# tile and P = 4096 two full windows.  (B, h) keep each case small.
+BIG_P = {2049: (2, 1), 4096: (1, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", sorted(BIG_P))
+def test_large_graph_kernels_match_plain(cuda, P, dtype):
+    """#1 to #4 past P = 2048 (f = 64, edge values at 2049, dropout at 4096)
+    held as test_wide_head_kernels_match_plain holds them; #5 and #6 (din 72,
+    f = 64, #6 with dropout) against their plain versions, rows without an
+    edge exactly 0."""
+    B, h = BIG_P[P]
+    _hold_attention_kernels(70 + P, 71 + P, B, h, P, 64, dtype, with_val=P == 2049,
+                            rate=0.4 if P == 4096 else 0.0)
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(72 + P, B, h, P, 72, 64, dtype)
+    dot = (x, wq, bq, wk, bk, wv, bv, adj)
+    kw = dict(slope=0.2, seed=0x5EED, rate=0.4)
+    empty = ~adj.bool().any(-1)
+    for got, plain in ((flash_mask.flash_layer_dot_fwd(*dot, scale=0.125),
+                        lambda: flash_mask.flash_layer_dot_fwd_plain(*dot, scale=0.125)),
+                       (flash_mask.flash_layer_add_fwd(x, wq, bq, bk, bv, adj, **kw),
+                        lambda: flash_mask.flash_layer_add_fwd_plain(x, wq, bq, bk, bv, adj,
+                                                                     **kw))):
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, P, h, 64)
+        torch.testing.assert_close(got.float(), plain().float(), **_layer_tol(dtype))
+        assert not got[empty].any()
+
+
+def test_add_bwd_takes_f256_past_p2048(cuda):
+    """#4 at f = 256 and P = 4096: the shape whose block, holding every row's
+    edge bits, could not launch (208 KB at P = 2048); now its rows go in
+    windows of 2048, so it launches at any P."""
+    _hold_attention_kernels(75, 76, 1, 1, 4096, 256, torch.float32, with_val=False, rate=0.0)
 
 
 @pytest.mark.parametrize("B,h,P,f", [(64, 1, 128, 128), (4, 2, 300, 64), (2, 2, 128, 512)])
@@ -729,8 +777,9 @@ def test_layer_add_dropout_matches_the_decomposed_path(cuda):
 
 
 def test_layer_kernels_refuse_what_does_not_fit(cuda):
-    """#5 and #6 take any head dim (f = 300 here) and refuse P past 2048,
-    naming ROADMAP.md section 2 item e, and strided tensors."""
+    """#5 and #6 take any head dim (f = 300 here) and any P (2049: a second
+    window of keys, against their plain versions), and refuse an empty head
+    dim and strided tensors."""
     x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(33, 2, 1, 128, 64, 300, torch.float32)
     dot = (x, wq, bq, wk, bk, wv, bv, adj)
     torch.testing.assert_close(flash_mask.flash_layer_dot_fwd(*dot, scale=300 ** -0.5),
@@ -740,10 +789,18 @@ def test_layer_kernels_refuse_what_does_not_fit(cuda):
                                flash_mask.flash_layer_add_fwd_plain(x, wq, bq, bk, bv, adj),
                                rtol=1e-4, atol=1e-5)
     x, (w, _, _), (b, _, _), adj = _layer_inputs(33, 1, 1, 2049, 16, 8, torch.float32)
-    with pytest.raises(ValueError, match="ROADMAP.md section 2 item e"):
-        flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=1.0)
-    with pytest.raises(ValueError, match="ROADMAP"):  # and P up to 2048
-        flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj)
+    torch.testing.assert_close(
+        flash_mask.flash_layer_dot_fwd(x, w, b, w, b, w, b, adj, scale=8 ** -0.5),
+        flash_mask.flash_layer_dot_fwd_plain(x, w, b, w, b, w, b, adj, scale=8 ** -0.5),
+        rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(flash_mask.flash_layer_add_fwd(x, w, b, b, b, adj),
+                               flash_mask.flash_layer_add_fwd_plain(x, w, b, b, b, adj),
+                               rtol=1e-4, atol=1e-5)
+    w0, b0 = w[..., :0].contiguous(), b[..., :0].contiguous()
+    with pytest.raises(ValueError, match="f >= 1"):
+        flash_mask.flash_layer_dot_fwd(x, w0, b0, w0, b0, w0, b0, adj, scale=1.0)
+    with pytest.raises(ValueError, match="f >= 1"):
+        flash_mask.flash_layer_add_fwd(x, w0, b0, b0, b0, adj)
     with pytest.raises(ValueError, match="contiguous"):
         flash_mask.flash_layer_add_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w, b,
                                        b, b, adj)

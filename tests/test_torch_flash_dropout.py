@@ -184,14 +184,16 @@ def test_bf16_auto_routes_on_the_whole_layer_kernels_shared_memory(conv, P, widt
 
 
 def test_whole_layer_kernels_take_one_set():
-    """#6 takes what #5 takes, in fp32 and bf16: any f >= 1 and P up to
-    2048.  Its argument check takes f = 48 at P = 640 and f = 257 and 300
-    (past 256, in column chunks on the card) at every P up to 2048, and
-    refuses only P = 2049, naming ROADMAP.md section 2 item e."""
-    for P in (1, 24, 128, 129, 640, 2048, 2049):
+    """#6 takes what #5 takes, in fp32 and bf16: any f >= 1 and any P >= 1
+    (past P = 2048 the kernels walk their keys in windows).  Its argument
+    check takes f = 48 at P = 640 and f = 257 and 300 (past 256, in column
+    chunks on the card) at every P, past 2048 too, and refuses only an empty
+    head dim."""
+    for P in (1, 24, 128, 129, 640, 2048, 2049, 4096):
         for f in (1, 12, 48, 75, 128, 256, 257, 300):
-            want = P <= 2048
-            assert flash_mask.layer_fits("add", P, f) == flash_mask.layer_fits("dot", P, f) == want
+            assert flash_mask.layer_fits("add", P, f) == flash_mask.layer_fits("dot", P, f)
+            assert flash_mask.layer_fits("add", P, f)
+    assert not flash_mask.layer_fits("add", 16, 0) and not flash_mask.layer_fits("dot", 0, 8)
 
     def check(P, f, dtype=torch.float32):
         flash_mask._check_layer_args(
@@ -200,20 +202,22 @@ def test_whole_layer_kernels_take_one_set():
 
     check(640, 48)
     check(640, 48, torch.bfloat16)
-    for P in (1, 128, 129, 2048):
+    for P in (1, 128, 129, 2048, 2049):
         for f in (257, 300):
             check(P, f)
     check(300, 257, torch.bfloat16)
     for f in (48, 300):
-        with pytest.raises(ValueError, match="ROADMAP.md section 2 item e"):
-            check(2049, f)
+        check(2049, f)
+        check(2049, f, torch.bfloat16)
+    with pytest.raises(ValueError, match="f >= 1"):
+        check(2049, 0)
 
 
 def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
     """method="auto" on a DenseBatch: the flash kernels wherever they take
-    the shape, which is every head dim (past 256 in chunks), and the dense
-    formulation past P = 2048 (ROADMAP section 2 item e); an explicit
-    "flash" stays."""
+    the shape, which is every head dim (past 256 in chunks) and every P
+    (past 2048 in windows of keys), as JAX's auto always takes Pallas; an
+    explicit "flash" stays."""
     calls = []
     monkeypatch.setattr(flash_mask, "flash_graph_attention",
                         lambda *a, **kw: calls.append("flash"))
@@ -224,7 +228,7 @@ def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
                               ("dot", 16, 300, "flash"), ("dot", 16, 1024, "flash"),
                               ("add", 16, 16, "flash"), ("add", 16, 12, "flash"),
                               ("add", 16, 48, "flash"), ("add", 16, 300, "flash"),
-                              ("dot", 2049, 8, "dense"), ("add", 2049, 8, "dense")]:
+                              ("dot", 2049, 8, "flash"), ("add", 2049, 8, "flash")]:
         calls.clear()
         batch, e, v = _batch(1, P), torch.zeros(1, P, 1), torch.zeros(1, P, 1, f)
         kw = dict(score="add", e_row=e, e_col=e) if score == "add" else {}
@@ -235,8 +239,8 @@ def test_auto_routes_head_dims_the_kernels_do_not_take_to_dense(monkeypatch):
 
 def test_explicit_flash_refuses_head_dims_the_kernels_do_not_take():
     """What the wrappers check before a launch: the kernels of either score
-    take any head dim (f = 48, 300, 1024) and P up to 2048; past it the
-    error names ROADMAP.md section 2 item e, and flash_takes agrees."""
+    take any head dim (f = 48, 300, 1024) and any P (2049 too); only an
+    empty head dim or node axis is refused, and flash_takes agrees."""
     adj = torch.ones(2, 16, 16, dtype=torch.uint8)
     for f in (48, 300, 1024):
         for score in ("dot", "add"):
@@ -244,9 +248,11 @@ def test_explicit_flash_refuses_head_dims_the_kernels_do_not_take():
             assert flash_mask.flash_takes(score, 16, f)
     adj2049 = torch.ones(1, 2049, 2049, dtype=torch.uint8)
     for score in ("dot", "add"):
-        with pytest.raises(ValueError, match="item e"):
-            flash_mask._check_block_args(torch.zeros(1, 2049, 1, 8), adj2049, None, score=score)
-        assert not flash_mask.flash_takes(score, 2049, 8)
+        flash_mask._check_block_args(torch.zeros(1, 2049, 1, 8), adj2049, None, score=score)
+        assert flash_mask.flash_takes(score, 2049, 8)
+        with pytest.raises(ValueError, match="f >= 1"):
+            flash_mask._check_block_args(torch.zeros(2, 16, 1, 0), adj, None, score=score)
+        assert not flash_mask.flash_takes(score, 16, 0)
 
 
 def test_empty_rows_and_graphs_give_zero_outputs_and_gradients():
