@@ -133,7 +133,17 @@ six launch counts set to 0 just before it and read just after:
   graphs of about 3,000 nodes, through ``auto`` (8 #1 a request, 8 + 8 #1,
   #3 a step; GAT #2, #4) and ``flash_fused`` (8 #5, 8 + 8 + 8 #5, #1, #3;
   GAT #6, #2, #4), each against ``method="dense"`` with its time and peak
-  memory.
+  memory;
+- the host library (phase 29): ``dfgnn_tpu_torch.native``, built with g++
+  from ``csrc/host/graph_builder.cpp`` (a fresh build timed, the compiler's
+  version printed), each routine held bitwise against its numpy plain
+  version and both timed on the host clock: the sampler on both layers of
+  the arxiv twin's shape (bs 1024, fanouts 8, 8) and the twin's
+  ``sample_localized`` a step with either sampler in turns, the CSR sort and
+  ``Graph.from_coo`` of the reddit stand-in, the bucket fill at every width
+  of its doubling ladder, and a bs=1024 PATTERN-like collation at P = 128.
+  Every earlier phase already built its graphs, buckets, batches and
+  sampled blocks through it.
 The bucket path is torch ops, so the full-graph, sampled and partitioned
 phases launch none of the hand-written kernels, and they assert that.
 Prints progress and each phase's wall time, then a ``{"kernels": [...]}`` JSON line (eight records),
@@ -151,6 +161,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -272,6 +283,7 @@ TF32_STEP = 2.0 ** -10  # a TF32 step (10 mantissa bits) near 1: the "default" b
 # misses BWD_FP32_TOL the kernel's error may exceed the fp32 plain version's:
 # up to 1.52x of it over phase 26's grid (the factor set after that reading)
 FP32_GRAD_SPREAD = 2.0
+HOST_RUNS = 5  # phase 29: host-clock runs a routine, after one warm-up
 
 
 def err_and_bad(got, want, tol):
@@ -1392,6 +1404,155 @@ def large_graph_phase(smi):
     for impl in (None, "flash_fused"):
         model_routes(smi, impl, "large-graph", HIDDEN, (batch, x), train, (batch, x))
     return times
+
+
+def host_ms(fn, runs=HOST_RUNS):
+    """Median host-clock ms of ``runs`` calls after one warm-up call, and
+    the warm-up call's result."""
+    out = fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def _same(what, got, want):
+    """Raises unless two tuples of numpy arrays (or Nones) are equal bitwise."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None) or (w is not None and (
+                g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w))):
+            raise AssertionError(f"{what}: output {i} differs from its plain version")
+
+
+def host_library_phase(smi):
+    """Phase 29: the host library (``dfgnn_tpu_torch.native``, g++ from
+    ``csrc/host/graph_builder.cpp``).  A fresh build's seconds and the
+    compiler's version; then each routine held bitwise against its numpy
+    plain version and both timed on the host clock (median of HOST_RUNS):
+    the sampler on both layers of the train_sampled twin's arxiv shape (bs
+    1024, fanouts 8, 8) and the twin's sample_localized a step with either
+    sampler in turns, the CSR sort and Graph.from_coo of the reddit
+    stand-in and the bucket fill at every width of its doubling ladder
+    (min width 8, up to its largest degree; a width holding no row is
+    skipped), and the collation of a bs=1024 PATTERN-like batch at P = 128."""
+    from dfgnn_tpu_torch import DenseBatch, native
+    from dfgnn_tpu_torch.data.datasets import load_full_graph
+    from dfgnn_tpu_torch.data.sampling import NeighborSampler, sample_neighbors_plain
+    from dfgnn_tpu_torch.data.synthetic import pattern_like_batch
+    from dfgnn_tpu_torch.formats import _fill_rows
+    from dfgnn_tpu_torch.graph import Graph, csr_from_coo_plain, fill_dense_adj_plain
+    from dfgnn_tpu_torch.scripts import train_sampled
+
+    gxx = subprocess.run([native.CXX, "--version"], check=True, capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lib, _ = native.build(native.SOURCE, Path(tmp))
+        build_s = time.perf_counter() - t0
+    print(f"host library: a fresh build of {lib.name} took {build_s:.3f} s ({gxx}; flags "
+          f"{' '.join(native.CXX_FLAGS)}); loaded {Path(native.library()._name).name}")
+
+    def line(what, ms, plain_ms, size):
+        print(f"  {what} ({size}): library {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"x{plain_ms / ms:.2f}; bitwise equal")
+
+    # the sampler at the twin's arxiv shape: both layers of phase 21's first batch
+    ds = load_full_graph("arxiv", quiet=True)
+    bs = SAMPLED_BATCH
+    sampler = NeighborSampler(Graph.from_coo(ds.rows, ds.cols, ds.n_nodes, device="cpu"))
+    blocks = sampler.sample(np.nonzero(ds.train_mask)[0][:bs], train_sampled.FANOUTS, seed=0,
+                            pad_to=[bs, bs * 9])
+    print(f"arxiv stand-in (n={ds.n_nodes}, e={ds.n_edges}), bs {bs}, fanouts "
+          f"{train_sampled.FANOUTS}, host clock, median of {HOST_RUNS} ({smi}):")
+    for li, (blk, fanout) in enumerate(zip(blocks, train_sampled.FANOUTS)):
+        seeds = blk.seeds[: blk.n_seeds]
+        args = (seeds, sampler.indptr, sampler.cols, fanout, sampler.n, li)
+        ms, got = host_ms(lambda: native.sample_neighbors(*args))
+        plain_ms, want = host_ms(lambda: sample_neighbors_plain(*args))
+        _same(f"sample_neighbors, layer {li}", got, want)
+        b = blk.bg.buckets[0]
+        _same(f"the sampler's block {li}", (b.nbr[: seeds.size], b.emask[: seeds.size]), got)
+        line(f"sample_neighbors, layer {li}", ms, plain_ms,
+             f"{seeds.size} seeds, {int(got[1].sum())} lanes")
+
+    # the twin's host sampling a step (sample_localized, the call phase 21
+    # times) on that batch, with the library's draws and, in turns, with the
+    # plain version's (the sampler before the host library)
+    def step():
+        blks, sup = sampler.sample_localized(batch, train_sampled.FANOUTS, seed=0,
+                                             pad_to=[bs, bs * 9], support_pad=bs * 81)
+        return [a for b in blks for a in (b.bg.buckets[0].nbr, b.bg.buckets[0].emask,
+                                           b.seeds)] + [sup]
+
+    def plain_step():
+        with mock.patch.object(native, "sample_neighbors", sample_neighbors_plain):
+            return step()
+
+    batch = np.nonzero(ds.train_mask)[0][:bs]
+    p1, want = host_ms(plain_step)
+    k1, got = host_ms(step)
+    k2, _ = host_ms(step)
+    p2, _ = host_ms(plain_step)
+    _same("sample_localized", got, want)
+    print(f"  sample_localized, one step of the twin (bs {bs}): library draws {k1:.4f}, "
+          f"{k2:.4f} ms, plain draws {p1:.4f}, {p2:.4f} ms (in turns: plain, library, library, "
+          f"plain); blocks and support bitwise equal")
+    del ds, sampler, blocks
+
+    # the CSR sort, Graph.from_coo and the bucket fill on the reddit stand-in
+    ds = load_full_graph("reddit", quiet=True)
+    n = ds.n_nodes
+    print(f"reddit stand-in (n={n}, e={ds.n_edges}), host clock, median of {HOST_RUNS}:")
+    ms, got = host_ms(lambda: native.csr_from_coo(ds.rows, ds.cols, n))
+    plain_ms, want = host_ms(lambda: csr_from_coo_plain(ds.rows, ds.cols, n))
+    _same("csr_from_coo", got, want)
+    line("csr_from_coo", ms, plain_ms, f"{ds.n_edges} edges")
+    indptr, cols, order = want
+    ms, g = host_ms(lambda: Graph.from_coo(ds.rows, ds.cols, n, device="cpu"))
+    e = g.n_edges
+    _same("Graph.from_coo", (g.indptr.numpy(), g.rows[:e].numpy(), g.cols[:e].numpy()),
+          (indptr, np.asarray(ds.rows, np.int64)[order], cols))
+    print(f"  Graph.from_coo (the sort, the rows rebuilt, the padding): {ms:.4f} ms; its "
+          f"arrays equal the plain sort's")
+    del ds, g, order
+    deg = np.diff(indptr)
+    lo, w, fill_ms, fill_plain_ms = 0, 8, 0.0, 0.0
+    while lo < deg.max():
+        sel = np.nonzero((deg > lo) & (deg <= w))[0]
+        if sel.size:
+            ms, got = host_ms(lambda: native.bucket_fill(sel, indptr, cols, None, w, sel.size, n))
+
+            def plain():
+                nbr = np.full((sel.size, w), n, np.int32)
+                emask = np.zeros((sel.size, w), bool)
+                _fill_rows(sel, indptr, cols, None, nbr, emask, None)
+                return nbr, emask, None
+
+            plain_ms, want = host_ms(plain)
+            _same(f"bucket_fill at width {w}", got, want)
+            line(f"bucket_fill, width {w}", ms, plain_ms,
+                 f"{sel.size} rows, {int(deg[sel].sum())} edges")
+            fill_ms, fill_plain_ms = fill_ms + ms, fill_plain_ms + plain_ms
+        lo, w = w, 2 * w
+    print(f"  bucket_fill over every width: library {fill_ms:.4f} ms, plain "
+          f"{fill_plain_ms:.4f} ms")
+    del indptr, cols, deg
+
+    # the dense collation of a bs=1024 PATTERN-like batch at P = 128
+    graphs = [(r, c, k) for r, c, k, _ in pattern_like_batch(np.random.default_rng(29), BATCH)]
+    offs = np.concatenate([[0], np.cumsum([len(r) for r, _, _ in graphs])])
+    rows = np.concatenate([r for r, _, _ in graphs]).astype(np.int64)
+    cols = np.concatenate([c for _, c, _ in graphs]).astype(np.int64)
+    ms, got = host_ms(lambda: native.fill_dense_adj(offs, rows, cols, NP_PAD))
+    plain_ms, want = host_ms(lambda: fill_dense_adj_plain(offs, rows, cols, NP_PAD))
+    _same("fill_dense_adj", (got,), (want,))
+    line("fill_dense_adj", ms, plain_ms, f"{len(graphs)} graphs, P={NP_PAD}, {rows.size} edges")
+    ms, batch = host_ms(lambda: DenseBatch.from_graph_list(graphs, np_pad=NP_PAD, device="cpu"))
+    _same("DenseBatch.from_graph_list", (batch.adj.numpy(),), (want,))
+    print(f"  DenseBatch.from_graph_list (on the host, device='cpu'): {ms:.4f} ms; its adj "
+          f"equals the plain collation's")
 
 
 def phase_done(name: str) -> None:
@@ -3026,6 +3187,14 @@ def main() -> int:
     # 28. graphs past P = 2048 (item e)
     large_graph_phase(smi)
     phase_done("28 graphs past P = 2048")
+
+    # 29. the host library: the sampler, CSR sort, bucket fill and collation
+    # held bitwise against their numpy plain versions at the main path's sizes
+    flash_mask.reset_launch_counts()
+    gather.reset_launch_counts()
+    host_library_phase(smi)
+    no_kernel_launches("the host library")
+    phase_done("29 host library")
 
     records = [fwd_rec, bwd_rec, add_fwd_rec, add_bwd_rec, layer_rec, layer_add_rec,
                gather_rec, take_rec]

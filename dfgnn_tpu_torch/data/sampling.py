@@ -1,15 +1,16 @@
 """Neighbourhood sampling for mini-batch training on large graphs.
 
 The counterpart of :mod:`dfgnn_tpu.data.sampling`: GraphSAGE-style layered
-uniform sampling on the host in numpy.  A sampled layer is one fixed-width
+uniform sampling on the host.  A sampled layer is one fixed-width
 :class:`~dfgnn_tpu_torch.formats.Bucket` (``[n_seeds, fanout]`` padded
 neighbour ids), so the bucket attention path consumes sampled blocks with
 no format of its own, and re-sampling never changes a shape.
 
 The draws are the JAX package's, bitwise: its native library's xorshift64
-reservoir (``native/graph_builder.cpp``, ``sample_neighbors``), written
-here in numpy (:func:`_sample_neighbors`), so one seed gives both packages
-the same blocks.
+reservoir (``sample_neighbors``), run from the port's own copy of that C++
+(:func:`dfgnn_tpu_torch.native.sample_neighbors`), so one seed gives both
+packages the same blocks.  :func:`sample_neighbors_plain` is the same
+sampler in numpy, the plain version the tests hold the library against.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dfgnn_tpu_torch import native
 from dfgnn_tpu_torch.formats import Bucket, BucketedGraph, _fill_rows, _to
 from dfgnn_tpu_torch.graph import Graph, _round_up
 
@@ -60,14 +62,16 @@ def _xorshift_states(seed: int, count: int) -> np.ndarray:
     return np.array(out, dtype=np.uint64)
 
 
-def _sample_neighbors(seeds: np.ndarray, indptr: np.ndarray, cols: np.ndarray, fanout: int,
-                      sentinel: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``native.sample_neighbors_native`` of the JAX package, bitwise: per
-    seed, its whole row when the degree is at most ``fanout``, else a
+def sample_neighbors_plain(seeds: np.ndarray, indptr: np.ndarray, cols: np.ndarray,
+                           fanout: int, sentinel: int, seed: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy plain version of :func:`native.sample_neighbors`, bitwise:
+    per seed, its whole row when the degree is at most ``fanout``, else a
     reservoir sample of ``fanout`` neighbours.  One xorshift stream serves
     every seed of the call, in seed order; row i's draw j (``fanout <= j <
     d``) is ``k = next() % (j + 1)``, and ``k < fanout`` replaces slot k.
     Returns (nbr [n_seeds, fanout] int32 padded with ``sentinel``, mask)."""
+    seeds = np.asarray(seeds, dtype=np.int64)
     s = len(seeds)
     nbr = np.full((s, fanout), sentinel, dtype=np.int64)
     mask = np.zeros((s, fanout), dtype=bool)
@@ -112,7 +116,7 @@ class NeighborSampler:
         seeds = np.asarray(seeds, dtype=np.int64)
         s = len(seeds)
         s_pad = max(_round_up(s, seed_pad_multiple), seed_pad_multiple)
-        nbr, mask = _sample_neighbors(seeds, self.indptr, self.cols, fanout, self.n, seed)
+        nbr, mask = native.sample_neighbors(seeds, self.indptr, self.cols, fanout, self.n, seed)
 
         nbr_p = np.full((s_pad, fanout), self.n, dtype=np.int32)
         mask_p = np.zeros((s_pad, fanout), dtype=bool)

@@ -13,7 +13,8 @@ numpy, as the JAX package builds them, and moved to the graph's device once:
 
 The containers are frozen dataclasses of tensors with ``.to(device)``, as
 :class:`Graph` is.  Index arrays are int64 on the device (their values equal
-the JAX package's int32 arrays); the builders fill them in numpy.
+the JAX package's int32 arrays); the builders fill them in numpy, and the
+degree buckets' neighbour lists in the host library (``native.bucket_fill``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dfgnn_tpu_torch import native
 from dfgnn_tpu_torch.graph import Graph, _round_up
 
 
@@ -185,20 +187,24 @@ _SRC_BLOCK_ROWS = 49152
 _AUTO_BLOCK_ABOVE: Optional[int] = None
 
 
-def _fill_rows(sel, indptr, cols, val, nbr, emask, bval, eid=None, evals=None):
-    """Lay the edges of rows ``sel`` out left-aligned in ``nbr`` (and
-    ``emask``, ``bval``, ``eid``) row by row: the numpy fill of the JAX
-    package's ``bucket_fill``, vectorised over the edges."""
+def _lanes(sel, indptr):
+    """(row in sel, lane, CSR edge id) of every edge of rows ``sel``, laid
+    out left-aligned row by row."""
     deg = (indptr[sel + 1] - indptr[sel]).astype(np.int64)
     er = np.repeat(np.arange(sel.size), deg)
     within = np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg, deg)
-    local = np.repeat(indptr[sel], deg) + within
+    return er, within, np.repeat(indptr[sel], deg) + within
+
+
+def _fill_rows(sel, indptr, cols, val, nbr, emask, bval):
+    """Lay the edges of rows ``sel`` out left-aligned in ``nbr`` (and
+    ``emask``, ``bval``) row by row: the numpy plain version of
+    :func:`native.bucket_fill`, vectorised over the edges."""
+    er, within, local = _lanes(sel, indptr)
     nbr[er, within] = cols[local]
     emask[er, within] = True
     if bval is not None:
         bval[er, within] = val[local]
-    if eid is not None:
-        eid[er, within] = local if evals is None else evals[local]
 
 
 def bucket_rows_numpy(
@@ -255,15 +261,13 @@ def bucket_rows_numpy(
             r_pad = _round_up(r, chunk)
         row_ids = np.full(r_pad, n_rows_space, dtype=np.int32)
         row_ids[:r] = sel
-        nbr = np.full((r_pad, w), n_cols_space, dtype=np.int32)
-        emask = np.zeros((r_pad, w), dtype=bool)
-        bval = None if val is None else np.zeros((r_pad, w), dtype=np.float32)
+        nbr, emask, bval = native.bucket_fill(sel, indptr, cols, val, w, r_pad, n_cols_space)
         beid = None
-        evals = None
         if edge_index_map is not None:
             evals, esent = edge_index_map
             beid = np.full((r_pad, w), esent, dtype=np.int32)
-        _fill_rows(sel, indptr, cols, val, nbr, emask, bval, beid, evals)
+            er, within, local = _lanes(sel, indptr)
+            beid[er, within] = local if evals is None else evals[local]
         buckets.append(Bucket(row_ids=row_ids, nbr=nbr, emask=emask, val=bval,
                               edge_ids=beid, width=int(w), n_rows=int(r),
                               row_chunk=int(chunk)))

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dfgnn_tpu_torch import native
 from dfgnn_tpu_torch.device import resolve_device
 
 
@@ -29,11 +30,31 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def csr_from_coo_plain(rows: np.ndarray, cols: np.ndarray, n: int):
+    """The numpy plain version of :func:`native.csr_from_coo`: ``(indptr,
+    cols in row order, perm)`` by a stable argsort of the rows."""
+    rows, cols = np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    order = np.argsort(rows, kind="stable")
+    return np.cumsum(indptr), cols[order], order
+
+
+def fill_dense_adj_plain(edge_offsets: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                         P: int) -> np.ndarray:
+    """The numpy plain version of :func:`native.fill_dense_adj`."""
+    gid = np.repeat(np.arange(len(edge_offsets) - 1), np.diff(edge_offsets))
+    adj = np.zeros((len(edge_offsets) - 1, P, P), dtype=np.uint8)
+    lo, hi = edge_offsets[0], edge_offsets[-1]
+    adj[gid, rows[lo:hi], cols[lo:hi]] = 1
+    return adj
+
+
 @dataclass(frozen=True)
 class Graph:
     """A (possibly block-diagonal-batched) graph in padded CSR+COO form.
 
-    Built on the host in numpy by :meth:`from_coo`, then moved to a device
+    Built on the host by :meth:`from_coo`, then moved to a device
     once by :meth:`to`.  ``n_nodes``, ``n_edges`` and ``n_graphs`` are ints.
     """
 
@@ -64,10 +85,10 @@ class Graph:
     def from_coo(rows, cols, n_nodes: int, val=None, *, edge_pad_multiple: int = 128,
                  n_graphs: int = 1, graph_id=None, node_mask=None, sort: bool = True,
                  device="cuda") -> "Graph":
-        """Build a padded Graph from COO edge lists in numpy, then move it to
-        ``device``.  With ``sort`` the edges take a stable sort by row, the
-        JAX package's edge order; the edge count is padded up to a multiple
-        of ``edge_pad_multiple``."""
+        """Build a padded Graph from COO edge lists on the host, then move it
+        to ``device``.  With ``sort`` the edges take a stable sort by row
+        (the host library's ``csr_from_coo``), the JAX package's edge order;
+        the edge count is padded up to a multiple of ``edge_pad_multiple``."""
         dev = resolve_device(device)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
@@ -76,14 +97,15 @@ class Graph:
         n_edges = int(rows.shape[0])
         if val is not None:
             val = np.asarray(val, dtype=np.float32)
-        indptr = np.zeros(n_nodes + 1, dtype=np.int64)
-        np.add.at(indptr, rows + 1, 1)
-        indptr = np.cumsum(indptr)
         if sort and n_edges > 0:
-            order = np.argsort(rows, kind="stable")
-            rows, cols = rows[order], cols[order]
+            indptr, cols, perm = native.csr_from_coo(rows, cols, n_nodes)
+            rows = np.repeat(np.arange(n_nodes, dtype=np.int64), np.diff(indptr))
             if val is not None:
-                val = val[order]
+                val = val[perm]
+        else:
+            indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+            np.add.at(indptr, rows + 1, 1)
+            indptr = np.cumsum(indptr)
         e_pad = max(_round_up(max(n_edges, 1), edge_pad_multiple), edge_pad_multiple)
         rows_p = np.full(e_pad, n_nodes, dtype=np.int64)
         cols_p = np.full(e_pad, n_nodes, dtype=np.int64)
@@ -161,8 +183,9 @@ class DenseBatch:
     @staticmethod
     def from_graph_list(graphs, np_pad: Optional[int] = None, *,
                         device="cuda") -> "DenseBatch":
-        """Collate a list of (rows, cols, n_nodes) tuples in numpy on the
-        host, then move the batch to ``device`` in one copy per tensor."""
+        """Collate a list of (rows, cols, n_nodes) tuples on the host (the
+        adjacency by the host library's ``fill_dense_adj``), then move the
+        batch to ``device`` in one copy per tensor."""
         dev = resolve_device(device)
         max_n = max(g[2] for g in graphs)
         if np_pad is None:
@@ -170,15 +193,13 @@ class DenseBatch:
         if max_n > np_pad:
             raise ValueError(f"a graph has {max_n} nodes, more than np_pad={np_pad}")
         B = len(graphs)
-        adj = np.zeros((B, np_pad, np_pad), dtype=np.uint8)
         mask = np.zeros((B, np_pad), dtype=bool)
         for b, (_, _, n) in enumerate(graphs):
             mask[b, :n] = True
-        gid = np.concatenate([np.full(len(r), b, dtype=np.int64)
-                              for b, (r, _, _) in enumerate(graphs)])
+        offs = np.concatenate([[0], np.cumsum([len(r) for r, _, _ in graphs])])
         rows = np.concatenate([np.asarray(r, dtype=np.int64) for r, _, _ in graphs])
         cols = np.concatenate([np.asarray(c, dtype=np.int64) for _, c, _ in graphs])
-        adj[gid, rows, cols] = 1
+        adj = native.fill_dense_adj(offs, rows, cols, np_pad)
         return DenseBatch(
             adj=torch.from_numpy(adj).to(dev),
             node_mask=torch.from_numpy(mask).to(dev),

@@ -1,11 +1,11 @@
 """The port's neighbour sampler, sampled-block attention and sampled
 trainer's model against the JAX package's (CPU).
 
-The draws must be the JAX package's bitwise: it samples with its native
-library's xorshift reservoir, which must have loaded (else it would fall
-back to numpy's ``rng.choice`` and a mismatch would read as the port's
-fault).  JAX's attention and training run under ``jax.jit``, once per
-cached helper.
+The draws must be the JAX package's bitwise: both sample with their own
+build of one C++ xorshift reservoir, and the JAX package's library must
+have loaded (else it would fall back to numpy's ``rng.choice`` and a
+mismatch would read as the port's fault).  JAX's attention and training
+run under ``jax.jit``, once per cached helper.
 """
 
 import functools
@@ -24,6 +24,7 @@ from dfgnn_tpu.data import sampling as jax_sampling
 from dfgnn_tpu.graph import Graph as JaxGraph
 from dfgnn_tpu.models import make_conv as jax_make_conv
 from dfgnn_tpu.models.conv import GTConv as JaxGTConv
+from dfgnn_tpu_torch import native as torch_native
 from dfgnn_tpu_torch import weights
 from dfgnn_tpu_torch.data.sampling import NeighborSampler, _localize, sampled_block_attention
 from dfgnn_tpu_torch.graph import Graph
@@ -88,6 +89,29 @@ def test_sample_layer_draws_bitwise(fanout, seeds, seed):
     # rows at or below the fanout are copied whole; wider rows keep fanout lanes
     mask = np.asarray(tblk.bg.buckets[0].emask)[: len(ids)]
     np.testing.assert_array_equal(mask.sum(1), np.minimum(degs[ids], fanout))
+
+
+def test_host_library_matches_jax_native():
+    """The port's host library against the JAX package's, bitwise: the
+    sampler's draws (degrees 0 to 3x the fanout, repeated seeds, a seed past
+    2**63) and the CSR sort of unsorted rows with isolated tail nodes."""
+    assert native.get_lib() is not None, "the JAX package's native library must load"
+    _, tg, degs = _degree_graph(4)
+    indptr, cols = tg.indptr.numpy(), tg.cols[: tg.n_edges].numpy()
+    n = degs.size
+    for ids, seed in ((np.arange(n), 0), (np.r_[np.arange(0, n, 3), [0, 0, n - 1]], 12345),
+                      (np.arange(n)[::-1], 2 ** 63 + 5)):
+        got = torch_native.sample_neighbors(ids, indptr, cols, 4, n, seed)
+        want = native.sample_neighbors_native(ids, indptr, cols, 4, n, seed)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(15)
+    rows, cols = rng.integers(0, 95, 2000), rng.integers(0, 100, 2000)
+    for g, w in zip(torch_native.csr_from_coo(rows, cols, 100),
+                    native.csr_from_coo(rows, cols, 100)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("pad_to", [None, (16, 40)])  # (16, 40) truncates the frontier

@@ -118,7 +118,8 @@ def test_exports_match_the_jax_package():
 
 
 def test_new_modules_import_no_jax():
-    code = ("import sys, dfgnn_tpu_torch.data.sampling, dfgnn_tpu_torch.utils.profiling, "
+    code = ("import sys, dfgnn_tpu_torch.data.sampling, dfgnn_tpu_torch.native, "
+            "dfgnn_tpu_torch.utils.profiling, "
             "dfgnn_tpu_torch.utils.checkpoint, dfgnn_tpu_torch.scripts.train_sampled, "
             "dfgnn_tpu_torch.scripts.train_batch_graph_timing, "
             "dfgnn_tpu_torch.scripts.train_full_graph_timing, "
