@@ -104,15 +104,18 @@ six launch counts set to 0 just before it and read just after:
   and 3 Adam steps through #1 and #3 (8 + 8 a step), held against
   ``method="dense"``; GAT's fig-1 ``Model`` at hidden 512 through #2, and
   a step through #2 and #4; #1 to #4 at f = 257, 384, 512, 1024 and P =
-  26, 128, 300, 2048 (fp32 and bf16, edge values, dropout) against their
-  plain versions, and timed at f = 512 beside their bounds and SDPA; #1 to
+  26, 128, 300, 2048 and at P = 2176, f = 384 (fp32 and bf16, edge
+  values, dropout) against their plain versions (#3 past 256 through its
+  wide blocks), and timed at f = 512 beside their bounds and SDPA, #3 also
+  at 64 x 1 x 512 x 512; #1 to
   #6 at ``precision="default"`` against their TF32-rounded plain versions
   (a TF32 step of each tensor's largest element), timed against
   ``"highest"``, which must equal the call without precision bitwise;
 - the whole-layer kernels past head dim 256 (phase 27): #5 and #6 at f =
-  257, 384, 512, 1024 and P = 26, 128, 300, 2048 (fp32 at both precisions
-  and bf16, #6 with dropout at P = 26 and 300) against their plain
-  versions; GTModel at hidden 512 with one head through
+  257, 384, 512, 1024 and P = 26, 128, 300, 2048, and at P = 2176, f = 384
+  (fp32 at both precisions and bf16, #6 with dropout at P = 26 and 300)
+  against their plain versions (#5 past P = 128 through its projection
+  launch and wide attention block); GTModel at hidden 512 with one head through
   ``impl="flash_fused"``: a request through #5 (8 launches) and 3 Adam
   steps through #5, #1 and #3 (8 + 8 + 8 a step), held against
   ``method="dense"``; GAT's fig-1 ``Model`` at hidden 512 through #6, a
@@ -268,7 +271,8 @@ WIDE_F, WIDE_P = (257, 384, 512, 1024), (26, 128, 300, 2048)
 WIDE_BH = {26: (8, 2), 128: (4, 2), 300: (2, 2), 2048: (1, 1)}
 WIDE_HIDDEN, WIDE_TABLE = 512, (1024, 1, 128, 512)
 WIDE_DIN = 72  # phase 27: #5 and #6 on the grid of WIDE_F x WIDE_P take x of this width
-WIDE_STREAM = (64, 1, 512, 512)  # phase 27: #5 and #6 timed past P = 128 at head dim 512
+WIDE_STREAM = (64, 1, 512, 512)  # phases 26, 27: #3, #5 and #6 timed past P = 128 at f = 512
+WIDE_PAST = (2176, 384)  # phases 26, 27: the point (P, f) past P = 2048, at (B, h) = (1, 1)
 # Phase 28: graphs past P = 2048.  #1 to #4 at these node counts ((B, h) per
 # P) and head dims, #5 and #6 at the first two head dims (din WIDE_DIN); #1
 # to #6 timed at LARGE_TABLE (din = f); the GT and GAT models at HIDDEN on
@@ -374,18 +378,25 @@ def step_peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - start) / 2 ** 20, start / 2 ** 20
 
 
-def layer_work(score, B, P, din, h, f, edges, itemsize):
-    """(flops, bytes) the whole layer must do: its projections over every
-    node (3 for #5, 1 and the two score contractions for #6) and its
-    attention products over the edges (2 for #5, 1 for #6); each input (x,
-    the weights, adj) read once and the output written once."""
+def layer_work(score, adj, din, h, f, itemsize):
+    """(flops, bytes) the whole layer must do on ``adj`` [B, P, P], counting
+    what it needs as padded_attention_bound does: its projections of the
+    nodes that hold an edge (#5: q of rows with an edge, k and v of keys
+    with an edge; #6: z of nodes that are either, its score contractions
+    over those rows and keys) and its attention products over the edges (2
+    for #5, 1 for #6); x of those nodes, the weights and adj read once, the
+    full output written once."""
+    B, P, _ = adj.shape
+    edges = int(adj.sum())
+    has_row, has_key = adj.sum(-1) > 0, adj.sum(-2) > 0
+    rows, keys, live = int(has_row.sum()), int(has_key.sum()), int((has_row | has_key).sum())
     if score == "dot":
-        flops = 3 * 2 * B * P * din * h * f + 2 * 2 * edges * h * f
+        flops = 2 * din * h * f * (rows + 2 * keys) + 2 * 2 * edges * h * f
         weights = 3 * (h * din * f * itemsize + h * f * 4)
     else:
-        flops = 2 * B * P * din * h * f + 2 * 2 * B * P * h * f + 2 * edges * h * f
+        flops = 2 * din * h * f * live + 2 * h * f * (rows + keys) + 2 * edges * h * f
         weights = h * din * f * itemsize + 3 * h * f * 4
-    return flops, B * P * din * itemsize + weights + B * P * P + B * P * h * f * itemsize
+    return flops, live * din * itemsize + weights + B * P * P + B * P * h * f * itemsize
 
 
 def add_composition(x, w, b, al, ar, adj):
@@ -840,10 +851,14 @@ def attention_case(fm, seed, B, h, P, f, dtype, *, with_val, rate, precision=Non
     return line
 
 
-def time_attention_kernels(smi, shape, seed):
-    """#1 to #4 at ``shape`` (B, h, P, f) on ``attention_inputs``, fp32:
-    each timed in turns with its plain version, beside its bound and SDPA's
-    time.  Returns {name: (ms, plain_ms, bound_ms, bound_by, sdpa_ms)}."""
+def time_attention_kernels(smi, shape, seed, names=("#1", "#3", "#2", "#4")):
+    """Those of #1 to #4 in ``names`` at ``shape`` (B, h, P, f) on
+    ``attention_inputs``, fp32: each timed in turns with its plain version,
+    beside its bound and SDPA's time (each score's SDPA timed only when one
+    of its kernels is named).  Returns {name: (ms, plain_ms, bound_ms,
+    bound_by, sdpa_ms)}."""
+    import functools
+
     import torch.nn.functional as F
 
     from dfgnn_tpu_torch.data.synthetic import attention_inputs
@@ -857,42 +872,57 @@ def time_attention_kernels(smi, shape, seed):
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda()
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
                     for _ in range(2))
-    out, lse = fm.flash_mask_fwd(q, k, v, adj, want_lse=True)
-    aout, alse = fm.flash_add_fwd(e_row, e_col, v, adj, want_lse=True)
     mask = adj[:, None].bool()
-    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=1.0)
-    lib_fwd = benchmark(sdpa)[1]
-    lib_bwd = benchmark(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
-                                                    do.transpose(1, 2)))[1] - lib_fwd
-    pre = e_row.permute(0, 2, 1)[..., None] + e_col.permute(0, 2, 1)[..., None, :]
-    mask_g = torch.where(mask, F.leaky_relu(pre, 0.2), fm.NEG_BIG).requires_grad_(True)
-    zq = torch.zeros(B, h, P, 8, device="cuda")
-    vg2 = v.transpose(1, 2).detach().requires_grad_(True)
-    asdpa = lambda: F.scaled_dot_product_attention(zq, zq, vg2, attn_mask=mask_g)
-    alib_fwd = benchmark(asdpa)[1]
-    alib_bwd = benchmark(lambda: torch.autograd.grad(asdpa(), (mask_g, vg2),
-                                                     do.transpose(1, 2)))[1] - alib_fwd
-    cases = [
-        ("#1", lambda: fm.flash_mask_fwd_plain(q, k, v, adj),
-         lambda: fm.flash_mask_fwd(q, k, v, adj),
-         padded_attention_bound(2, adj, h, f, 4, False, TF32X3_FLOPS)[:2], lib_fwd),
-        ("#3", lambda: fm.flash_mask_bwd_plain(q, k, v, adj, None, lse, do,
-                                               fm.bwd_delta(do, out)),
-         lambda: fm.flash_mask_bwd(q, k, v, adj, None, out, lse, do),
-         padded_attention_bound(5, adj, h, f, 4, True, TF32X3_FLOPS)[:2], lib_bwd),
-        ("#2", lambda: fm.flash_add_fwd_plain(e_row, e_col, v, adj),
-         lambda: fm.flash_add_fwd(e_row, e_col, v, adj),
-         attention_bound(1, adj, h, f, add_bytes(B, h, P, f, 4)[0], TF32X3_FLOPS)[:2],
-         alib_fwd),
-        ("#4", lambda: fm.flash_add_bwd_plain(e_row, e_col, v, adj, None, alse, do,
-                                              fm.bwd_delta(do, aout)),
-         lambda: fm.flash_add_bwd(e_row, e_col, v, adj, None, aout, alse, do),
-         attention_bound(2, adj, h, f, add_bytes(B, h, P, f, 4)[1], TF32X3_FLOPS)[:2],
-         alib_bwd),
-    ]
+
+    @functools.cache
+    def library(score):
+        """SDPA's (forward ms, backward ms) on this score's inputs."""
+        if score == "dot":
+            ins = tuple(t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            fn = lambda: F.scaled_dot_product_attention(*ins, attn_mask=mask, scale=1.0)
+        else:
+            pre = e_row.permute(0, 2, 1)[..., None] + e_col.permute(0, 2, 1)[..., None, :]
+            mask_g = torch.where(mask, F.leaky_relu(pre, 0.2), fm.NEG_BIG).requires_grad_(True)
+            zq = torch.zeros(B, h, P, 8, device="cuda")
+            ins = (mask_g, v.transpose(1, 2).detach().requires_grad_(True))
+            fn = lambda: F.scaled_dot_product_attention(zq, zq, ins[1], attn_mask=mask_g)
+        fwd = benchmark(fn)[1]
+        return fwd, benchmark(lambda: torch.autograd.grad(fn(), ins, do.transpose(1, 2)))[1] - fwd
+
+    def dot_fwd():
+        return (lambda: fm.flash_mask_fwd_plain(q, k, v, adj),
+                lambda: fm.flash_mask_fwd(q, k, v, adj),
+                padded_attention_bound(2, adj, h, f, 4, False, TF32X3_FLOPS)[:2],
+                library("dot")[0])
+
+    def dot_bwd():
+        out, lse = fm.flash_mask_fwd(q, k, v, adj, want_lse=True)
+        return (lambda: fm.flash_mask_bwd_plain(q, k, v, adj, None, lse, do,
+                                                fm.bwd_delta(do, out)),
+                lambda: fm.flash_mask_bwd(q, k, v, adj, None, out, lse, do),
+                padded_attention_bound(5, adj, h, f, 4, True, TF32X3_FLOPS)[:2],
+                library("dot")[1])
+
+    def add_fwd():
+        return (lambda: fm.flash_add_fwd_plain(e_row, e_col, v, adj),
+                lambda: fm.flash_add_fwd(e_row, e_col, v, adj),
+                attention_bound(1, adj, h, f, add_bytes(B, h, P, f, 4)[0], TF32X3_FLOPS)[:2],
+                library("add")[0])
+
+    def add_bwd():
+        aout, alse = fm.flash_add_fwd(e_row, e_col, v, adj, want_lse=True)
+        return (lambda: fm.flash_add_bwd_plain(e_row, e_col, v, adj, None, alse, do,
+                                               fm.bwd_delta(do, aout)),
+                lambda: fm.flash_add_bwd(e_row, e_col, v, adj, None, aout, alse, do),
+                attention_bound(2, adj, h, f, add_bytes(B, h, P, f, 4)[1], TF32X3_FLOPS)[:2],
+                library("add")[1])
+
+    cases = (("#1", dot_fwd), ("#3", dot_bwd), ("#2", add_fwd), ("#4", add_bwd))
     times = {}
-    for name, plain_fn, kernel_fn, (bound_ms, bound_by), lib_ms in cases:
+    for name, case in cases:
+        if name not in names:
+            continue
+        plain_fn, kernel_fn, (bound_ms, bound_by), lib_ms = case()
         ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
         times[name] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
         print(f"  {name} at {shape}, fp32 ({smi}): kernel {ms:.4f} ms, plain "
@@ -1063,8 +1093,9 @@ def wide_phase(smi):
     steps on ogbg-molhiv bs=1024 through #1 and #3, each against
     method="dense"; the fig-1 GAT Model at hidden 512 serves through #2 and
     takes a step through #2 and #4, against dense; #1 to #4 at f = 257, 384,
-    512, 1024 and P = 26, 128, 300, 2048 against their plain versions; #1 to
-    #4 timed at the table's shape at f = 512 beside their bounds and SDPA;
+    512, 1024 and P = 26, 128, 300, 2048, and at WIDE_PAST, against their
+    plain versions; #1 to #4 timed at the table's shape at f = 512 beside
+    their bounds and SDPA, #3 also at WIDE_STREAM;
     #1 to #6 at precision="default" against their TF32-rounded plain
     versions at the table's shape, timed against "highest", and "highest"
     bitwise equal to no precision."""
@@ -1084,14 +1115,20 @@ def wide_phase(smi):
                 print(attention_case(fm, 50 + n, B, h, P, f, dtype, with_val=f in (257, 512),
                                      rate=0.4 if P in (26, 300) else 0.0))
                 n += 1
+    P, f = WIDE_PAST  # past P = 2048: #3's wide passes walk their windows
+    print(attention_case(fm, 50 + n, 1, 1, P, f, torch.float32, with_val=True, rate=0.4))
+    n += 1
     print(f"#1 to #4 held against their plain versions at {n} points (f in {WIDE_F}, P in "
-          f"{WIDE_P}, fp32 and bf16): fp32 forwards {FP32_TOL}; fp32 gradients against the "
+          f"{WIDE_P}, fp32 and bf16; P={P} f={f} fp32): fp32 forwards {FP32_TOL}; fp32 "
+          f"gradients against the "
           f"plain versions in fp64 at {BWD_FP32_TOL}, or within {FP32_GRAD_SPREAD}x the fp32 "
           f"plain version's error (printed beside); bf16 {BF16_TOL} and a bf16 step of each "
           f"gradient")
 
-    # #1 to #4 at the table's shape at f = 512: times beside bounds and SDPA
+    # #1 to #4 at the table's shape at f = 512, and #3 past P = 128 (its
+    # wide row and column passes): times beside bounds and SDPA
     time_attention_kernels(smi, WIDE_TABLE, 60)
+    time_attention_kernels(smi, WIDE_STREAM, 61, names=("#3",))
 
     # #1 to #6 at precision="default" against their TF32-rounded plain
     # versions at the table's shape, timed against "highest"; "highest"
@@ -1193,7 +1230,8 @@ def layer_case(fm, seed, B, h, P, f, dtype, precision, rate):
 def wide_layer_phase(smi):
     """Phase 27: the whole-layer kernels past head dim 256.  #5 and #6 at f
     = 257, 384, 512, 1024 and P = 26, 128, 300, 2048 (fp32 at both
-    precisions and bf16) against their plain versions; the wide GT model
+    precisions and bf16), and at WIDE_PAST (fp32), against their plain
+    versions; the wide GT model
     (GTModel at hidden 512, one head) through impl="flash_fused": a
     PATTERN-like bs=1024 request through #5 and 3 Adam steps on
     ogbg-molhiv bs=1024 through #5 forward and #1 + #3 backward, against
@@ -1219,9 +1257,12 @@ def wide_layer_phase(smi):
                 print(layer_case(fm, 100 + n, *WIDE_BH[P], P, f, dtype, precision,
                                  0.4 if P in (26, 300) else 0.0))
                 n += 1
+    P, f = WIDE_PAST  # past P = 2048: #5's attention block walks its windows
+    print(layer_case(fm, 100 + n, 1, 1, P, f, torch.float32, "highest", 0.0))
+    n += 1
     print(f"#5 and #6 held against their plain versions at {n} points (f in {WIDE_F}, P in "
-          f"{WIDE_P}; fp32 'highest' {FP32_TOL}, fp32 'default' a TF32 step of the largest "
-          f"element of the TF32-rounded plain version, bf16 {BF16_TOL})")
+          f"{WIDE_P}; P={P} f={f} fp32; fp32 'highest' {FP32_TOL}, fp32 'default' a TF32 step "
+          f"of the largest element of the TF32-rounded plain version, bf16 {BF16_TOL})")
 
     # the wide GT and GAT models through the whole-layer kernels
     gat, sbatch, sx = wide_models(smi, "flash_fused")
@@ -1264,8 +1305,8 @@ def wide_layer_phase(smi):
               f"{flash16_ms:.4f} ms (ratio {fused16_ms / flash16_ms:.3f})")
     del gat, sbatch, sx, conv16, conv32, out16, want, h0
 
-    # #5 and #6 at the wide models' shape, and past P = 128 (the stream
-    # blocks, whose chunk blocks re-form the scores)
+    # #5 and #6 at the wide models' shape, and past P = 128 (#5: its
+    # projection launch and wide attention block; #6: its stream block)
     for shape, seed in ((WIDE_TABLE, 64), (WIDE_STREAM, 65)):
         time_layer_kernels(smi, shape, WIDE_HIDDEN, seed)
 
@@ -1324,7 +1365,7 @@ def time_layer_kernels(smi, shape, din, seed):
         ms, plain_ms = in_turns(benchmark, plain_fn, kernel_fn)
         comp_ms = [benchmark(fn)[1] for _, fn in comps]
         comp = ", ".join(f"{c} {t:.4f} ms" for (c, _), t in zip(comps, comp_ms))
-        flops, nbytes = layer_work(score, B, P, din, h, f, edges, 4)
+        flops, nbytes = layer_work(score, adj, din, h, f, 4)
         bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
         times[name] = (ms, plain_ms, bound_ms, bound_by, comp_ms[0])
         print(f"  {name} at {shape}, din {din}, fp32 ({smi}): against its plain "
@@ -2327,7 +2368,7 @@ def main() -> int:
             if dtype == torch.float32:
                 score = "dot" if name == "#5" else "add"
                 # both run their products as 3xTF32 on the tensor cores
-                flops, nbytes = layer_work(score, B, P, din, h, f, int(adj.sum()), 4)
+                flops, nbytes = layer_work(score, adj, din, h, f, 4)
                 bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
                 rec.update(bound_ms=bound_ms, bound_by=bound_by, ms=ms, plain_ms=plain_ms,
                            max_abs_err=e_dot if name == "#5" else e_add[0.0], library_ms=lib_ms)
@@ -2379,8 +2420,7 @@ def main() -> int:
 
         lib_ms = benchmark(composition)[1]
         item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
-        bound_ms, bound_by = bound(*layer_work("dot", B, P, din, 1, f, int(adj.sum()), item),
-                                   peak)
+        bound_ms, bound_by = bound(*layer_work("dot", adj, din, 1, f, item), peak)
         print(f"  #5 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, F.linear + SDPA "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} {bound_by}; peak {peak_name(peak)})")
 
@@ -2416,8 +2456,7 @@ def main() -> int:
                                 lambda: flash_mask.flash_layer_add_fwd(*args))
         lib_ms = benchmark(add_composition(*args))[1]
         item, peak = (4, TF32X3_FLOPS) if fp32 else (2, BF16_FLOPS)
-        bound_ms, bound_by = bound(*layer_work("add", B, P, din, 1, f, int(adj.sum()), item),
-                                   peak)
+        bound_ms, bound_by = bound(*layer_work("add", adj, din, 1, f, item), peak)
         print(f"  #6 {name} ({smi}): {ms:.4f} ms (plain {plain_ms:.4f}, F.linear + SDPA "
               f"{lib_ms:.4f}, bound {bound_ms:.4f} {bound_by}; peak {peak_name(peak)})")
         if not vs_flash:

@@ -17,13 +17,14 @@
 // 256 the head dim goes in chunks of FI columns (the last zero past f), the
 // dot score's q . k^T summed over every chunk, each staged (#5: projected)
 // through the same Q rows and K tile, so shared memory stays that of one
-// chunk.  #1, #2 (FI = 256), #5 past P = 128 (FI = 256) and #6 (FI = 128)
-// take the chunks as a grid axis, the block of chunk c writing out's columns
-// [FI c, FI c + FI) (chunk 0's blocks also lse): every chunk re-forms the
-// scores, and the dropout keep factor, a hash of global ids, is the same in
-// each.  #5 at P <= 128 loops over them in its whole block (FI = 128), its
-// scores formed once.  fp32 or bf16 v; fp32 softmax and sums; fp32 products
-// as 3xTF32, or one TF32 pass with `one` (precision "default").
+// chunk.  #1, #2 (FI = 256) and #6 (FI = 128) take the chunks as a grid
+// axis, the block of chunk c writing out's columns [FI c, FI c + FI) (chunk
+// 0's blocks also lse): every chunk re-forms the scores, and the dropout
+// keep factor, a hash of global ids, is the same in each.  #5 at P <= 128
+// loops over them in its whole block (FI = 128), its scores formed once;
+// past P = 128 it leaves this body (flash_layer_dot.cu's layer_dot_wide).
+// fp32 or bf16 v; fp32 softmax and sums; fp32 products as 3xTF32, or one
+// TF32 pass with `one` (precision "default").
 //
 // The score policies:
 // - DotScore (#1): s = q . k^T, q pre-scaled, q and k of v's type and shape.
@@ -90,9 +91,10 @@
 //     every output column.  Dot fp32 at FI = 128: 189 KB; at FI = 256: 211
 //     KB.  Add fp32 at FI = 128: 110 KB.
 // - Outputs leave through shared memory, 16 bytes a thread.
-// - Past f = 256 #5 and #6 run their wide policies, LayerScoreWide and
-//   LayerAddWide (layer_fwd says how, and flash_layer_dot.cu and
-//   flash_layer_add.cu why).
+// - Past f = 256 #5 and #6 run their wide policies, LayerScoreWide (at P <=
+//   128) and LayerAddWide (layer_fwd says how, and flash_layer_dot.cu and
+//   flash_layer_add.cu why); #5 past P = 128 projects into a scratch and
+//   attends in flash_layer_dot.cu's own blocks.
 // - Any P: the stream block takes its keys in windows of kWinKeys, scanning
 //   adj, flagging the live tiles and (#2, wide #6) staging e_col one window
 //   at a time, with the online softmax running on across windows, so its
@@ -146,7 +148,8 @@ struct LayerAddScore {
   float slope;                       // of the leaky ReLU
 };
 
-// #5 past f = 256: LayerScore with q, k and v projected chunk by chunk
+// #5 past f = 256 at P <= 128: LayerScore with q, k and v projected chunk by
+// chunk
 template <typename T>
 struct LayerScoreWide : LayerScore<T> {
   static constexpr bool kChunked = true;
@@ -170,8 +173,8 @@ template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
 struct FwdCfg {
   static constexpr bool kDot = Score::kDot, kProject = Score::kProject;
   // head dims past FI: a grid axis over chunks of FI columns (kGrid: #1 and
-  // #2 in the stream block, wide #5 in the stream block, wide #6), or a loop
-  // over them in the block (kLoop: wide #5's whole block)
+  // #2 in the stream block, wide #6), or a loop over them in the block
+  // (kLoop: wide #5's whole block)
   static constexpr bool kLoop = Score::kChunked && WHOLE && kDot;
   static constexpr bool kGrid = (!WHOLE && !kProject) || (Score::kChunked && !kLoop);
   // add: e_row and e_col read from fp32 [B, P, H] (#2, wide #6), not formed
@@ -826,9 +829,11 @@ cudaError_t launch_layer(const Score& sc, const uint8_t* adj, void* out, int B, 
 // LayerAddWide), which go in chunks of FI columns: at
 // P <= 128 in the whole block at FI = 128 (wide #5 loops over the chunks
 // with the scores formed once; wide #6 takes them as a grid axis, each chunk
-// re-forming its cheap scores from the scalars), past it in the stream block
-// with a grid axis over the chunks (#5: #1's FI = 256 block, re-forming q .
-// k^T from every chunk of each key tile; #6: FI = 128 on 8 warps).
+// re-forming its cheap scores from the scalars); past it wide #6 in the
+// stream block with a grid axis over the chunks (FI = 128 on 8 warps).
+// Wide #5 past P = 128 is not this body's: flash_layer_dot.cu's
+// layer_dot_wide projects once into a scratch and attends in blocks of its
+// own.
 template <typename Score, typename T>
 cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int P, int H, int f,
                       Dropout drop, bool one, cudaStream_t stream) {
@@ -839,8 +844,7 @@ cudaError_t layer_fwd(const Score& sc, const uint8_t* adj, void* out, int B, int
       return launch<Score, T, 128, 8, 128, true>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
                                                  H, f, drop, one, stream);
     if constexpr (Score::kDot)
-      return launch<Score, T, 256, 4, 32, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
-                                                 H, f, drop, one, stream);
+      return cudaErrorInvalidValue;
     else
       return launch<Score, T, 128, 8, 64, false>(sc, nullptr, adj, nullptr, out, nullptr, B, P,
                                                  H, f, drop, one, stream);

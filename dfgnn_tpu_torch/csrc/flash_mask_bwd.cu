@@ -11,6 +11,14 @@
 
 extern "C" {
 
+// flash_mask_bwd_wide.cu: the entry point's body past F = 256
+int dfgnn_flash_mask_bwd_wide(int dtype, const void* q, const void* k, const void* v,
+                              const void* adj, const void* val, const void* lse,
+                              const void* delta, const void* out, const void* dout, void* dq,
+                              void* dk, void* dv, int B, int P, int H, int F, int drop,
+                              uint32_t seed, uint32_t threshold, float scale, int one_pass,
+                              void* stream);
+
 // flash_mask_bwd_win.cu: the entry point's body past P = kWinKeys
 int dfgnn_flash_mask_bwd_win(int dtype, const void* q, const void* k, const void* v,
                              const void* adj, const void* val, const void* lse,
@@ -20,16 +28,25 @@ int dfgnn_flash_mask_bwd_win(int dtype, const void* q, const void* k, const void
 
 // dtype: 0 = fp32, 1 = bf16.  q, k, v, dout, dq, dk, dv: [B, P, H, F]
 // contiguous, F >= 1; adj: [B, P, P] uint8; val: [B, P, P] fp32 or null;
-// lse, delta: [H, B, P] fp32.  drop, seed, threshold, scale: the forward's
-// dropout.  one_pass: fp32 products as one TF32 pass (precision "default"),
-// else 3xTF32.  Launches one kernel (P <= 128, F <= 128) or two (three at
-// F > 128) on `stream`, allocates nothing, and returns the first CUDA error
-// (0 when all launched).
+// lse, delta: [H, B, P] fp32; out: the forward's [B, P, H, F] (with dropout
+// applied), contiguous.  At P <= 128 and F > 256 the kernel forms delta =
+// rowsum(dout * out) from out itself and delta may be null; everywhere else
+// it reads delta and out may be null.  A null one where it is read is
+// refused (cudaErrorInvalidValue), so a caller that pairs them otherwise
+// gets an error, not a launch.  drop, seed, threshold, scale: the
+// forward's dropout.  one_pass: fp32 products as one TF32 pass (precision
+// "default"), else 3xTF32.  Launches one kernel (P <= 128 with F <= 128 or
+// F > 256), two (the stream passes) or three (F = 129 to 256 past the
+// whole block) on `stream`, allocates nothing, and returns the first CUDA
+// error (0 when all launched).
 int dfgnn_flash_mask_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* adj, const void* val, const void* lse, const void* delta,
-                         const void* dout, void* dq, void* dk, void* dv, int B, int P, int H,
-                         int F, int drop, uint32_t seed, uint32_t threshold, float scale,
-                         int one_pass, void* stream) {
+                         const void* out, const void* dout, void* dq, void* dk, void* dv, int B,
+                         int P, int H, int F, int drop, uint32_t seed, uint32_t threshold,
+                         float scale, int one_pass, void* stream) {
+  if (F > 256)
+    return dfgnn_flash_mask_bwd_wide(dtype, q, k, v, adj, val, lse, delta, out, dout, dq, dk, dv,
+                                     B, P, H, F, drop, seed, threshold, scale, one_pass, stream);
   if (P > kWinKeys)
     return dfgnn_flash_mask_bwd_win(dtype, q, k, v, adj, val, lse, delta, dout, dq, dk, dv, B,
                                     P, H, F, drop, seed, threshold, scale, one_pass, stream);

@@ -2,7 +2,7 @@
 // on the tensor cores: kernel #3's passes and launch code, built by
 // flash_mask_bwd.cu (P <= kWinKeys, and the C entry point) and
 // flash_mask_bwd_win.cu (past it), two translation units that compile in
-// parallel.
+// parallel; the wide blocks past f = 256 live in flash_mask_bwd_wide.cu.
 //
 // Replaces dfgnn_tpu/ops/pallas/flash_mask.py::_bwd_kernel_dot (:256), driven
 // there by _bwd (:317).  For every graph b and head h of a DenseBatch, from
@@ -26,7 +26,8 @@
 // dO, adj, lse read and dq, dk, dv written take 0.165 ms at 3.35 TB/s; the
 // dense blocks' 5 products of 4.3 GFLOP take 0.13 ms as 3xTF32 on the tensor
 // cores: device memory bounds it, once the products run on the tensor cores
-// and padding is skipped.
+// and padding is skipped.  At f = 512 (B=1024, P=128) the bytes take 0.53
+// ms and the five products, 85.9 GFLOP on dense blocks, 0.52 ms.
 //
 // Design (tile helpers and the reason for mma.sync in flash_mma.cuh):
 // - whole (P <= 128, FI <= 128: the main path), flash_mask_bwd_whole: one
@@ -42,22 +43,57 @@
 //   ds and pn 16.9 KB, the dq tile 8.4 KB and adj's edge bits 2 KB (196 KB,
 //   one block an SM).  Outputs leave through shared memory, 16 bytes a
 //   thread (store_tile).
-// - stream (P > 128, or FI = 256): two launches, deterministic,
-//   without atomics.  flash_mask_bwd_rows: a block per 64 query rows walks
-//   key tiles (64 keys; 32 at FI = 256) and accumulates dq = ds . K.
-//   flash_mask_bwd_cols: a block per 64 keys walks query tiles of 32 rows,
-//   forms s^T and dp^T directly (K . Q^T, V . dO^T) and accumulates dk and dv.
-//   Both rebuild s and dp: 7 products.  At FI = 256 the column pass runs
-//   twice, once for dk and once for dv, so each keeps one [16, 256]
-//   accumulator a warp in registers.
-// - wide heads (f > 256, the stream passes at FI = 256): a grid axis over
-//   chunks of 256 columns, the block of chunk c writing columns [256 c,
-//   256 c + 256) of dq (row pass) or of dk or dv (column passes).  Per tile
-//   it sums s and dp over every chunk, each staged through the FI = 256
-//   buffers (Q, dO and the K, V tile; K, V and the Q, dO tile), its own
-//   chunk last, so that the operands of its outputs' products are in place
-//   after the sum: shared memory stays that of FI = 256, and every chunk
-//   re-forms the scores.  No sums across blocks, so no atomics.
+// - stream (P > 128, 129 <= f <= 256 at FI = 256, or FI <= 128): two
+//   launches, deterministic, without atomics.  flash_mask_bwd_rows: a block
+//   per 64 query rows walks key tiles (64 keys; 32 at FI = 256) and
+//   accumulates dq = ds . K.  flash_mask_bwd_cols: a block per 64 keys walks
+//   query tiles of 32 rows, forms s^T and dp^T directly (K . Q^T, V . dO^T)
+//   and accumulates dk and dv.  Both rebuild s and dp: 7 products.  At FI =
+//   256 the column pass runs twice, once for dk and once for dv, so each
+//   keeps one [16, 256] accumulator a warp in registers.
+// - wide heads (f > 256, flash_mask_bwd_wide.cu), every sum in a fixed
+//   order, no atomics:
+//   * P <= 128, flash_mask_bwd_whole_wide: one block of 16 warps per
+//     (graph, head).  It first forms delta = rowsum(dO * out) of its rows
+//     from the forward's out (the wrapper skips bwd_delta there), 4 threads
+//     a row.  Step 1 forms s and dp of all 128 rows by 128 keys, summing over
+//     chunks of 64 bytes of Q, dO, K and V staged in turn through a
+//     two-stage cp.async ring (warp: one 16-row tile by 64 keys, both
+//     products), and leaves ds and pn of all 128 x 128 entries in shared
+//     memory (rounded to the input type; rows padded by 8 elements, so the
+//     transposed reads of dk and dv meet no bank conflict).  Step 2 runs
+//     jobs through a two-stage ring, each operand chunk staged once: dv =
+//     pn^T . dO_c for chunks of 64 columns (warp: a key group by 32
+//     columns), then, staged over pn once it is read, dq = ds . K_c and dk =
+//     ds^T . Q_c for chunks of 128 columns (warp: two row tiles or key groups
+//     by 32 columns, each B fragment split once for both); each warp stores
+//     its outputs straight from registers.  Each of the five products is
+//     formed once.  Shared memory: ds and pn 136 KB fp32 (68 KB bf16), the
+//     staging area 80 KB, delta and the edge bits 2.5 KB: 219 KB fp32, 151
+//     KB bf16.
+//   * P > 128: a row pass and a column pass of 8 warps (16 left each thread
+//     128 registers and spilled more), each over groups of up to 512 output
+//     columns (a grid axis past 512 columns, each group's blocks forming s
+//     and dp again: once per 512 columns).
+//     flash_mask_bwd_rows_wide (dq): 64 query rows a block; per live key
+//     tile of 64 it sums s and dp over 128-byte chunks of Q, dO, K and V (a
+//     two-stage ring; warp: 16 rows x 32 keys), while the tile's K rows of
+//     the block's columns arrive a 16-key group a chunk; ds goes to shared
+//     memory and each warp adds ds . K into its accumulators (the warp
+//     pair's 32 rows by a quarter of the columns: 128 registers a thread at
+//     512 columns).  fp32 220 KB, bf16 147 KB.
+//     flash_mask_bwd_cols_wide (dk and dv together): 32 keys a block; per
+//     live query tile of 32 rows it sums s^T and dp^T over 256-byte chunks
+//     (warp: 16 keys x 8 rows, both products), while the tile's Q and dO
+//     rows of the block's columns arrive; ds^T and pn^T go to shared memory
+//     and each warp adds ds^T . Q and pn^T . dO into its dk and dv
+//     accumulators (all 32 keys by an eighth of the columns: 128 registers a
+//     thread at 512 columns).  fp32 208 KB, bf16 139 KB.  The chunks are as
+//     large as shared memory allows: each chunk costs the block two barrier
+//     rounds for little work, and 64-byte chunks ran slower.  s and dp are
+//     formed twice in all (7 products where 5 would do), against twice per
+//     256-column chunk before; at P > kWinKeys both walk their windows as
+//     the passes above.
 // - Padding skipped, exactly, from adj itself (scan_adj): a 16-row query
 //   tile with no edge writes dq = 0 and is never loaded; a 16-key group with
 //   no edge in a tile is skipped by the warp that owns it, and keys with no
@@ -356,12 +392,6 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const long row_off = (long(hh) * B + b) * P;
   const int n_tiles = (P + KT - 1) / KT;
-  // wide heads: blockIdx.y is the block's chunk of FI columns of dq, fw its
-  // width
-  constexpr bool kWide = FI == 256;
-  const int nc = kWide ? (f + FI - 1) / FI : 1;
-  const int col0 = int(blockIdx.y) * FI, fw = min(FI, f - col0);
-  const long obase = base + col0;
 
   // The keys go in windows of kMaxTiles tiles, as in the forward
   // (flash_fwd.cuh): per window the block scans its rows over the window's
@@ -375,23 +405,23 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     while (j < j0 + nt && tmask[j - j0] == 0u) ++j;
     return j;
   };
-  // K and V of key tile j, columns [cb - base, + fc), into stage st
-  auto stage_kv = [&](int j, int st, long cb, int fc) {
-    stage_rows<T, FI>(k, cb, row_stride, j * KT, KT, P, fc, vec, tmask[j - j0],
+  // K and V of key tile j into stage st
+  auto stage_kv = [&](int j, int st) {
+    stage_rows<T, FI>(k, base, row_stride, j * KT, KT, P, f, vec, tmask[j - j0],
                       ks + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
-    stage_rows<T, FI>(v, cb, row_stride, j * KT, KT, P, fc, vec, tmask[j - j0],
+    stage_rows<T, FI>(v, base, row_stride, j * KT, KT, P, f, vec, tmask[j - j0],
                       vs + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
   };
-  // the Q and dO rows of the warps in `live`, the same columns
-  auto stage_q = [&](long cb, int fc, uint32_t live) {
-    stage_rows<T, FI>(q, cb, row_stride, r0, C::kRows, P, fc, vec, live, qs, C::ld, tid,
+  // the Q and dO rows of the warps in `live`
+  auto stage_q = [&](uint32_t live) {
+    stage_rows<T, FI>(q, base, row_stride, r0, C::kRows, P, f, vec, live, qs, C::ld, tid,
                       C::kThreads);
-    stage_rows<T, FI>(dout, cb, row_stride, r0, C::kRows, P, fc, vec, live, dos, C::ld, tid,
+    stage_rows<T, FI>(dout, base, row_stride, r0, C::kRows, P, f, vec, live, dos, C::ld, tid,
                       C::kThreads);
   };
 
   const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
   const int row_w = r0 + warp * 16;
   float lr[2], dl[2];
 #pragma unroll
@@ -432,9 +462,9 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     if (!__syncthreads_or(any)) {
       if (WIN) continue;  // dq = 0 leaves with the rest
-      for (int i = tid; i < C::kRows * fw; i += C::kThreads) {
-        const int r = r0 + i / fw;
-        if (r < P) dq[obase + long(r) * row_stride + i % fw] = from_f32<T>(0.f);
+      for (int i = tid; i < C::kRows * f; i += C::kThreads) {
+        const int r = r0 + i / f;
+        if (r < P) dq[base + long(r) * row_stride + i % f] = from_f32<T>(0.f);
       }
       return;
     }
@@ -444,9 +474,9 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const uint32_t qnew = qlive & ~qdone;
     qdone |= qnew;
 
-    if (nc == 1) stage_q(base, f, qnew);
+    stage_q(qnew);
     int j = next_live(j0);
-    if (C::kStages == 2) stage_kv(j, st, base, f);
+    if (C::kStages == 2) stage_kv(j, st);
     cp_async_commit();
 
     while (j < j0 + nt) {
@@ -460,40 +490,21 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float s[NTS][4], dp[NTS][4];
       zero_acc(s);
       zero_acc(dp);
-      if (nc > 1) {
-        // wide: s and dp summed over the chunks of FI columns, the block's own
-        // chunk last, so that K of its dq columns is in place for ds . K
-        for (int n = 1; n <= nc; ++n) {
-          const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
-          stage_q(base + long(cc) * FI, fc, qlive);
-          stage_kv(j, 0, base + long(cc) * FI, fc);
-          cp_async_commit();
-          cp_async_wait<0>();
-          __syncthreads();
-          if (gm != 0u)
-            for (int k0 = 0; k0 < fc; k0 += KS) {
-              mma_step<NTS, false, true, ONE>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
-              mma_step<NTS, false, true, ONE>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
-            }
-          if (n < nc) __syncthreads();  // the buffers are free for the next chunk
-        }
+      if (C::kStages == 2) {
+        if (jn < j0 + nt) stage_kv(jn, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
       } else {
-        if (C::kStages == 2) {
-          if (jn < j0 + nt) stage_kv(jn, st ^ 1, base, f);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          stage_kv(j, 0, base, f);
-          cp_async_commit();
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (gm != 0u)
-          for (int k0 = 0; k0 < kf; k0 += KS) {
-            mma_step<NTS, false, true, ONE>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
-            mma_step<NTS, false, true, ONE>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
-          }
+        stage_kv(j, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
       }
+      __syncthreads();
+      if (gm != 0u)
+        for (int k0 = 0; k0 < kf; k0 += KS) {
+          mma_step<NTS, false, true, ONE>(s, qw, C::ld, kt, C::ld, k0, 0, nm);
+          mma_step<NTS, false, true, ONE>(dp, dw, C::ld, vt, C::ld, k0, 0, nm);
+        }
       if (gm != 0u) {
         T* dsw = dss + size_t(warp) * 16 * C::ldd;
 #pragma unroll
@@ -537,7 +548,7 @@ flash_mask_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   }
   __syncwarp();
-  store_tile<T>(qw, C::ld, dq, obase, row_stride, row_w, 16, P, fw, vec, lane, 32);
+  store_tile<T>(qw, C::ld, dq, base, row_stride, row_w, 16, P, f, vec, lane, 32);
 }
 
 // ---------------------------------------------------------------------------
@@ -591,12 +602,6 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* val_b = val ? val + long(b) * P * P : nullptr;
   const long row_off = (long(hh) * B + b) * P;
   const int n_rg = (P + kGroup - 1) / kGroup;
-  // wide heads: blockIdx.y is the block's chunk of FI columns of dk or dv,
-  // fw its width
-  constexpr bool kWide = FI == 256;
-  const int nc = kWide ? (f + FI - 1) / FI : 1;
-  const int col0 = int(blockIdx.y) * FI, fw = min(FI, f - col0);
-  const long obase = base + col0;
 
   // The query rows go in windows of kMaxGroups 16-row groups (kWinKeys
   // rows, a whole number of query tiles): per window the block scans the
@@ -614,26 +619,25 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
     while (i < (g0 + ng + 1) / 2 && tile_flags(i) == 0u) ++i;
     return i;
   };
-  // Q and dO of query tile i, columns [cb - base, + fc), into stage st
-  auto stage_tile = [&](int i, int st, long cb, int fc) {
+  // Q and dO of query tile i into stage st
+  auto stage_tile = [&](int i, int st) {
     const uint32_t rows_live = (group(2 * i) ? 1u : 0u) | (group(2 * i + 1) ? 2u : 0u);
-    stage_rows<T, FI>(q, cb, row_stride, i * C::kQT, C::kQT, P, fc, vec, rows_live,
+    stage_rows<T, FI>(q, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
                       qr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
-    stage_rows<T, FI>(dout, cb, row_stride, i * C::kQT, C::kQT, P, fc, vec, rows_live,
+    stage_rows<T, FI>(dout, base, row_stride, i * C::kQT, C::kQT, P, f, vec, rows_live,
                       dr + size_t(st) * C::tile_elems, C::ld, tid, C::kThreads);
   };
-  // the block's K (and, for dk, V) rows of the key groups in `live`, the
-  // same columns
-  auto stage_keys = [&](long cb, int fc, uint32_t live) {
-    stage_rows<T, FI>(k, cb, row_stride, c0, C::kKeys, P, fc, vec, live, ks, C::ld, tid,
+  // the block's K (and, for dk, V) rows of the key groups in `live`
+  auto stage_keys = [&](uint32_t live) {
+    stage_rows<T, FI>(k, base, row_stride, c0, C::kKeys, P, f, vec, live, ks, C::ld, tid,
                       C::kThreads);
     if (DK)
-      stage_rows<T, FI>(v, cb, row_stride, c0, C::kKeys, P, fc, vec, live, vs, C::ld, tid,
+      stage_rows<T, FI>(v, base, row_stride, c0, C::kKeys, P, f, vec, live, vs, C::ld, tid,
                         C::kThreads);
   };
 
   const int kf = (f + KS - 1) / KS * KS;
-  const uint32_t fmask = ((fw + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((fw + 7) / 8)) - 1u);
+  const uint32_t fmask = ((f + 7) / 8 >= 32 ? 0xffffffffu : (1u << ((f + 7) / 8)) - 1u);
   const int key_w = warp * kGroup;  // the warp's first key, within the block
   float dka[NA][4], dva[NB][4];
   zero_acc(dka);
@@ -662,10 +666,10 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
     colmask = warp_cols[0] | warp_cols[1] | warp_cols[2] | warp_cols[3];
     if (colmask == 0u) {
       if (WIN) continue;  // dk = dv = 0 leave with the rest
-      for (int i = tid; i < C::kKeys * fw; i += C::kThreads) {
-        const int key = c0 + i / fw;
+      for (int i = tid; i < C::kKeys * f; i += C::kThreads) {
+        const int key = c0 + i / f;
         if (key >= P) continue;
-        const long e = obase + long(key) * row_stride + i % fw;
+        const long e = base + long(key) * row_stride + i % f;
         if (DK) dk[e] = from_f32<T>(0.f);
         if (DV) dv[e] = from_f32<T>(0.f);
       }
@@ -674,9 +678,9 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const uint32_t knew = colmask & ~kdone;  // live key groups whose rows are not yet in place
     kdone |= knew;
 
-    if (nc == 1) stage_keys(base, f, knew);
+    stage_keys(knew);
     int i = next_live(g0 / 2);
-    if (C::kStages == 2) stage_tile(i, st, base, f);
+    if (C::kStages == 2) stage_tile(i, st);
     cp_async_commit();
 
     while (i < (g0 + ng + 1) / 2) {
@@ -692,41 +696,24 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float s[NTQ][4], dp[NTQ][4];
       zero_acc(s);
       zero_acc(dp);
-      auto scores = [&](int depth) {
-        for (int k0 = 0; k0 < depth; k0 += KS) {
+      if (C::kStages == 2) {
+        if (in < (g0 + ng + 1) / 2) stage_tile(in, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        stage_tile(i, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (rmask != 0u)
+        for (int k0 = 0; k0 < kf; k0 += KS) {
           mma_step<NTQ, false, true, ONE>(s, ks + size_t(key_w) * C::ld, C::ld, qt, C::ld, k0, 0,
                                           nm);
           if (DK)
             mma_step<NTQ, false, true, ONE>(dp, vs + size_t(key_w) * C::ld, C::ld, dt, C::ld, k0,
                                             0, nm);
         }
-      };
-      if (nc > 1) {
-        // wide: s and dp summed over the chunks of FI columns, the block's own
-        // chunk last, so that Q and dO of its dk or dv columns are in place
-        for (int n = 1; n <= nc; ++n) {
-          const int cc = (int(blockIdx.y) + n) % nc, fc = min(FI, f - cc * FI);
-          stage_keys(base + long(cc) * FI, fc, colmask);
-          stage_tile(i, 0, base + long(cc) * FI, fc);
-          cp_async_commit();
-          cp_async_wait<0>();
-          __syncthreads();
-          if (rmask != 0u) scores(fc);
-          if (n < nc) __syncthreads();  // the buffers are free for the next chunk
-        }
-      } else {
-        if (C::kStages == 2) {
-          if (in < (g0 + ng + 1) / 2) stage_tile(in, st ^ 1, base, f);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          stage_tile(i, 0, base, f);
-          cp_async_commit();
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (rmask != 0u) scores(kf);
-      }
       if (rmask != 0u) {
         T* dsw = dss + size_t(warp) * 16 * C::ldd;
         T* pnw = pns + size_t(warp) * 16 * C::ldd;
@@ -780,9 +767,9 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   __syncthreads();
   if (DK)
-    store_tile<T>(ks, C::ld, dk, obase, row_stride, c0, C::kKeys, P, fw, vec, tid, C::kThreads);
+    store_tile<T>(ks, C::ld, dk, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
   if (DV)
-    store_tile<T>(vs, C::ld, dv, obase, row_stride, c0, C::kKeys, P, fw, vec, tid, C::kThreads);
+    store_tile<T>(vs, C::ld, dv, base, row_stride, c0, C::kKeys, P, f, vec, tid, C::kThreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -790,7 +777,7 @@ flash_mask_bwd_cols(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // ---------------------------------------------------------------------------
 
 struct Args {
-  const void *q, *k, *v, *dout;
+  const void *q, *k, *v, *dout, *out;  // out: the wide whole block's, for delta
   const uint8_t* adj;
   const float *val, *lse, *delta;
   void *dq, *dk, *dv;
@@ -835,20 +822,18 @@ cudaError_t launch_fi(const Args& a) {
   using CC = ColsCfg<T, FI>;
   const long blocks_r = long(a.B) * a.H * ((a.P + R::kRows - 1) / R::kRows);
   const long blocks_c = long(a.B) * a.H * ((a.P + CC::kKeys - 1) / CC::kKeys);
-  const int nc = (a.f + FI - 1) / FI;  // chunks of FI columns: 1 but for wide heads
-  if (blocks_r > 0x7fffffffL || blocks_c > 0x7fffffffL || nc > 65535)
-    return cudaErrorInvalidValue;
+  if (blocks_r > 0x7fffffffL || blocks_c > 0x7fffffffL || a.f > FI) return cudaErrorInvalidValue;
   auto rows = flash_mask_bwd_rows<T, FI, KT, ONE, WIN>;
   cudaError_t err = prepare(rows, R::bytes);
   if (err != cudaSuccess) return err;
-  rows<<<dim3(unsigned(blocks_r), unsigned(nc)), R::kThreads, R::bytes, a.stream>>>(
+  rows<<<unsigned(blocks_r), R::kThreads, R::bytes, a.stream>>>(
       q, k, v, a.adj, a.val, a.lse, a.delta, dout, dq, a.B, a.P, a.H, a.f, vec, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto run_cols = [&](auto kernel) {
     cudaError_t e = prepare(kernel, CC::bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<dim3(unsigned(blocks_c), unsigned(nc)), CC::kThreads, CC::bytes, a.stream>>>(
+    kernel<<<unsigned(blocks_c), CC::kThreads, CC::bytes, a.stream>>>(
         q, k, v, a.adj, a.val, a.lse, a.delta, dout, dk, dv, a.B, a.P, a.H, a.f, vec, a.drop);
     return cudaGetLastError();
   };
@@ -875,7 +860,7 @@ cudaError_t dispatch_f(const Args& a) {
   if (a.f <= 32) return launch_prec<T, 32, WIN>(a);
   if (a.f <= 64) return launch_prec<T, 64, WIN>(a);
   if (a.f <= 128) return launch_prec<T, 128, WIN>(a);
-  return launch_prec<T, 256, WIN>(a);
+  return launch_prec<T, 256, WIN>(a);  // f <= 256; past it flash_mask_bwd_wide.cu
 }
 
 // The C entry points' body (flash_mask_bwd.cu's dfgnn_flash_mask_bwd, its
@@ -886,11 +871,12 @@ int bwd_entry(int dtype, const void* q, const void* k, const void* v, const void
               const void* val, const void* lse, const void* delta, const void* dout, void* dq,
               void* dk, void* dv, int B, int P, int H, int F, int drop, uint32_t seed,
               uint32_t threshold, float scale, int one_pass, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || F < 1 || (!WIN && P > kWinKeys))
+  if (B < 1 || H < 1 || P < 1 || F < 1 || F > 256 || (!WIN && P > kWinKeys) || delta == nullptr)
     return int(cudaErrorInvalidValue);
-  const Args a{q, k, v, dout, static_cast<const uint8_t*>(adj), static_cast<const float*>(val),
-               static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
-               B, P, H, F, Dropout{drop != 0, seed, threshold, scale}, one_pass != 0,
+  const Args a{q, k, v, dout, nullptr, static_cast<const uint8_t*>(adj),
+               static_cast<const float*>(val), static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, dk, dv, B, P, H, F,
+               Dropout{drop != 0, seed, threshold, scale}, one_pass != 0,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return int(dispatch_f<float, WIN>(a));
   if (dtype == 1) return int(dispatch_f<__nv_bfloat16, WIN>(a));

@@ -201,12 +201,12 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const __nv_bfloat1
 }
 
 // acc[mt][j] += A_mt(rows 0..15, k0..k0+kstep) . B(k0.., n0 + 8j ..) for the
-// two m-tiles mt whose bit in `mts` is set (A_mt at A + 16 mt rows, stored
-// A[m][k]) and j < NT with bit j of `nmask` set; B stored B[k][n].  Each B
-// fragment is loaded (and, fp32, split) once for both m-tiles; the products
-// are mma_step's.
+// two m-tiles mt whose bit in `mts` is set (A_mt: rows 16 mt.. of A, stored
+// A[m][k], or A[k][m] with A_T) and j < NT with bit j of `nmask` set; B
+// stored B[k][n].  Each B fragment is loaded (and, fp32, split) once for
+// both m-tiles; the products are mma_step's.
 // mma_step2's one TF32 pass.
-template <int NT>
+template <int NT, bool A_T>
 __device__ __forceinline__ void mma_step2_one(float (&acc)[2][NT][4], const float* A, int lda,
                                               const float* Bm, int ldb, int k0, int n0,
                                               uint32_t nmask, uint32_t mts) {
@@ -215,11 +215,11 @@ __device__ __forceinline__ void mma_step2_one(float (&acc)[2][NT][4], const floa
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     if (!((mts >> mt) & 1u)) continue;
-    const float* Am = A + mt * 16 * lda;
-    a[mt][0] = tf32_of(Am[g * lda + k0 + t]);
-    a[mt][1] = tf32_of(Am[(g + 8) * lda + k0 + t]);
-    a[mt][2] = tf32_of(Am[g * lda + k0 + t + 4]);
-    a[mt][3] = tf32_of(Am[(g + 8) * lda + k0 + t + 4]);
+    const float* Am = A_T ? A + mt * 16 : A + mt * 16 * lda;
+    a[mt][0] = tf32_of(at<A_T>(Am, lda, g, k0 + t));
+    a[mt][1] = tf32_of(at<A_T>(Am, lda, g + 8, k0 + t));
+    a[mt][2] = tf32_of(at<A_T>(Am, lda, g, k0 + t + 4));
+    a[mt][3] = tf32_of(at<A_T>(Am, lda, g + 8, k0 + t + 4));
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -233,12 +233,12 @@ __device__ __forceinline__ void mma_step2_one(float (&acc)[2][NT][4], const floa
   }
 }
 
-template <int NT, bool ONE>
+template <int NT, bool ONE, bool A_T = false>
 __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A, int lda,
                                           const float* Bm, int ldb, int k0, int n0,
                                           uint32_t nmask, uint32_t mts) {
   if constexpr (ONE) {
-    mma_step2_one<NT>(acc, A, lda, Bm, ldb, k0, n0, nmask, mts);
+    mma_step2_one<NT, A_T>(acc, A, lda, Bm, ldb, k0, n0, nmask, mts);
     return;
   }
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -246,11 +246,11 @@ __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     if (!((mts >> mt) & 1u)) continue;
-    const float* Am = A + mt * 16 * lda;
-    split_tf32(Am[g * lda + k0 + t], ah[mt][0], al[mt][0]);
-    split_tf32(Am[(g + 8) * lda + k0 + t], ah[mt][1], al[mt][1]);
-    split_tf32(Am[g * lda + k0 + t + 4], ah[mt][2], al[mt][2]);
-    split_tf32(Am[(g + 8) * lda + k0 + t + 4], ah[mt][3], al[mt][3]);
+    const float* Am = A_T ? A + mt * 16 : A + mt * 16 * lda;
+    split_tf32(at<A_T>(Am, lda, g, k0 + t), ah[mt][0], al[mt][0]);
+    split_tf32(at<A_T>(Am, lda, g + 8, k0 + t), ah[mt][1], al[mt][1]);
+    split_tf32(at<A_T>(Am, lda, g, k0 + t + 4), ah[mt][2], al[mt][2]);
+    split_tf32(at<A_T>(Am, lda, g + 8, k0 + t + 4), ah[mt][3], al[mt][3]);
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -272,7 +272,7 @@ __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const float* A
   }
 }
 
-template <int NT, bool ONE>
+template <int NT, bool ONE, bool A_T = false>
 __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const __nv_bfloat16* A,
                                           int lda, const __nv_bfloat16* Bm, int ldb, int k0,
                                           int n0, uint32_t nmask, uint32_t mts) {
@@ -281,11 +281,11 @@ __device__ __forceinline__ void mma_step2(float (&acc)[2][NT][4], const __nv_bfl
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     if (!((mts >> mt) & 1u)) continue;
-    const __nv_bfloat16* Am = A + mt * 16 * lda;
-    a[mt][0] = pair<false>(Am, lda, g, k0 + 2 * t);
-    a[mt][1] = pair<false>(Am, lda, g + 8, k0 + 2 * t);
-    a[mt][2] = pair<false>(Am, lda, g, k0 + 2 * t + 8);
-    a[mt][3] = pair<false>(Am, lda, g + 8, k0 + 2 * t + 8);
+    const __nv_bfloat16* Am = A_T ? A + mt * 16 : A + mt * 16 * lda;
+    a[mt][0] = pair<A_T>(Am, lda, g, k0 + 2 * t);
+    a[mt][1] = pair<A_T>(Am, lda, g + 8, k0 + 2 * t);
+    a[mt][2] = pair<A_T>(Am, lda, g, k0 + 2 * t + 8);
+    a[mt][3] = pair<A_T>(Am, lda, g + 8, k0 + 2 * t + 8);
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {

@@ -45,11 +45,12 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
-# What the kernels take: any head dim f >= 1 (the tiles are zero past f; #1
-# to #4 past 256 in chunks of 256 columns, #5 and #6 past 256 in chunks of
-# 128 or 256) and any node count P >= 1 (past 2048 their blocks walk adj in
-# windows of 2048 keys or rows, so their shared memory stays that of
-# P = 2048); their in-graph offsets are 64-bit, so no P is refused.
+# What the kernels take: any head dim f >= 1 (the tiles are zero past f; #1,
+# #2 and #4 past 256 in chunks of 256 columns, #3 in wide blocks that form
+# the scores once per 512 columns, #5 and #6 past 256 in chunks of 128) and
+# any node count P >= 1 (past 2048 their blocks walk adj in windows of 2048
+# keys or rows, so their shared memory stays that of P = 2048); their
+# in-graph offsets are 64-bit, so no P is refused.
 PRECISIONS = ("highest", "default")
 # #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
 # d e_row into scratch, summed by a second launch (csrc/flash_add_bwd.cu)
@@ -90,14 +91,15 @@ def _library() -> ctypes.CDLL:
     # every entry ends with one_pass (precision "default" on fp32) and the stream
     lib.dfgnn_flash_mask_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *dot_drop, i, vp]
     lib.dfgnn_flash_mask_fwd.restype = i
-    lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 11, i, i, i, i, *dot_drop, i, vp]
+    lib.dfgnn_flash_mask_bwd.argtypes = [i, *[vp] * 12, i, i, i, i, *dot_drop, i, vp]
     lib.dfgnn_flash_mask_bwd.restype = i
     drop = [f, *dot_drop]  # slope, drop, seed, threshold, scale
     lib.dfgnn_flash_add_fwd.argtypes = [i, *[vp] * 7, i, i, i, i, *drop, i, vp]
     lib.dfgnn_flash_add_fwd.restype = i
     lib.dfgnn_flash_add_bwd.argtypes = [i, *[vp] * 12, i, i, i, i, *drop, i, vp]
     lib.dfgnn_flash_add_bwd.restype = i
-    lib.dfgnn_flash_layer_dot_fwd.argtypes = [i, *[vp] * 9, i, i, i, i, i, f, i, vp]
+    lib.dfgnn_flash_layer_dot_fwd.argtypes = [i, *[vp] * 10, ctypes.c_longlong, i, i, i, i, i,
+                                              f, i, vp]
     lib.dfgnn_flash_layer_dot_fwd.restype = i
     lib.dfgnn_flash_layer_add_fwd.argtypes = [i, *[vp] * 8, i, i, i, i, i, *drop, i, vp]
     lib.dfgnn_flash_layer_add_fwd.restype = i
@@ -395,18 +397,35 @@ def flash_mask_fwd(q, k, v, adj, val=None, *, seed: int = 0, rate: float = 0.0,
     return out, lse
 
 
+def bwd_forms_delta(P: int, f: int) -> bool:
+    """Whether kernel #3 forms ``delta`` itself, from the forward's ``out``:
+    its whole-graph wide block (P <= 128, f > 256) reads dO and out once per
+    row in place of the wrapper's product and sum (:func:`bwd_delta`); every
+    other block takes delta from the wrapper.  The C entry point keeps the
+    same rule and refuses a null delta or out where it reads one, so a
+    disagreement raises."""
+    return f > 256 and P <= 128
+
+
 def flash_mask_bwd(q, k, v, adj, val, out, lse, do, *, seed: int = 0, rate: float = 0.0,
                    precision: Optional[str] = None):
     """Masked attention backward: ``(dq, dk, dv)`` ``[B, P, h, f]``.
 
     ``out`` and ``lse`` are the forward's (``out`` with dropout applied, for
     ``delta``); ``do`` is the output's gradient; ``seed`` and ``rate`` the
-    forward's dropout and ``precision`` its precision.  Computes ``delta``
-    (:func:`bwd_delta`), then on CPU tensors runs :func:`flash_mask_bwd_plain`
-    and on CUDA tensors launches the kernel (one C call) on the current
-    stream.  The kernel takes what the forward kernel takes, with ``out`` and
-    ``do`` of q's dtype and shape, ``do`` contiguous, and ``lse`` fp32
-    ``[h, B, P]``; anything else raises.
+    forward's dropout and ``precision`` its precision.  On CPU tensors
+    computes ``delta`` (:func:`bwd_delta`) and runs
+    :func:`flash_mask_bwd_plain`; on CUDA tensors computes it too, unless the
+    kernel forms it (:func:`bwd_forms_delta`), and launches the kernel (one C
+    call) on the current stream.  The kernel takes what the forward kernel
+    takes, with ``out`` and ``do`` of q's dtype and shape, ``do``
+    contiguous, and ``lse`` fp32 ``[h, B, P]``; anything else raises.  Past
+    f = 256 the C call runs the wide blocks: at P <= 128 one block per
+    (graph, head) forms delta (from ``out``, :func:`bwd_forms_delta`), then
+    s, p, dp and ds once over column chunks, keeps ds and pn in shared
+    memory and forms dq, dk and dv chunk by chunk (five products, each
+    once); past it a row pass (dq) and a column pass (dk and dv together),
+    each forming s and dp once per tile and 512 columns of its outputs.
     """
     if q.device.type == "cpu":
         return flash_mask_bwd_plain(q, k, v, adj, val, lse, do, bwd_delta(do, out), seed=seed,
@@ -418,21 +437,26 @@ def flash_mask_bwd(q, k, v, adj, val, out, lse, do, *, seed: int = 0, rate: floa
     for name, t in (("out", out), ("do", do)):
         if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{name} must match q in dtype, shape and device")
-    if not do.is_contiguous():  # out is read only by bwd_delta, through its strides
+    if not do.is_contiguous():
         raise ValueError("do must be contiguous")
     B, P, h, f = q.shape
     if lse.dtype != torch.float32 or lse.shape != (h, B, P) or lse.device != q.device:
         raise ValueError("lse must be fp32 [h, B, P] on q's device")
     lse = lse.contiguous()  # a row per (head, graph, node): a cheap copy when strided
-    delta = bwd_delta(do, out)
+    # out is read by bwd_delta, through its strides, or by the kernel, which
+    # forms delta itself (contiguous: a copy of a strided out on that path)
+    if bwd_forms_delta(P, f):
+        delta, out = None, out.contiguous()
+    else:
+        delta, out = bwd_delta(do, out), None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.dfgnn_flash_mask_bwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            adj.data_ptr(), None if val is None else val.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            adj.data_ptr(), None if val is None else val.data_ptr(), lse.data_ptr(),
+            None if delta is None else delta.data_ptr(), None if out is None else out.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, P, h, f, *_dropout_args(seed, rate), int(one),
             torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_mask_bwd")
@@ -746,6 +770,20 @@ def _check_layer_args(score, x, adj, ws, fp32s):
                      f"din={din} f={f}")
 
 
+def layer_dot_scratch_shape(B: int, P: int, h: int, f: int) -> Optional[tuple]:
+    """The shape of kernel #5's scratch, or None where it takes none.
+
+    Past f = 256 and P = 128 the kernel projects q, k and v of every live
+    node once into a scratch of x's dtype, ``[3, B, Pp, h, Fp]`` with
+    ``Pp = P`` rounded up to 16 and ``Fp = f`` rounded up to 128 (the C
+    entry point lays it out the same and refuses fewer elements), then
+    attends from it; every other shape projects inside its one block.
+    """
+    if f <= 256 or P <= 128:
+        return None
+    return (3, B, -(-P // 16) * 16, h, -(-f // 128) * 128)
+
+
 def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
                         precision: Optional[str] = None):
     """The whole GT layer forward: ``out`` ``[B, P, h, f]`` in x's dtype.
@@ -755,6 +793,12 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
     ``w*`` ``[h, din, f]`` of x's dtype, fp32 ``b*`` ``[h, f]``, uint8
     ``adj``, all contiguous, any P, f >= 1 (:func:`layer_fits`);
     ``precision`` as :func:`flash_mask_fwd`'s.  Anything else raises.
+    Past f = 256 the head goes in column chunks: at P <= 128 one block per
+    (graph, head) projects each node once and forms the scores once; past
+    it the C entry point launches twice, a projection of every live node
+    into a scratch of :func:`layer_dot_scratch_shape` (allocated here), then
+    an attention that forms the scores once per 64 query rows, key tile and
+    512 columns of ``out``: one #5 launch in the count.
     """
     if x.device.type == "cpu":
         return flash_layer_dot_fwd_plain(x, wq, bq, wk, bk, wv, bv, adj, scale=scale,
@@ -766,12 +810,16 @@ def flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, *, scale: float,
     B, P, din = x.shape
     h, _, f = wq.shape
     out = torch.empty((B, P, h, f), dtype=x.dtype, device=x.device)
+    shape = layer_dot_scratch_shape(B, P, h, f)
+    scratch = None if shape is None else torch.empty(shape, dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.dfgnn_flash_layer_dot_fwd(
             _DTYPE_CODES[x.dtype], x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(),
             bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), adj.data_ptr(), out.data_ptr(),
-            B, P, h, din, f, float(scale), int(one), torch.cuda.current_stream().cuda_stream)
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), B, P, h, din, f, float(scale), int(one),
+            torch.cuda.current_stream().cuda_stream)
     _cuda.raise_on(err, "flash_layer_dot_fwd")
     global LAYER_LAUNCHES
     LAYER_LAUNCHES += 1

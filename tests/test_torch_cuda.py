@@ -854,6 +854,114 @@ def test_wide_layer_kernels_match_plain(cuda, f, P, dtype):
         assert not got[empty].any()  # empty and padded rows give 0
 
 
+# The wide paths of #3 and #5: #3 past f = 256 in its whole-graph wide block
+# (P <= 128) and its wide row and column passes (past it); #5 past f = 256
+# and P = 128 through its projection launch and wide attention block (at
+# P <= 128 its whole block).  fp32 at both precisions and bf16, each against
+# its plain version: fp32 gradients as test_wide_head_kernels_match_plain
+# holds them, "default" within a TF32 step of each tensor's largest element
+# of the TF32-rounded plain version, bf16 at the bf16 bars.
+@pytest.mark.parametrize("prec", ["highest", "default", "bf16"])
+@pytest.mark.parametrize("P", [26, 128, 300])
+@pytest.mark.parametrize("f", [384, 512])
+def test_wide_paths_of_kernels_3_and_5_match_plain(cuda, f, P, prec):
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    precision = "default" if prec == "default" else None
+    step = 2 ** -10 if prec == "default" else 2 ** -6  # of the largest element
+    B, h = _BH[P]
+    q, k, v, adj, val = _inputs(60 + f + P, B, h, P, f, with_val=f == 512, dtype=dtype)
+    do = torch.from_numpy(np.random.default_rng(f + P).standard_normal(q.shape)
+                          .astype(np.float32)).cuda().to(dtype)
+    kw = dict(seed=0x5EED, rate=0.0 if P == 128 else 0.4, precision=precision)
+    want_out, want_lse = flash_mask.flash_mask_fwd_plain(q, k, v, adj, val, **kw)
+    got = flash_mask.flash_mask_bwd(q, k, v, adj, val, want_out, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_mask_bwd_plain(q, k, v, adj, val, want_lse, do,
+                                           flash_mask.bwd_delta(do, want_out), **kw)
+    if prec == "highest":
+        want64 = flash_mask.flash_mask_bwd_plain(*_f64(q, k, v), adj, *_f64(val, want_lse, do),
+                                                 flash_mask.bwd_delta(*_f64(do, want_out)), **kw)
+        for g, w64, w in zip(got, want64, want):
+            err = (g.double() - w64).abs()
+            if bool((err > 1e-4 + 1e-4 * w64.abs()).any()):
+                assert float(err.max()) <= 2 * float((w.double() - w64).abs().max())
+            assert bool(torch.isfinite(g).all())
+    else:
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=step * float(w.float().abs().max()))
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(70 + f + P, B, h, P, 72, f, dtype)
+    args = (x, wq, bq, wk, bk, wv, bv, adj)
+    out = flash_mask.flash_layer_dot_fwd(*args, scale=f ** -0.5, precision=precision)
+    torch.cuda.synchronize()
+    want = flash_mask.flash_layer_dot_fwd_plain(*args, scale=f ** -0.5, precision=precision)
+    assert out.dtype == dtype and out.shape == (B, P, h, f)
+    tol = (dict(rtol=0, atol=step * float(want.abs().max())) if prec == "default"
+           else _layer_tol(dtype))
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert not out[~adj.bool().any(-1)].any()  # empty and padded rows give 0
+
+
+@pytest.mark.parametrize("P,f", [(128, 512), (300, 384), (2176, 384)])
+def test_wide_bwd_is_deterministic(cuda, P, f):
+    """#3's wide blocks (the whole-graph one at P = 128, the row and column
+    passes past it, in windows past P = 2048) give bitwise equal gradients
+    on two launches: no atomics, every sum in a fixed order, the same
+    dropout bits."""
+    B, h = (2, 2) if P <= 300 else (1, 1)
+    q, k, v, adj, val = _inputs(80 + P, B, h, P, f, with_val=True)
+    do = torch.from_numpy(np.random.default_rng(P).standard_normal(q.shape)
+                          .astype(np.float32)).cuda()
+    kw = dict(seed=0x5EED, rate=0.3)
+    out, lse = flash_mask.flash_mask_fwd(q, k, v, adj, val, want_lse=True, **kw)
+    runs = [flash_mask.flash_mask_bwd(q, k, v, adj, val, out, lse, do, **kw) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_wide_layer_dot_counts_one_launch_a_call(cuda):
+    """Past f = 256 and P = 128, #5 launches twice a call (the projection,
+    then the attention) and counts one; its scratch is allocated only
+    there."""
+    for P, scratch in ((128, None), (300, (3, 2, 304, 1, 384))):
+        assert flash_mask.layer_dot_scratch_shape(2, P, 1, 300) == scratch
+        x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(5, 2, 1, P, 40, 300, torch.float32)
+        flash_mask.reset_launch_counts()
+        for _ in range(3):
+            flash_mask.flash_layer_dot_fwd(x, wq, bq, wk, bk, wv, bv, adj, scale=0.05)
+        torch.cuda.synchronize()
+        assert flash_mask.launch_counts() == (0, 0, 0, 0, 3, 0)
+
+
+def test_wide_entry_points_refuse_mismatched_buffers(cuda):
+    """The C entry points refuse, without a launch, what the wrapper's host
+    plans would give them if the plans and the C dispatch disagreed: #5's
+    scratch one element short past f = 256 and P = 128; #3 without delta
+    where its passes read it, and without out where its whole-graph wide
+    block forms delta."""
+    lib, invalid = flash_mask._library(), 1  # cudaErrorInvalidValue
+    stream = torch.cuda.current_stream().cuda_stream
+    x, (wq, wk, wv), (bq, bk, bv), adj = _layer_inputs(5, 2, 1, 300, 40, 300, torch.float32)
+    out = torch.empty((2, 300, 1, 300), device="cuda")
+    scratch = torch.empty(flash_mask.layer_dot_scratch_shape(2, 300, 1, 300), device="cuda")
+    ptrs = [t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, adj, out, scratch)]
+    for n, want in ((scratch.numel() - 1, invalid), (scratch.numel(), 0)):
+        assert lib.dfgnn_flash_layer_dot_fwd(0, *ptrs, n, 2, 300, 1, 40, 300, 0.05, 0,
+                                             stream) == want
+    for P, f, with_delta, with_out in ((300, 300, False, True), (128, 300, True, False),
+                                       (128, 128, False, True)):
+        q, k, v, adj, _ = _inputs(6, 1, 1, P, f)
+        lse = torch.zeros((1, 1, P), device="cuda")
+        grads = [torch.empty_like(q) for _ in range(3)]
+        err = lib.dfgnn_flash_mask_bwd(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), None, lse.data_ptr(),
+            lse.data_ptr() if with_delta else None, q.data_ptr() if with_out else None,
+            q.data_ptr(), *[g.data_ptr() for g in grads], 1, P, 1, f, 0, 0, 0, 1.0, 0, stream)
+        assert err == invalid, (P, f)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("conv", ["gt", "gat"])
 def test_wide_fused_layer_autograd_on_card_matches_cpu(cuda, conv):
     """A flash_fused conv at head dim 300 (one head): its forward and

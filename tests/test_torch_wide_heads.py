@@ -348,3 +348,20 @@ def test_wide_models_through_the_whole_layer_match_jax(conv):
     for name, p in params.items():
         np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(), **MODEL_TOL,
                                    err_msg=name)
+
+
+def test_wide_kernel_plans_on_the_host():
+    """The wrapper's plans of the wide paths: kernel #5 takes a scratch only
+    past f = 256 and P = 128, where it projects q, k, v into [3, B, Pp, h,
+    Fp] (Pp: P rounded up to 16, Fp: f rounded up to 128, the rounding the C
+    entry point derives); kernel #3 forms delta itself only in its
+    whole-graph wide block (f > 256, P <= 128).  The CPU path needs
+    neither."""
+    shape = flash_mask.layer_dot_scratch_shape
+    assert shape(4, 128, 2, 1024) is None and shape(4, 300, 2, 256) is None
+    assert shape(2, 129, 3, 257) == (3, 2, 144, 3, 384)
+    assert shape(64, 512, 1, 512) == (3, 64, 512, 1, 512)
+    assert shape(1, 2176, 1, 384) == (3, 1, 2176, 1, 384)
+    forms = flash_mask.bwd_forms_delta
+    assert forms(128, 257) and forms(1, 1024)
+    assert not forms(128, 256) and not forms(129, 512)
