@@ -105,9 +105,13 @@ six launch counts set to 0 just before it and read just after:
   ``method="dense"``; GAT's fig-1 ``Model`` at hidden 512 through #2, and
   a step through #2 and #4; #1 to #4 at f = 257, 384, 512, 1024 and P =
   26, 128, 300, 2048 and at P = 2176, f = 384 (fp32 and bf16, edge
-  values, dropout) against their plain versions (#3 past 256 through its
-  wide blocks), and timed at f = 512 beside their bounds and SDPA, #3 also
-  at 64 x 1 x 512 x 512; #1 to
+  values, dropout) against their plain versions (#1, #2 and #3 past 256
+  through their wide blocks); #1 and #2 also at f = 520 and 1030 (a partial
+  group of 512 columns; 1030's rows 4-byte aligned) and P = 26, 128, 300,
+  2049, with edge values and dropout, lse from the first column group,
+  two calls bitwise and the keep mask bitwise the hash's; #1 to #4 timed at
+  f = 512 beside their bounds and SDPA, #1 to #3 also at 64 x 1 x 512 x
+  512; #1 to
   #6 at ``precision="default"`` against their TF32-rounded plain versions
   (a TF32 step of each tensor's largest element), timed against
   ``"highest"``, which must equal the call without precision bitwise;
@@ -173,6 +177,13 @@ FP32_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX package's flash-vs-dense bar
 # bf16 outputs are O(1) values with 8 significant bits (a step of 2**-8 near
 # 1); ordering and ex rounding differences stay well inside 3e-2
 BF16_TOL = dict(rtol=0.0, atol=3e-2)
+# bf16 outputs past |out| = 4, where one bf16 step (2**-5) exceeds 3e-2: the
+# bf16 bar plus one rounding of the element (2**-8 of it).  With edge values
+# at P = 2049 the attention is peaked and out follows single rows of v, and
+# the kernel, rounding ex to bf16 against the running max over 33 key tiles,
+# puts some outputs one bf16 step from the plain version's (phase 26 at f =
+# 1030: 0.03125 at one element)
+BF16_OUT_TOL = dict(rtol=2.0 ** -8, atol=3e-2)
 # The backward in fp32: the kernel and cuBLAS sum dp over f and the products
 # over P in other orders; each sum of O(10) terms differs by a few fp32 ulps,
 # and atol 1e-4 leaves a tenfold margin over that.
@@ -273,6 +284,10 @@ WIDE_HIDDEN, WIDE_TABLE = 512, (1024, 1, 128, 512)
 WIDE_DIN = 72  # phase 27: #5 and #6 on the grid of WIDE_F x WIDE_P take x of this width
 WIDE_STREAM = (64, 1, 512, 512)  # phases 26, 27: #3, #5 and #6 timed past P = 128 at f = 512
 WIDE_PAST = (2176, 384)  # phases 26, 27: the point (P, f) past P = 2048, at (B, h) = (1, 1)
+# phase 26: #1 and #2 in their wide block at these head dims (a partial second
+# group of 512 columns; 1030's rows keep 4-byte alignment only) and node
+# counts (2049: a second window of keys, at (B, h) = (1, 1))
+WIDE_FWD_F, WIDE_FWD_P = (520, 1030), (26, 128, 300, 2049)
 # Phase 28: graphs past P = 2048.  #1 to #4 at these node counts ((B, h) per
 # P) and head dims, #5 and #6 at the first two head dims (din WIDE_DIN); #1
 # to #6 timed at LARGE_TABLE (din = f); the GT and GAT models at HIDDEN on
@@ -851,12 +866,64 @@ def attention_case(fm, seed, B, h, P, f, dtype, *, with_val, rate, precision=Non
     return line
 
 
-def time_attention_kernels(smi, shape, seed, names=("#1", "#3", "#2", "#4")):
+def wide_forward_case(fm, seed, B, h, P, f, dtype):
+    """#1 and #2 past f = 256 (their wide block) on ``attention_inputs``
+    with edge values and dropout, against their plain versions: out at
+    FP32_TOL or BF16_OUT_TOL (#2: fp32 scores beside v of ``dtype``), lse (which
+    the first group of 512 columns writes) at FP32_TOL, rows without an
+    edge 0, two calls bitwise equal; then, with every score 0 (q = k = 0,
+    e_row = e_col = 0) and v the one-hot rows, out[r, j] != 0 exactly where
+    edge (r, j) is kept by the hash (keys j < min(P, f)).  Returns the
+    printed line."""
+    from dfgnn_tpu_torch.data.synthetic import attention_inputs
+
+    q, k, v, adj, val = (torch.from_numpy(a).cuda()
+                         for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    rng = np.random.default_rng(seed + 1)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
+                    for _ in range(2))
+    kw = dict(seed=DROP_SEED, rate=0.4)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_OUT_TOL
+    no_edge = ~adj.bool().any(-1)  # [B, P]
+    J = min(P, f)
+    onehot = torch.eye(P, f, device="cuda").reshape(1, P, 1, f).expand(B, P, h, f)
+    onehot = onehot.to(dtype).contiguous()
+    keep = fm.dropout_factor(DROP_SEED, kw["rate"], B, h, P, adj.device)[..., :J] != 0
+    kept = keep & adj[:, None, :, :J].bool()  # [B, h, row, key]
+    zq, ze = torch.zeros_like(q), torch.zeros_like(e_row)
+    errs = {}
+    for name, fwd, plain, args, zargs in (
+            ("#1", fm.flash_mask_fwd, fm.flash_mask_fwd_plain, (q, k, v, adj, val),
+             (zq, zq, onehot, adj)),
+            ("#2", fm.flash_add_fwd, fm.flash_add_fwd_plain, (e_row, e_col, v, adj, val),
+             (ze, ze, onehot, adj))):
+        runs = [fwd(*args, want_lse=True, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        out, lse = runs[0]
+        if bool(out[no_edge].any()):
+            raise AssertionError(f"{name} P={P} f={f}: a row without an edge is not 0")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{name} P={P} f={f}: two calls differ")
+        want_out, want_lse = plain(*args, **kw)
+        errs[f"{name} out"] = max_err(out, want_out, tol)
+        errs[f"{name} lse"] = max_err(lse, want_lse, FP32_TOL)
+        got = fwd(*zargs, **kw)[0][..., :J].permute(0, 2, 1, 3) != 0
+        if not torch.equal(got, kept):
+            raise AssertionError(f"{name} P={P} f={f}: the kept edges differ from the hash's")
+    groups = len(fm.fwd_column_groups(f))
+    return (f"  f={f} P={P} B={B} h={h} {dtype} val=True rate={kw['rate']} ({groups} column "
+            f"groups): max abs err " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f"; two calls bitwise; the keep masks of keys < {J} bitwise the hash's")
+
+
+def time_attention_kernels(smi, shape, seed, names=("#1", "#3", "#2", "#4"), adj=None):
     """Those of #1 to #4 in ``names`` at ``shape`` (B, h, P, f) on
-    ``attention_inputs``, fp32: each timed in turns with its plain version,
-    beside its bound and SDPA's time (each score's SDPA timed only when one
-    of its kernels is named).  Returns {name: (ms, plain_ms, bound_ms,
-    bound_by, sdpa_ms)}."""
+    ``attention_inputs`` (``adj``, a uint8 [B, P, P] on the card, in place
+    of its adjacency when given), fp32: each timed in turns with its plain
+    version, beside its bound and SDPA's time (each score's SDPA timed only
+    when one of its kernels is named).  Returns {name: (ms, plain_ms,
+    bound_ms, bound_by, sdpa_ms)}."""
     import functools
 
     import torch.nn.functional as F
@@ -866,8 +933,9 @@ def time_attention_kernels(smi, shape, seed, names=("#1", "#3", "#2", "#4")):
     from dfgnn_tpu_torch.utils.benchmark import benchmark
 
     B, h, P, f = shape
-    q, k, v, adj, _ = (torch.from_numpy(a).cuda()
-                       for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
+    q, k, v, drawn, _ = (torch.from_numpy(a).cuda()
+                         for a in attention_inputs(np.random.default_rng(seed), B, h, P, f))
+    adj = drawn if adj is None else adj
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).cuda()
     e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
@@ -1094,8 +1162,9 @@ def wide_phase(smi):
     method="dense"; the fig-1 GAT Model at hidden 512 serves through #2 and
     takes a step through #2 and #4, against dense; #1 to #4 at f = 257, 384,
     512, 1024 and P = 26, 128, 300, 2048, and at WIDE_PAST, against their
-    plain versions; #1 to #4 timed at the table's shape at f = 512 beside
-    their bounds and SDPA, #3 also at WIDE_STREAM;
+    plain versions; #1 and #2 at WIDE_FWD_F x WIDE_FWD_P (wide_forward_case);
+    #1 to #4 timed at the table's shape at f = 512 beside their bounds and
+    SDPA, #1 to #3 also at WIDE_STREAM;
     #1 to #6 at precision="default" against their TF32-rounded plain
     versions at the table's shape, timed against "highest", and "highest"
     bitwise equal to no precision."""
@@ -1125,10 +1194,24 @@ def wide_phase(smi):
           f"plain version's error (printed beside); bf16 {BF16_TOL} and a bf16 step of each "
           f"gradient")
 
-    # #1 to #4 at the table's shape at f = 512, and #3 past P = 128 (its
-    # wide row and column passes): times beside bounds and SDPA
+    # #1 and #2 in their wide block where rows lose 16-byte alignment and
+    # a column group is partial
+    n = 0
+    for f in WIDE_FWD_F:
+        for P in WIDE_FWD_P:
+            for dtype in (torch.float32, torch.bfloat16):
+                B, h = WIDE_BH.get(P, (1, 1))
+                print(wide_forward_case(fm, 150 + n, B, h, P, f, dtype))
+                n += 1
+    print(f"#1 and #2 held in their wide block at {n} points (f in {WIDE_FWD_F}, P in "
+          f"{WIDE_FWD_P}, fp32 and bf16, edge values, dropout): out {FP32_TOL} (bf16 "
+          f"{BF16_OUT_TOL}), lse {FP32_TOL}")
+
+    # #1 to #4 at the table's shape at f = 512, and #1 to #3 past P = 128
+    # (#1's and #2's wide block, #3's wide row and column passes): times
+    # beside bounds and SDPA
     time_attention_kernels(smi, WIDE_TABLE, 60)
-    time_attention_kernels(smi, WIDE_STREAM, 61, names=("#3",))
+    time_attention_kernels(smi, WIDE_STREAM, 61, names=("#1", "#2", "#3"))
 
     # #1 to #6 at precision="default" against their TF32-rounded plain
     # versions at the table's shape, timed against "highest"; "highest"

@@ -15,8 +15,9 @@
 //   lse = l > 0 ? m + log(l) : -1e30  optional, [h, B, P] fp32
 // keep is the dropout factor of flash_common.cuh (1 without dropout): l sums
 // the undropped ex and lse does not see dropout, as in the Pallas kernel.
-// fp32 or bf16 v and out, any head dim f >= 1 (past 256 in chunks of 256,
-// flash_fwd.cuh); fp32 softmax and sums; ex . v in fp32 as 3xTF32, or one
+// fp32 or bf16 v and out, any head dim f >= 1 (past 256 the wide block of
+// flash_attend_wide.cuh, which forms the scores once per 512 columns and
+// stages no q or k); fp32 softmax and sums; ex . v in fp32 as 3xTF32, or one
 // TF32 pass (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs one

@@ -14,17 +14,18 @@
 // dropout).  v and out keep the JAX layout [B, P, h, f], any f >= 1: the
 // staged tiles are zero past f up to the instantiated width FI (32, 64, 128
 // or 256), which adds only 0 * 0 terms, and only f columns are stored.  Past
-// 256 the head dim goes in chunks of FI columns (the last zero past f), the
-// dot score's q . k^T summed over every chunk, each staged (#5: projected)
-// through the same Q rows and K tile, so shared memory stays that of one
-// chunk.  #1, #2 (FI = 256) and #6 (FI = 128) take the chunks as a grid
-// axis, the block of chunk c writing out's columns [FI c, FI c + FI) (chunk
-// 0's blocks also lse): every chunk re-forms the scores, and the dropout
-// keep factor, a hash of global ids, is the same in each.  #5 at P <= 128
-// loops over them in its whole block (FI = 128), its scores formed once;
-// past P = 128 it leaves this body (flash_layer_dot.cu's layer_dot_wide).
-// fp32 or bf16 v; fp32 softmax and sums; fp32 products as 3xTF32, or one
-// TF32 pass with `one` (precision "default").
+// f = 256 #1 and #2 leave this body for the wide block of
+// flash_attend_wide.cuh (16 warps over 64 rows and up to 512 columns, the
+// scores formed once per 512 columns), as #5 does past P = 128
+// (flash_layer_dot.cu's layer_dot_wide).  The wide policies of #5 (at P <=
+// 128) and #6 stay here and go in chunks of FI = 128 columns (the last zero
+// past f), #5's q . k^T summed over every chunk, each projected through the
+// same Q rows and K tile, so shared memory stays that of one chunk: #5
+// loops over them in its whole block, its scores formed once; #6 takes them
+// as a grid axis, the block of chunk c writing out's columns [FI c, FI c +
+// FI), each re-forming its cheap scores from the scalars.  fp32 or bf16 v;
+// fp32 softmax and sums; fp32 products as 3xTF32, or one TF32 pass with
+// `one` (precision "default").
 //
 // The score policies:
 // - DotScore (#1): s = q . k^T, q pre-scaled, q and k of v's type and shape.
@@ -91,10 +92,11 @@
 //     every output column.  Dot fp32 at FI = 128: 189 KB; at FI = 256: 211
 //     KB.  Add fp32 at FI = 128: 110 KB.
 // - Outputs leave through shared memory, 16 bytes a thread.
-// - Past f = 256 #5 and #6 run their wide policies, LayerScoreWide (at P <=
+// - Past f = 256 #1 and #2 run flash_attend_wide.cuh's block (flash_fwd
+//   routes them); #5 and #6 their wide policies, LayerScoreWide (at P <=
 //   128) and LayerAddWide (layer_fwd says how, and flash_layer_dot.cu and
 //   flash_layer_add.cu why); #5 past P = 128 projects into a scratch and
-//   attends in flash_layer_dot.cu's own blocks.
+//   attends in flash_attend_wide.cuh's block.
 // - Any P: the stream block takes its keys in windows of kWinKeys, scanning
 //   adj, flagging the live tiles and (#2, wide #6) staging e_col one window
 //   at a time, with the online softmax running on across windows, so its
@@ -105,29 +107,13 @@
 
 #include <type_traits>
 
-#include "flash_mma.cuh"
+#include "flash_attend_wide.cuh"
 
 namespace {
 
-// keys a stream block scans, flags and (#2, wide #6) keeps e_col of at a time
-constexpr int kWinKeys = 2048;
-
-// kChunked: the wide policies (#5 and #6 past f = 256), whose head dim goes
-// in chunks of FI columns
-template <typename T>
-struct DotScore {
-  static constexpr bool kDot = true, kProject = false, kChunked = false;
-  const T* q;  // [B, P, H, f], pre-scaled
-  const T* k;
-};
-
-struct AddScore {
-  static constexpr bool kDot = false, kProject = false, kChunked = false;
-  const float* e_row;  // [B, P, H] fp32
-  const float* e_col;
-  float slope;  // of the leaky ReLU
-};
-
+// DotScore and AddScore (#1, #2) are flash_attend_wide.cuh's.  kChunked: the
+// wide policies (#5 and #6 past f = 256), whose head dim goes in chunks of
+// FI columns.
 template <typename T>
 struct LayerScore {
   static constexpr bool kDot = true, kProject = true, kChunked = false;
@@ -172,11 +158,10 @@ struct LayerAddWide {
 template <typename Score, typename T, int FI, int WARPS, int KT, bool WHOLE>
 struct FwdCfg {
   static constexpr bool kDot = Score::kDot, kProject = Score::kProject;
-  // head dims past FI: a grid axis over chunks of FI columns (kGrid: #1 and
-  // #2 in the stream block, wide #6), or a loop over them in the block
-  // (kLoop: wide #5's whole block)
+  // head dims past FI: a grid axis over chunks of FI columns (kGrid: wide
+  // #6), or a loop over them in the block (kLoop: wide #5's whole block)
   static constexpr bool kLoop = Score::kChunked && WHOLE && kDot;
-  static constexpr bool kGrid = (!WHOLE && !kProject) || (Score::kChunked && !kLoop);
+  static constexpr bool kGrid = Score::kChunked && !kLoop;
   // add: e_row and e_col read from fp32 [B, P, H] (#2, wide #6), not formed
   // in the block (#6)
   static constexpr bool kReadE = !kDot && (!kProject || Score::kChunked);
@@ -340,11 +325,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       if (with_v)
         project(KRows{}, 2, j * KT, live, vs + size_t(st) * KT * C::ldv, C::ldv, col0);
     } else {
-      if constexpr (kDot) {
-        if (nc == 1)
-          stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, live,
-                            ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
-      }
+      if constexpr (kDot)
+        stage_rows<T, FI>(sc.k, base, row_stride, j * KT, KT, P, f, vec, live,
+                          ks + size_t(st) * KT * C::ldk, C::ldk, tid, C::kThreads);
       if (with_v || !kDot)
         stage_rows<T, FI>(v, vbase, row_stride, j * KT, KT, P, fv, vec, live,
                           vs + size_t(st) * KT * C::ldv, C::ldv, tid, C::kThreads);
@@ -427,19 +410,18 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
     live_w = wlive[warp] != 0u;
     const uint32_t qnew = qlive & ~qdone;  // the live warps whose rows are not yet in place
     qdone |= qnew;
-    // dot: Q (the new live warps' rows; wide: chunk by chunk with K in the
-    // loop over the chunks) and the window's first live key tile; add: its
-    // V; layer add stream: e_row of the new live warps' rows (their z,
-    // projected into the ex rows, is not used), then z and e_col of the first
-    // live key tile
+    // dot: Q (the new live warps' rows; wide #5: projected chunk by chunk
+    // with K in the loop over the chunks) and the window's first live key
+    // tile; add: its V; layer add stream: e_row of the new live warps' rows
+    // (their z, projected into the ex rows, is not used), then z and e_col
+    // of the first live key tile
     if constexpr (C::kProject && kDot) {
       if constexpr (!Score::kChunked) project(QRows{}, 0, r0, qnew, qs, C::ldq, 0);
     } else if constexpr (C::kProject && !WHOLE && !C::kReadE) {
       project_z(QRows{}, r0, qnew, qs, C::ldq, ers, nullptr);
     } else if constexpr (kDot) {
-      if (nc == 1)
-        stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qnew, qs, C::ldq,
-                          tid, C::kThreads);
+      stage_rows<T, FI>(sc.q, base, row_stride, r0, C::kRows, P, f, vec, qnew, qs, C::ldq, tid,
+                        C::kThreads);
     }
     int j = next_live(j0);
     stage_kv(j, st, !WHOLE);
@@ -472,25 +454,15 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
       const uint32_t nm = ntile_mask(gm);
       float s[NTS][4];
       if constexpr (kDot) zero_acc(s);
-      if constexpr (kDot && (C::kGrid || C::kLoop)) {
-        // wide: q . k^T summed over the chunks of FI columns, each chunk's Q
-        // rows and K tile staged (layer: projected) into the one Q buffer and
-        // this stage's K tile
-        for (int cc = 0; cc < (nc > 1 || Score::kChunked ? nc : 0); ++cc) {
+      if constexpr (C::kLoop) {
+        // wide #5: q . k^T summed over the chunks of FI columns, each chunk's
+        // Q rows and K tile projected into the one Q buffer and this stage's
+        // K tile
+        for (int cc = 0; cc < nc; ++cc) {
           const int fc = min(FI, f - cc * FI);
-          if constexpr (C::kProject) {
-            project(QRows{}, 0, r0, qlive, qs, C::ldq, cc * FI);
-            project(KRows{}, 1, j * KT, tmask[j - j0], ks + size_t(st) * KT * C::ldk, C::ldk,
-                    cc * FI);
-          } else {
-            stage_rows<T, FI>(sc.q, base + cc * FI, row_stride, r0, C::kRows, P, fc, vec, qlive,
-                              qs, C::ldq, tid, C::kThreads);
-            stage_rows<T, FI>(sc.k, base + cc * FI, row_stride, j * KT, KT, P, fc, vec,
-                              tmask[j - j0], ks + size_t(st) * KT * C::ldk, C::ldk, tid,
-                              C::kThreads);
-            cp_async_commit();
-            cp_async_wait<0>();
-          }
+          project(QRows{}, 0, r0, qlive, qs, C::ldq, cc * FI);
+          project(KRows{}, 1, j * KT, tmask[j - j0], ks + size_t(st) * KT * C::ldk, C::ldk,
+                  cc * FI);
           __syncthreads();
           if (gm != 0u)
             for (int k0 = 0; k0 < fc; k0 += KS)
@@ -499,11 +471,9 @@ flash_fwd_kernel(Score sc, const T* __restrict__ v, const uint8_t* __restrict__ 
         }
       }
       if (gm != 0u) {
-        if constexpr (kDot && !Score::kChunked) {
-          if (nc == 1)
-            for (int k0 = 0; k0 < kf; k0 += KS)
-              mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
-        }
+        if constexpr (kDot && !Score::kChunked)
+          for (int k0 = 0; k0 < kf; k0 += KS)
+            mma_step<NTS, false, true, ONE>(s, qw, C::ldq, kt, C::ldk, k0, 0, nm);
         // score, mask, scale by val, running max of rows g and g + 8.  Whole: the
         // block's one tile starts at key 0, and rows g and g + 8 keep their
         // edge bits in registers, 32 keys a word (rows and keys past P have
@@ -787,13 +757,36 @@ cudaError_t launch_fi(Score sc, const void* v, const uint8_t* adj, const float* 
                                             stream);
 }
 
+// #1 and #2 past f = 256: flash_attend_wide.cuh's block on the caller's
+// [B, P, H, f] tensors, rows staged at the cp.async width f keeps.
+template <typename Score, typename T>
+cudaError_t flash_fwd_wide(Score sc, const void* v, const uint8_t* adj, const float* val,
+                           void* out, float* lse, int B, int P, int H, int f, Dropout drop,
+                           bool one, cudaStream_t stream) {
+  const WideRows lay{long(P) * H * f, long(H) * f, f, f, fill_bytes<T>(f)};
+  const auto* vt = static_cast<const T*>(v);
+  auto* ot = static_cast<T*>(out);
+  const bool a16 = lay.vec == 16;
+  if constexpr (std::is_same_v<T, float>) {
+    if (one)
+      return (a16 ? launch_attend_wide<Score, T, true, true>
+                  : launch_attend_wide<Score, T, true, false>)(sc, vt, lay, adj, val, ot, lse, B,
+                                                               P, H, f, drop, stream);
+  }
+  return (a16 ? launch_attend_wide<Score, T, false, true>
+              : launch_attend_wide<Score, T, false, false>)(sc, vt, lay, adj, val, ot, lse, B, P,
+                                                            H, f, drop, stream);
+}
+
 // Checks the shape and launches the forward of score policy `sc` (#1 or #2)
-// for v of type T: P >= 1, f >= 1 (past 256 in chunks of 256).
+// for v of type T: P >= 1, f >= 1 (past 256 the wide block).
 template <typename Score, typename T>
 cudaError_t flash_fwd(Score sc, const void* v, const uint8_t* adj, const float* val, void* out,
                       float* lse, int B, int P, int H, int f, Dropout drop, bool one,
                       cudaStream_t stream) {
   if (B < 1 || H < 1 || P < 1 || f < 1) return cudaErrorInvalidValue;
+  if (f > 256)
+    return flash_fwd_wide<Score, T>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
   if (f <= 32)
     return launch_fi<Score, T, 32>(sc, v, adj, val, out, lse, B, P, H, f, drop, one, stream);
   if (f <= 64)

@@ -14,9 +14,10 @@
 // dropout).  Inputs and the output keep the JAX layout [B, P, h, f], any f
 // >= 1: the staged tiles are zero past f up to the instantiated width FI
 // (32, 64, 128 or 256), which adds only 0 * 0 terms, and only f columns are
-// stored; past 256 a grid axis takes the columns in chunks of 256
-// (flash_fwd.cuh).  fp32 or bf16 inputs; fp32 softmax and sums; fp32
-// products as 3xTF32, or one TF32 pass (precision "default").
+// stored; past 256 the wide block of flash_attend_wide.cuh takes 64 rows
+// and up to 512 columns, the scores formed once per 512 columns.  fp32 or
+// bf16 inputs; fp32 softmax and sums; fp32 products as 3xTF32, or one TF32
+// pass (precision "default").
 //
 // What bounds it on an H100 SXM (data-sheet peaks): the function needs its
 // two products only on the edges.  At the table's shape (B=1024, h=1, P=128,
@@ -28,7 +29,8 @@
 //
 // Design: the shared forward body of flash_fwd.cuh with its dot-score
 // policy (DotScore: Q rows and K tiles staged, s = q . k^T by mma.sync),
-// which also serves the additive score (#2, flash_add_fwd.cu).
+// which also serves the additive score (#2, flash_add_fwd.cu); past f = 256
+// flash_attend_wide.cuh's block, which also serves #2 and #5 there.
 
 #include "flash_fwd.cuh"
 

@@ -335,7 +335,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // The widest cp.async copy whose alignment rows of f elements of T keep:
 // 16, 4, or 0 (none: loads through registers).
 template <typename T>
-int fill_bytes(int f) {
+__host__ __device__ int fill_bytes(int f) {
   const int row = f * int(sizeof(T));
   return row % 16 == 0 ? 16 : row % 4 == 0 ? 4 : 0;
 }

@@ -46,10 +46,10 @@ from dfgnn_tpu_torch.ops.dense_block import NEG_BIG
 DEAD = 0.5 * NEG_BIG  # row-max clamp: exp(s - m) underflows to 0 on masked lanes
 
 # What the kernels take: any head dim f >= 1 (the tiles are zero past f; #1,
-# #2 and #4 past 256 in chunks of 256 columns, #3 in wide blocks that form
-# the scores once per 512 columns, #5 and #6 past 256 in chunks of 128) and
-# any node count P >= 1 (past 2048 their blocks walk adj in windows of 2048
-# keys or rows, so their shared memory stays that of P = 2048); their
+# #2 and #3 past 256 in wide blocks that form the scores once per 512
+# columns, #4 in chunks of 256 columns, #5 and #6 past 256 in chunks of 128)
+# and any node count P >= 1 (past 2048 their blocks walk adj in windows of
+# 2048 keys or rows, so their shared memory stays that of P = 2048); their
 # in-graph offsets are 64-bit, so no P is refused.
 PRECISIONS = ("highest", "default")
 # #4 at P > KERNEL_KEYS: each block of this many keys writes its share of
@@ -681,9 +681,26 @@ def flash_takes(score: str, P: int, f: int) -> bool:
     """Whether the flash kernels of ``score`` (#1 and #3, or #2 and #4) take
     a DenseBatch of ``P`` nodes and head dim ``f``: the shape rule of
     ``method="auto"``.  Both scores take the same set: any f >= 1 (past 256
-    in chunks of 256 columns) and P >= 1 (past 2048 in windows of 2048 keys
-    or rows), so ``auto`` takes flash at every shape, as JAX takes Pallas."""
+    in wide blocks, :func:`fwd_column_groups`) and P >= 1 (past 2048 in
+    windows of 2048 keys or rows), so ``auto`` takes flash at every shape,
+    as JAX takes Pallas."""
     return f >= 1 and P >= 1
+
+
+WIDE_COLS = 512  # columns of out a wide forward block of #1 and #2 holds
+
+
+def fwd_column_groups(f: int) -> tuple:
+    """The column groups ``(first column, width)`` over which the forward
+    kernels #1 and #2 split a head of dim ``f``: the whole head up to f =
+    256, past it groups of WIDE_COLS columns (the last one partial), each
+    group's blocks forming every score again and writing its columns of
+    ``out``, group 0's blocks also ``lse`` (every group forms the same l,
+    so its lse is theirs).  The C entry points keep the same rule."""
+    if f < 1:
+        raise ValueError(f"f must be >= 1, got {f}")
+    width = f if f <= 256 else WIDE_COLS
+    return tuple((c, min(width, f - c)) for c in range(0, f, width))
 
 
 def _layer_project(x, w, b, scale: float = 1.0, tf32: bool = False):

@@ -159,10 +159,10 @@ def test_tensor_core_kernels_match_plain(cuda, f, P, dtype):
             torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=2 ** -6 * scale)
 
 
-# Head dims past 256: #1 to #4 take them in chunks of 256 columns, at the
-# single-block and the streaming P, in both dtypes; edge values at f = 257
-# and 512, dropout at P = 26 and 300 (chip_smoke.py phase 26 holds the same
-# grid).
+# Head dims past 256: #1 to #3 take them in wide blocks, #4 in chunks of 256
+# columns, at the single-block and the streaming P, in both dtypes; edge
+# values at f = 257 and 512, dropout at P = 26 and 300 (chip_smoke.py phase
+# 26 holds the same grid).
 WIDE_F = (257, 384, 512, 1024)
 
 
@@ -181,6 +181,48 @@ def test_wide_head_kernels_match_plain(cuda, f, P, dtype):
     B, h = _BH[P]
     _hold_attention_kernels(40 + f + P, f + P, B, h, P, f, dtype, with_val=f in (257, 512),
                             rate=0.4 if P in (26, 300) else 0.0)
+
+
+# #1 and #2 past f = 256 run a wide block of 64 rows by up to 512 columns:
+# f = 520 and 1030 leave a partial last group of columns, and 1030's rows
+# (4120 bytes in fp32, 2060 in bf16) keep only 4-byte alignment; P = 2049
+# walks a second window of keys.  Edge values and dropout at every point.
+WIDE_FWD_F, WIDE_FWD_P = (520, 1030), (26, 128, 300, 2049)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", WIDE_FWD_P)
+@pytest.mark.parametrize("f", WIDE_FWD_F)
+def test_wide_forward_block_matches_plain(cuda, f, P, dtype):
+    """#1 and #2 in their wide block against their plain versions: out at
+    the fp32 bar, or in bf16 at the bf16 bar plus one bf16 rounding of the
+    element (2**-8 of it: with edge values at P = 2049 outputs pass 4, where
+    one bf16 step, 2**-5, exceeds atol 3e-2; chip_smoke.py's BF16_OUT_TOL);
+    #2's scores fp32 beside v of ``dtype``; lse, which the first column
+    group writes, at the fp32 bar; rows without an edge 0; a second call
+    bitwise equal."""
+    B, h = _BH.get(P, (1, 1))
+    q, k, v, adj, val = _inputs(90 + f + P, B, h, P, f, with_val=True, dtype=dtype)
+    rng = np.random.default_rng(f + P)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32)).cuda()
+                    for _ in range(2))
+    kw = dict(seed=0x5EED, rate=0.4)
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2.0 ** -8, atol=3e-2))
+    no_edge = ~adj.bool().any(-1)
+    for fwd, plain, args in ((flash_mask.flash_mask_fwd, flash_mask.flash_mask_fwd_plain,
+                              (q, k, v, adj, val)),
+                             (flash_mask.flash_add_fwd, flash_mask.flash_add_fwd_plain,
+                              (e_row, e_col, v, adj, val))):
+        runs = [fwd(*args, want_lse=True, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        want_out, want_lse = plain(*args, **kw)
+        out, lse = runs[0]
+        assert out.dtype == dtype
+        torch.testing.assert_close(out.float(), want_out.float(), **tol)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+        assert not out[no_edge].any()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _hold_attention_kernels(seed, grad_seed, B, h, P, f, dtype, *, with_val, rate):
@@ -335,11 +377,13 @@ def test_tensor_core_kernels_are_deterministic(cuda, P):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("P", [32, 200])
+@pytest.mark.parametrize("P", [32, 200, 1030])
 def test_dot_dropout_mask_is_dropout_factor(cuda, P):
     """With q = k = 0 every edge weighs 1 / degree, and v = one-hot of the key
     reads each weight out: the kernel's kept edges are exactly those of
-    dropout_factor (the edge hash), and the kept weights carry its scale."""
+    dropout_factor (the edge hash), and the kept weights carry its scale.
+    At P = f = 1030 the wide block's three column groups, its 4-byte rows
+    and its unaligned adj rows."""
     B, h, rate, seed = 2, 2, 0.4, 0x5EED
     _, _, _, adj, _ = _inputs(32, B, h, P, 8)
     zeros = torch.zeros(B, P, h, P, device=cuda)
@@ -567,6 +611,7 @@ def test_add_kernels_match_plain_bf16(cuda, case):
     (8, 2, 64, 64, True),      # every fourth graph empty
     (2, 1, 300, 256, False),   # the streaming block: the first 256 keys' columns
     (2, 2, 128, 64, False),    # f = 64 < P: the first 64 keys' columns
+    (2, 2, 1030, 1030, False),  # the wide block: three column groups, 4-byte rows
 ])
 def test_add_dropout_keeps_the_hash_mask(cuda, B, h, P, f, holes):
     """With v = one-hot columns, out[r, c] = ex[r, c] * keep / l: the kept

@@ -1,8 +1,9 @@
 """Head dims past 256 and the ``precision`` switch of the flash entry points,
 against the JAX package (CPU).
 
-Kernels #1 to #6 take any head dim (on the card #1 to #4 past 256 in chunks
-of 256 columns, the whole-layer kernels #5 and #6 in chunks of 128 or 256);
+Kernels #1 to #6 take any head dim (on the card #1 to #3 past 256 in wide
+blocks that form the scores once per 512 columns, #4 in chunks of 256
+columns, the whole-layer kernels #5 and #6 in chunks of 128 or 256);
 on CPU tensors the port's autograd Functions run their plain versions.
 The JAX Pallas kernels run in interpret mode at P <= 32, B*h <= 8, under
 ``jax.jit``.  JAX on the CPU computes fp32 products whatever the precision,
@@ -365,3 +366,39 @@ def test_wide_kernel_plans_on_the_host():
     forms = flash_mask.bwd_forms_delta
     assert forms(128, 257) and forms(1, 1024)
     assert not forms(128, 256) and not forms(129, 512)
+
+
+def test_wide_forward_column_groups_on_the_host():
+    """The column groups of the forward kernels #1 and #2
+    (fwd_column_groups): the whole head up to f = 256, past it groups of
+    512 columns, the last one partial, covering [0, f) once.  Each group's
+    out is the head's columns and its lse the head's (the scores do not
+    depend on v), so the first group's lse, the only one the wide block
+    writes, serves every group: checked on both plain versions with edge
+    values and dropout."""
+    groups = flash_mask.fwd_column_groups
+    assert groups(1) == ((0, 1),) and groups(256) == ((0, 256),)
+    assert groups(257) == ((0, 257),)
+    assert groups(520) == ((0, 512), (512, 8))
+    assert groups(1030) == ((0, 512), (512, 512), (1024, 6))
+    for f in (300, 1024, 1537):
+        cols = [c + i for c, w in groups(f) for i in range(w)]
+        assert cols == list(range(f)) and all(w <= 512 for _, w in groups(f))
+    with pytest.raises(ValueError):
+        groups(0)
+    B, h, P, f = 2, 2, 24, 520
+    q, k, v, adj, val = (torch.from_numpy(a) for a in
+                         attention_inputs(np.random.default_rng(5), B, h, P, f))
+    rng = np.random.default_rng(6)
+    e_row, e_col = (torch.from_numpy(rng.standard_normal((B, P, h)).astype(np.float32))
+                    for _ in range(2))
+    kw = dict(seed=7, rate=RATE)
+    for fwd, scores in ((flash_mask.flash_mask_fwd_plain, (q, k)),
+                        (flash_mask.flash_add_fwd_plain, (e_row, e_col))):
+        out, lse = fwd(*scores, v, adj, val, **kw)
+        parts = [fwd(*scores, v[..., c:c + w].contiguous(), adj, val, **kw)
+                 for c, w in groups(f)]
+        torch.testing.assert_close(torch.cat([o for o, _ in parts], dim=-1), out,
+                                   rtol=1e-6, atol=1e-7)
+        for _, group_lse in parts:
+            assert torch.equal(group_lse, lse)
